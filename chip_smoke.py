@@ -1,0 +1,353 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
+holds the closed-form device function exhaustively and both kernels exactly
+against their plain torch versions, then serves 56 images (full-HD frames,
+512×512 test images, ragged shapes) through
+``EdgeDetectService("approx_cuda")`` in five timed windows and checks every
+served map byte for byte against the plain pipeline. One more window runs
+under ``torch.profiler`` and the port's span tracer; its Chrome trace goes to
+``chiprun_out/chip_smoke_trace.json``. Every phase prints one JSON line; the
+line before the last lists the kernels with their launches on the served
+path, their times and least-work bounds, and the last line is
+``{"ok": true, "device": ...}``.
+Any failed check raises, so the exit code is non-zero and no result line is
+printed. Needs CUDA; exits non-zero without it. Imports no JAX.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 at 3.35 TB/s; INT32 at
+# 16.75 TOP/s = the 67 TFLOP/s fp32 rate / 2 (an FMA counts two) / 2 (Hopper
+# SMs have 64 INT32 lanes beside 128 FP32 lanes, Hopper white paper).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 2 / 2
+WINDOWS = 5  # timed passes over the served mix, within one run
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
+            f"{tuple(want.shape)} {want.dtype}")
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device time of one call, from CUDA events around ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    """Least time on the card: the larger of the bytes over the HBM rate and
+    the integer operations over the INT32 rate, and which of the two it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def table_ops(coeffs, n_bits: int) -> tuple[int, int]:
+    """(distinct coefficients, operations to tabulate them). With a
+    coefficient c fixed at launch, the product f(x, c) is a function of x
+    alone: a table of 2^N entries per distinct c, counted at one operation
+    per entry (a lower count than any closed form, so the bound stays a
+    least time)."""
+    distinct = len({int(c) for c in np.asarray(coeffs).ravel()})
+    return distinct, distinct << n_bits
+
+
+def device_busy(trace_path: Path) -> tuple[float, dict]:
+    """(union of device activity in µs, µs per kernel/copy name) from a
+    ``torch.profiler`` Chrome trace; both empty if it holds no device event."""
+    events = json.loads(trace_path.read_text()).get("traceEvents", [])
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_name: dict = {}
+    for e in dev:
+        # ATen's templated kernel names → the op inside, e.g. rshift_kernel_cuda
+        m = re.search(r"::(\w+_cuda|launch_\w+)\(", e["name"])
+        name = m.group(1) if m else e["name"].split("(int")[0]
+        by_name[name] = by_name.get(name, 0.0) + float(e["dur"])
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                         for e in dev):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return busy, by_name
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this run needs "
+              "a CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core import lut as lut_lib
+    from repro_torch.core import multiplier as mult
+    from repro_torch.data import image_batch, mixed_shape_batch, photo_like
+    from repro_torch.kernels import build
+    from repro_torch.kernels.approx_matmul.ops import (closed_form_matmul,
+                                                       closed_form_matmul_plain)
+    from repro_torch.kernels.fused_conv.ops import (fused_conv2d,
+                                                    fused_conv2d_plain)
+    from repro_torch.nn import conv
+    from repro_torch.nn import substrate as sub
+    from repro_torch.obs.trace import Tracer, tracing_scope
+    from repro_torch.serving import EdgeDetectService
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    # -- 1. device --------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    emit("device", name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), nvidia_smi=card,
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    # -- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    paths = build.build(build.SOURCES)
+    emit("build", seconds=round(time.perf_counter() - t0, 3),
+         libraries={k: str(v.name) for k, v in paths.items()},
+         ptxas={k: [ln.strip() for ln in build.build_log(k).splitlines()
+                    if "registers" in ln or "spill" in ln]
+                for k in build.SOURCES})
+
+    # -- 3. closed form, exhaustive: 9 wirings x widths 3..8 ----------------
+    n_pairs = 0
+    for name in sorted(mult.WIRINGS):
+        for n in range(3, 9):
+            key = f"{name}@{n}"
+            v = torch.arange(-(1 << (n - 1)), 1 << (n - 1), dtype=torch.int32,
+                             device=dev)
+            got = closed_form_matmul(v[:, None], v[None, :], key)
+            want = torch.from_numpy(lut_lib.build_lut(key).copy()).to(dev)
+            require(torch.equal(got, want), f"closed form {key} vs build_lut")
+            n_pairs += v.numel() ** 2
+    torch.cuda.synchronize()
+    emit("closed_form_exhaustive", wirings=len(mult.WIRINGS), widths=[3, 8],
+         pairs=n_pairs, max_abs_err=0)
+
+    # -- 4. kernels vs plain ------------------------------------------------
+    lap = conv.LAPLACIAN
+    taps_lap = tuple(tuple(int(c) for c in row) for row in lap)
+    k5 = rng.integers(-8, 9, (5, 5)).astype(np.int32)
+    conv_cases = [((8, 1088, 1920), lap, "proposed"),
+                  ((3, 33, 47), lap, "proposed"),
+                  ((5, 17, 129), lap, "proposed"),
+                  ((2, 40, 70), k5, "proposed"),
+                  ((3, 33, 47), lap, "design_strollo2020@4"),
+                  ((3, 33, 47), lap, "csp_axc5@4")]
+    errs = {"fused_conv": 0, "approx_matmul": 0}
+    for shape, kern, key in conv_cases:
+        hi = 1 << (mult.split_width(key)[1] - 1)
+        x = torch.from_numpy(rng.integers(-hi, hi, shape).astype(np.int32)).to(dev)
+        taps = tuple(tuple(int(c) for c in row) for row in kern)
+        e = max_abs_err(fused_conv2d(x, kern, key),
+                        fused_conv2d_plain(x, taps, mult.canonical_key(key)))
+        errs["fused_conv"] = max(errs["fused_conv"], e)
+        emit("fused_conv_vs_plain", shape=list(shape), kernel=list(kern.shape),
+             mult=key, max_abs_err=e, tolerance=0)
+        require(e == 0, f"fused conv {shape} {key}")
+    mm_cases = [(1, 1000, 777, 333, "proposed"), (4, 65, 9, 3, "proposed"),
+                (1, 8 * 1088 * 1920, 9, 1, "proposed"),
+                (1, 17, 33, 9, "design_strollo2020@4")]
+    for b, m, k, n, key in mm_cases:
+        hi = 1 << (mult.split_width(key)[1] - 1)
+        a = torch.from_numpy(rng.integers(-hi, hi, (b, m, k)).astype(np.int32)).to(dev)
+        w = torch.from_numpy(rng.integers(-hi, hi, (b, k, n)).astype(np.int32)).to(dev)
+        e = max_abs_err(closed_form_matmul(a, w, key),
+                        closed_form_matmul_plain(a, w, mult.canonical_key(key)))
+        errs["approx_matmul"] = max(errs["approx_matmul"], e)
+        emit("approx_matmul_vs_plain", shape=[b, m, k, n], mult=key,
+             max_abs_err=e, tolerance=0)
+        require(e == 0, f"approx matmul {(b, m, k, n)} {key}")
+    torch.cuda.synchronize()
+
+    # -- 5. main path: EdgeDetectService("approx_cuda") ---------------------
+    hd = [photo_like(1080, 1920, seed=i) for i in range(32)]
+    tiles = list(image_batch(16, 512, 512, seed=0))
+    ragged = mixed_shape_batch(8, seed=0)
+    images = hd + tiles + ragged
+    s = sub.get_substrate("approx_cuda")
+
+    def plain_map(img: np.ndarray) -> np.ndarray:
+        """The plain twins called by name, on the card."""
+        px = conv.to_signed_pixels(torch.from_numpy(img)[None].to(dev), 8)
+        raw = fused_conv2d_plain(px, taps_lap, "proposed")
+        return torch.clamp(raw, 0, 255).to(torch.uint8)[0].cpu().numpy()
+
+    def window(svc) -> tuple[list, dict]:
+        """Serve the whole mix once, all requests queued at once."""
+        svc.metrics.reset()
+        t0 = time.perf_counter()
+        maps = svc.detect(images, timeout=300.0)
+        wall = time.perf_counter() - t0
+        st = svc.metrics.snapshot()
+        require(st["requests_served"] == len(images) and
+                st["requests_failed"] == 0, f"served {st}")
+        return maps, {"wall_s": wall, "images_per_s": len(images) / wall,
+                      "latency_p50_ms": st["latency_p50_ms"],
+                      "latency_p99_ms": st["latency_p99_ms"],
+                      "batches": st["batches_flushed"]}
+
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    svc = EdgeDetectService("approx_cuda", max_batch_size=8,
+                            bucket_granularity=16, n_workers=2)
+    try:
+        svc.detect(hd[:8] + tiles[:8] + ragged)  # warm-up: every bucket shape
+        torch.cuda.synchronize()
+        fused_conv2d.launches.reset()
+        closed_form_matmul.launches.reset()
+        served, first = window(svc)
+        windows = [first]
+        for _ in range(WINDOWS - 1):
+            maps, w = window(svc)
+            require(all(np.array_equal(a, b) for a, b in zip(maps, served)),
+                    "served maps differ between windows")
+            windows.append(w)
+        # kernel 2 on the main path: one im2col batch of the 512x512 set
+        tile_dev = torch.from_numpy(np.stack(tiles)).to(dev)
+        im2col_raw = conv.conv2d_batched(conv.to_signed_pixels(tile_dev, 8),
+                                         lap, s, fused=False)
+        torch.cuda.synchronize()
+        launches = {"fused_conv": fused_conv2d.launches.value,
+                    "approx_matmul": closed_form_matmul.launches.value}
+        # one more window under torch.profiler (device activity) and the
+        # port's span tracer (host phases); not counted in `windows`
+        tracer = Tracer()
+        with tracing_scope(tracer), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, traced = window(svc)
+            torch.cuda.synchronize()
+        trace_path = out_dir / "chip_smoke_trace.json"
+        prof.export_chrome_trace(str(trace_path))
+    finally:
+        svc.close()
+    require(all(v > 0 for v in launches.values()), f"launches {launches}")
+    for img, out in zip(images, served):
+        require(out.shape == img.shape and out.dtype == np.uint8,
+                f"served map shape {out.shape} {out.dtype}")
+        require(np.array_equal(out, plain_map(img)),
+                f"served map differs from the plain pipeline at {img.shape}")
+    im2col_maps = torch.clamp(im2col_raw, 0, 255).to(torch.uint8).cpu().numpy()
+    require(np.array_equal(im2col_maps, np.stack(served[32:48])),
+            "im2col (approx_matmul) maps differ from the served maps")
+    # reference on small inputs: the core multiplier model's tap loop (CPU)
+    for img, out in zip(ragged, served[48:]):
+        ref = conv.edge_detect(torch.from_numpy(img), "proposed").numpy()
+        require(np.array_equal(out, ref), f"ragged {img.shape} vs tap loop")
+    exact = conv.edge_detect_batched(tile_dev, "exact").cpu().numpy()
+    psnr = float(np.mean([conv.psnr(exact[i], served[32 + i])
+                          for i in range(len(tiles))]))
+    rates = sorted(w["images_per_s"] for w in windows)
+    emit("main_path", images=len(images), windows=windows,
+         images_per_s_median=rates[len(rates) // 2],
+         images_per_s_min=rates[0], images_per_s_max=rates[-1],
+         launches=launches, psnr_proposed8_vs_exact_512_db=round(psnr, 4),
+         byte_identical=True)
+    busy_us, by_name = device_busy(trace_path)
+    spans: dict = {}
+    for e in tracer.events():
+        spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
+    emit("main_path_trace", trace=str(trace_path.relative_to(out_dir.parent)),
+         window=traced,
+         device_busy_ms=busy_us / 1e3 if by_name else None,
+         device_idle_share=(1 - busy_us / 1e6 / traced["wall_s"]
+                            if by_name else None),
+         device_ms_by_name={k: v / 1e3 for k, v in sorted(
+             by_name.items(), key=lambda kv: -kv[1])[:8]},
+         host_span_ms_summed_over_threads=spans)
+
+    # -- 6. kernel times at the shapes the main path gives them -------------
+    # bound: the least work at these inputs (see table_ops), every int32
+    # input read once and every int32 output written once
+    n_bits = mult.split_width("proposed")[1]
+    b, h, w = 8, 1088, 1920  # a full batch of full-HD frames, bucket-padded
+    x = conv.to_signed_pixels(torch.from_numpy(
+        np.stack([np.pad(f, ((0, 8), (0, 0))) for f in hd[:8]])).to(dev), 8)
+    fc_ms = time_ms(lambda: fused_conv2d(x, lap, "proposed"))
+    fc_plain_ms = time_ms(lambda: fused_conv2d_plain(x, taps_lap, "proposed"))
+    distinct, tab = table_ops(lap, n_bits)
+    # per input pixel one table read per distinct tap, per output kh·kw-1 adds
+    fc_ops = tab + b * h * w * (distinct + lap.size - 1)
+    fc_bytes = 4 * (2 * b * h * w + lap.size)
+    fc_bound, fc_by = bound_ms(fc_bytes, fc_ops)
+    pm, pk = len(tiles) * 512 * 512, lap.size
+    a_mm = conv._im2col(conv.to_signed_pixels(tile_dev, 8), 3, 3).reshape(1, pm, pk)
+    w_mm = torch.from_numpy(lap.reshape(1, pk, 1)).to(dev)
+    mm_ms = time_ms(lambda: closed_form_matmul(a_mm, w_mm, "proposed"))
+    mm_plain_ms = time_ms(lambda: closed_form_matmul_plain(a_mm, w_mm, "proposed"))
+    mm_ops = tab + pm * (pk + pk - 1)  # per row K table reads, K-1 adds
+    mm_bytes = 4 * (pm * pk + pk + pm)
+    mm_bound, mm_by = bound_ms(mm_bytes, mm_ops)
+    kernels = [
+        {"name": "fused_conv2d", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_conv.cu",
+         "replaces": "src/repro/kernels/fused_conv/kernel.py:59",
+         "launches": launches["fused_conv"],
+         "max_abs_err": errs["fused_conv"], "ms": fc_ms,
+         "plain_ms": fc_plain_ms, "bound_ms": fc_bound, "bound_by": fc_by,
+         "library_ms": None, "shape": [b, h, w, 3, 3]},
+        {"name": "closed_form_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/approx_matmul.cu",
+         "replaces": "src/repro/kernels/approx_matmul/kernel.py:59",
+         "launches": launches["approx_matmul"],
+         "max_abs_err": errs["approx_matmul"], "ms": mm_ms,
+         "plain_ms": mm_plain_ms, "bound_ms": mm_bound, "bound_by": mm_by,
+         "library_ms": None, "shape": [1, pm, pk, 1]},
+    ]
+    emit("kernel_times", card=card, int32_peak_ops_per_s=INT32_OPS_PER_S,
+         hbm_bytes_per_s=HBM_BYTES_PER_S,
+         least_work={"fused_conv2d": {"bytes": fc_bytes, "ops": fc_ops},
+                     "closed_form_matmul": {"bytes": mm_bytes, "ops": mm_ops}},
+         share_of_bound={"fused_conv2d": fc_bound / fc_ms,
+                         "closed_form_matmul": mm_bound / mm_ms})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

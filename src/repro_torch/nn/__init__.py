@@ -1,0 +1,14 @@
+"""Approximate neural-network layers over the product-substrate registry.
+
+``repro_torch.nn.substrate`` holds the registry (``exact``,
+``approx_bitexact``, ``approx_lut``, ``approx_cuda`` / ``approx_pallas``);
+``repro_torch.nn.conv`` the convolution and edge-detection pipeline.
+"""
+from repro_torch.nn import conv, quant, substrate  # noqa: F401
+from repro_torch.nn.substrate import (  # noqa: F401
+    ContractionSpec,
+    QuantPolicy,
+    SubstrateMeta,
+    get_substrate,
+    list_substrates,
+)
