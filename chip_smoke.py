@@ -3,15 +3,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
-holds the closed-form device function exhaustively and both kernels exactly
-against their plain torch versions, then serves 56 images (full-HD frames,
+holds the closed-form device function exhaustively and every kernel exactly
+against its plain torch version, then serves 56 images (full-HD frames,
 512×512 test images, ragged shapes) through
 ``EdgeDetectService("approx_cuda")`` in five timed windows and checks every
 served map byte for byte against the plain pipeline. One more window runs
 under ``torch.profiler`` and the port's span tracer; its Chrome trace goes to
-``chiprun_out/chip_smoke_trace.json``. Every phase prints one JSON line; the
-line before the last lists the kernels with their launches on the served
-path, their times and least-work bounds, and the last line is
+``chiprun_out/chip_smoke_trace.json``. The same mix is then served under a
+per-site substrate plan (the center tap on the ``exact`` product table, the
+ring taps on csp_axc1@6) and checked against the planned pipeline built from
+the plain twins; the 512×512 set once more under uniform
+``approx_cuda:exact``. Every phase prints one JSON line; the line before the
+last lists the kernels with their launches on the path that runs them, their
+times and least-work bounds, and the last line is
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Needs CUDA; exits non-zero without it. Imports no JAX.
@@ -27,6 +31,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -36,6 +41,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2 / 2
 WINDOWS = 5  # timed passes over the served mix, within one run
+PLANNED_WINDOWS = 3  # timed passes of the planned path
+#: the per-site plan the planned path serves (schema v1, as repro writes it)
+PLAN = {"version": 1, "default": "approx_cuda:proposed@8",
+        "rules": [{"site": "conv.edge.center", "spec": "approx_cuda:exact"},
+                  {"site": "conv.edge.ring", "spec": "approx_cuda:csp_axc1@6"}]}
 
 
 def emit(phase: str, **fields) -> None:
@@ -119,9 +129,14 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.approx_matmul.ops import (closed_form_matmul,
                                                        closed_form_matmul_plain)
+    from repro_torch.kernels.approx_mul.ops import approx_mul, approx_mul_plain
+    from repro_torch.kernels.closed_form import approx_product_i32
     from repro_torch.kernels.fused_conv.ops import (fused_conv2d,
                                                     fused_conv2d_plain)
+    from repro_torch.kernels.lut_matmul.ops import (device_table, lut_matmul,
+                                                    lut_matmul_plain)
     from repro_torch.nn import conv
+    from repro_torch.nn import plan as plan_mod
     from repro_torch.nn import substrate as sub
     from repro_torch.obs.trace import Tracer, tracing_scope
     from repro_torch.serving import EdgeDetectService
@@ -201,6 +216,70 @@ def main() -> int:
              max_abs_err=e, tolerance=0)
         require(e == 0, f"approx matmul {(b, m, k, n)} {key}")
     torch.cuda.synchronize()
+
+    # -- 4b. the LUT kernels and approx_mul vs plain (every check exact) ----
+    lut_errs = {"lut_matmul": 0, "fused_conv_lut": 0, "approx_mul": 0}
+    pairs = 0
+    for name in sorted(mult.WIRINGS) + ["exact"]:
+        key = f"{name}@4"
+        v = torch.arange(-8, 8, dtype=torch.int32, device=dev)
+        t = device_table(key, dev)
+        got = lut_matmul(v[:, None], v[None, :], t)
+        want = torch.from_numpy(lut_lib.build_lut(key).copy()).to(dev)
+        e = max(max_abs_err(got, lut_matmul_plain(v[None, :, None],
+                                                  v[None, None, :], t)[0]),
+                max_abs_err(got, want))
+        lut_errs["lut_matmul"] = max(lut_errs["lut_matmul"], e)
+        require(e == 0, f"lut_matmul exhaustive {key}")
+        pairs += 256
+    # ragged with a K tail (proposed@8: f(0,0) = 192 would show), batched and
+    # unbatched, and the plan's full-HD center-group shape
+    hd_m = 8 * 1088 * 1920
+    lut_cases = [(None, 1000, 777, 333, "proposed"), (4, 65, 9, 3, "exact"),
+                 (None, 17, 33, 9, "design_strollo2020@4"),
+                 (2, 40, 100, 70, "csp_axc1@6"),
+                 (None, hd_m, 1, 1, "proposed"), (None, hd_m, 1, 1, "exact")]
+    for b, m, k, n, key in lut_cases:
+        hi = 1 << (mult.split_width(key)[1] - 1)
+        bb = b or 1
+        a = torch.from_numpy(rng.integers(-hi, hi, (bb, m, k)).astype(np.int32)).to(dev)
+        w = torch.from_numpy(rng.integers(-hi, hi, (bb, k, n)).astype(np.int32)).to(dev)
+        t = device_table(key, dev)
+        got = lut_matmul(a, w, t) if b else lut_matmul(a[0], w[0], t)[None]
+        e = max_abs_err(got, lut_matmul_plain(a, w, t))
+        lut_errs["lut_matmul"] = max(lut_errs["lut_matmul"], e)
+        emit("lut_matmul_vs_plain", shape=[b, m, k, n], mult=key, max_abs_err=e,
+             tolerance=0)
+        require(e == 0, f"lut_matmul {(b, m, k, n)} {key}")
+    x_hd = torch.from_numpy(rng.integers(0, 128, (8, 1088, 1920))
+                            .astype(np.int32)).to(dev)
+    for key in ("exact", "proposed"):
+        got = fused_conv2d(x_hd, lap, key, kernel_kind="lut")
+        e = max_abs_err(got, fused_conv2d_plain(x_hd, taps_lap, key, "lut"))
+        if key == "proposed":  # the table kind equals the closed-form kind
+            e = max(e, max_abs_err(got, fused_conv2d(
+                x_hd, lap, key, kernel_kind="closed_form")))
+        lut_errs["fused_conv_lut"] = max(lut_errs["fused_conv_lut"], e)
+        emit("fused_conv_lut_vs_plain", shape=list(x_hd.shape), mult=key,
+             max_abs_err=e, tolerance=0)
+        require(e == 0, f"fused conv lut kind {key}")
+    v = torch.arange(-128, 128, dtype=torch.int32, device=dev)
+    ga, gb = torch.meshgrid(v, v, indexing="ij")
+    e = max_abs_err(approx_mul(ga, gb), approx_product_i32(ga, gb))
+    am_a = torch.from_numpy(rng.integers(-128, 128, (4096, 4096))
+                            .astype(np.int32)).to(dev)
+    am_b = torch.from_numpy(rng.integers(-128, 128, (4096, 4096))
+                            .astype(np.int32)).to(dev)
+    e = max(e, max_abs_err(approx_mul(am_a, am_b), approx_product_i32(am_a, am_b)))
+    wide = torch.from_numpy(rng.integers(-2**31, 2**31, (2, 1 << 19),
+                                         dtype=np.int64).astype(np.int32)).to(dev)
+    e = max(e, max_abs_err(approx_mul(wide[0], wide[1]),
+                           approx_product_i32(wide[0], wide[1])))
+    lut_errs["approx_mul"] = e
+    require(e == 0, "approx_mul vs approx_product_i32")
+    torch.cuda.synchronize()
+    emit("lut_kernels", exhaustive_n4_pairs=pairs, max_abs_err=lut_errs,
+         approx_mul_pairs=65536, approx_mul_shape=list(am_a.shape), tolerance=0)
 
     # -- 5. main path: EdgeDetectService("approx_cuda") ---------------------
     hd = [photo_like(1080, 1920, seed=i) for i in range(32)]
@@ -298,13 +377,125 @@ def main() -> int:
              by_name.items(), key=lambda kv: -kv[1])[:8]},
          host_span_ms_summed_over_threads=spans)
 
+    # -- 5b. planned path: EdgeDetectService(PLAN) ---------------------------
+    plan = plan_mod.as_plan(PLAN)
+    groups = {name: (taps, plan.resolve(f"{conv.EDGE_SITE}.{name}"))
+              for name, taps in conv._EDGE_TAP_GROUPS}
+    lap_flat = lap.reshape(-1)
+
+    def planned_plain_map(img: np.ndarray) -> np.ndarray:
+        """The planned pipeline from the plain twins called by name, on the
+        card: the center group through lut_matmul_plain (exact@8), the ring
+        group through closed_form_matmul_plain (csp_axc1@6), each at its own
+        width, rescaled and summed."""
+        x = torch.from_numpy(img)[None].to(dev)
+        total = 0
+        for name, (taps, spec) in groups.items():
+            key = sub.get_substrate(spec).meta.mult_key
+            n = mult.split_width(key)[1]
+            px = conv.to_signed_pixels(x, n)
+            patches = conv._im2col(px, 3, 3, taps).reshape(1, -1, len(taps))
+            coeffs = torch.from_numpy(lap_flat[list(taps)].reshape(
+                1, len(taps), 1)).to(dev)
+            if name == "center":
+                raw = lut_matmul_plain(patches, coeffs, device_table(key, dev))
+            else:
+                raw = closed_form_matmul_plain(patches, coeffs,
+                                               mult.canonical_key(key))
+            total = total + conv._rescale_raw(raw.reshape(px.shape), n)
+        return torch.clamp(total, 0, 255).to(torch.uint8)[0].cpu().numpy()
+
+    def planned_tap_loop(img: np.ndarray) -> np.ndarray:
+        """The same on the CPU from the core multiplier model: per group, one
+        1x1 ``conv2d_int`` per tap on the shifted zero-padded image."""
+        total = 0
+        for taps, spec in groups.values():
+            _, fn, n = mult.resolve_multiplier(sub.get_substrate(spec).meta.mult_key)
+            px = conv.to_signed_pixels(torch.from_numpy(img), n)
+            xp = F.pad(px, (1, 1, 1, 1))
+            h, w = px.shape
+            raw = sum(conv.conv2d_int(xp[t // 3:t // 3 + h, t % 3:t % 3 + w],
+                                      [[int(lap_flat[t])]], fn) for t in taps)
+            total = total + conv._rescale_raw(raw, n)
+        return torch.clamp(total, 0, 255).to(torch.uint8).numpy()
+
+    svc = EdgeDetectService(PLAN, max_batch_size=8, bucket_granularity=16,
+                            n_workers=2)
+    try:
+        svc.detect(hd[:8] + tiles[:8] + ragged)  # warm-up: every bucket shape
+        torch.cuda.synchronize()
+        for counter in (lut_matmul.launches, closed_form_matmul.launches,
+                        fused_conv2d.launches, fused_conv2d.lut_launches):
+            counter.reset()
+        p_served, first = window(svc)
+        p_windows = [first]
+        for _ in range(PLANNED_WINDOWS - 1):
+            maps, w = window(svc)
+            require(all(np.array_equal(a, b) for a, b in zip(maps, p_served)),
+                    "planned maps differ between windows")
+            p_windows.append(w)
+        torch.cuda.synchronize()
+        p_launches = {"lut_matmul": lut_matmul.launches.value,
+                      "closed_form_matmul": closed_form_matmul.launches.value,
+                      "fused_conv2d": fused_conv2d.launches.value,
+                      "fused_conv2d_lut": fused_conv2d.lut_launches.value}
+    finally:
+        svc.close()
+    require(p_launches["lut_matmul"] > 0 and p_launches["closed_form_matmul"] > 0,
+            f"planned path launches {p_launches}")
+    for img, out in zip(images, p_served):
+        require(out.shape == img.shape and out.dtype == np.uint8,
+                f"planned map shape {out.shape} {out.dtype}")
+        require(np.array_equal(out, planned_plain_map(img)),
+                f"planned map differs from the plain pipeline at {img.shape}")
+    for img, out in zip(ragged, p_served[48:]):
+        require(np.array_equal(out, planned_tap_loop(img)),
+                f"planned ragged {img.shape} vs tap loop")
+    p_psnr = float(np.mean([conv.psnr(exact[i], p_served[32 + i])
+                            for i in range(len(tiles))]))
+    rates = sorted(w["images_per_s"] for w in p_windows)
+    emit("planned_path", plan=PLAN, images=len(images), windows=p_windows,
+         images_per_s_median=rates[len(rates) // 2],
+         images_per_s_min=rates[0], images_per_s_max=rates[-1],
+         launches=p_launches, psnr_plan_vs_exact_512_db=round(p_psnr, 4),
+         byte_identical=True)
+
+    # uniform approx_cuda:exact: the fused conv's LUT kind on every batch
+    svc = EdgeDetectService("approx_cuda:exact", max_batch_size=8,
+                            bucket_granularity=16, n_workers=2)
+    try:
+        svc.detect(tiles[:8])  # warm-up
+        torch.cuda.synchronize()
+        fused_conv2d.lut_launches.reset()
+        e_served = svc.detect(tiles, timeout=300.0)
+        torch.cuda.synchronize()
+        e_launches = fused_conv2d.lut_launches.value
+    finally:
+        svc.close()
+    require(e_launches > 0, f"uniform exact: fused LUT launches {e_launches}")
+    require(np.array_equal(np.stack(e_served), exact),
+            "uniform approx_cuda:exact maps differ from the exact backend's")
+    emit("uniform_exact_path", images=len(tiles),
+         launches={"fused_conv2d_lut": e_launches}, byte_identical=True)
+
+    # the elementwise entry point, called as its users call it: one array of
+    # multipliers over a (4096, 4096) operand pair
+    approx_mul.launches.reset()
+    am_out = approx_mul(am_a, am_b)
+    torch.cuda.synchronize()
+    am_launches = approx_mul.launches.value
+    require(am_launches > 0 and am_out.shape == am_a.shape,
+            f"approx_mul launches {am_launches}")
+    emit("approx_mul_path", shape=list(am_a.shape), launches=am_launches)
+
     # -- 6. kernel times at the shapes the main path gives them -------------
     # bound: the least work at these inputs (see table_ops), every int32
     # input read once and every int32 output written once
     n_bits = mult.split_width("proposed")[1]
     b, h, w = 8, 1088, 1920  # a full batch of full-HD frames, bucket-padded
-    x = conv.to_signed_pixels(torch.from_numpy(
-        np.stack([np.pad(f, ((0, 8), (0, 0))) for f in hd[:8]])).to(dev), 8)
+    hd_u8 = torch.from_numpy(
+        np.stack([np.pad(f, ((0, 8), (0, 0))) for f in hd[:8]])).to(dev)
+    x = conv.to_signed_pixels(hd_u8, 8)
     fc_ms = time_ms(lambda: fused_conv2d(x, lap, "proposed"))
     fc_plain_ms = time_ms(lambda: fused_conv2d_plain(x, taps_lap, "proposed"))
     distinct, tab = table_ops(lap, n_bits)
@@ -320,6 +511,57 @@ def main() -> int:
     mm_ops = tab + pm * (pk + pk - 1)  # per row K table reads, K-1 adds
     mm_bytes = 4 * (pm * pk + pk + pm)
     mm_bound, mm_by = bound_ms(mm_bytes, mm_ops)
+
+    # the fused conv's LUT kind at the same batch under `exact`; its library
+    # yardstick is one float32 cuDNN convolution (TF32 off, set above): exact
+    # here, since every |sum| < 2^24
+    fl_ms = time_ms(lambda: fused_conv2d(x, lap, "exact"))
+    fl_plain_ms = time_ms(lambda: fused_conv2d_plain(x, taps_lap, "exact", "lut"))
+    xf = x.to(torch.float32)[:, None]
+    lap_f = torch.from_numpy(lap.astype(np.float32))[None, None].to(dev)
+    fl_lib_ms = time_ms(lambda: F.conv2d(xf, lap_f, padding=1))
+    require(torch.equal(F.conv2d(xf, lap_f, padding=1)[:, 0].to(torch.int32),
+                        fused_conv2d(x, lap, "exact")),
+            "F.conv2d differs from the fused LUT kind under exact")
+    # lut_matmul at the plan's center group: (B·H·W × 1) @ (1 × 1), exact@8
+    hd_m = b * h * w
+    a_c = x.reshape(hd_m, 1)
+    w_c = torch.tensor([[int(lap_flat[4])]], dtype=torch.int32, device=dev)
+    t_exact = device_table("exact", dev)
+    lm_ms = time_ms(lambda: lut_matmul(a_c, w_c, t_exact))
+    lm_plain_ms = time_ms(lambda: lut_matmul_plain(a_c[None], w_c[None], t_exact))
+    a_cf, w_cf = a_c.to(torch.float32), w_c.to(torch.float32)
+    lm_lib_ms = time_ms(lambda: torch.matmul(a_cf, w_cf))
+    require(torch.equal(torch.matmul(a_cf, w_cf).to(torch.int32),
+                        lut_matmul(a_c, w_c, t_exact)),
+            "torch.matmul differs from lut_matmul under exact")
+    lm_ops = table_ops(lap_flat[[4]], 8)[1] + hd_m  # one read per row
+    lm_bytes = 4 * (hd_m + 1 + hd_m)
+    lm_bound, lm_by = bound_ms(lm_bytes, lm_ops)
+    # kernel 2 at the plan's ring group: (B·H·W × 8) @ (8 × 1), csp_axc1@6
+    ring = groups["ring"][0]
+    a_r = conv._im2col(conv.to_signed_pixels(hd_u8, 6), 3, 3, ring).reshape(
+        1, hd_m, len(ring))
+    w_r = torch.from_numpy(lap_flat[list(ring)].reshape(1, len(ring), 1)).to(dev)
+    rk = "csp_axc1@6"
+    mr_err = max_abs_err(closed_form_matmul(a_r, w_r, rk),
+                         closed_form_matmul_plain(a_r, w_r, mult.canonical_key(rk)))
+    require(mr_err == 0, "approx matmul at the ring shape")
+    mr_ms = time_ms(lambda: closed_form_matmul(a_r, w_r, rk))
+    mr_plain_ms = time_ms(lambda: closed_form_matmul_plain(
+        a_r, w_r, mult.canonical_key(rk)))
+    mr_ops = (table_ops(lap_flat[list(ring)], 6)[1]
+              + hd_m * (2 * len(ring) - 1))  # K table reads, K-1 adds per row
+    mr_bytes = 4 * (hd_m * len(ring) + len(ring) + hd_m)
+    mr_bound, mr_by = bound_ms(mr_bytes, mr_ops)
+    # approx_mul at (4096, 4096): both operands vary, so the least work is a
+    # read of the 2^16-entry product table per element
+    am_ms = time_ms(lambda: approx_mul(am_a, am_b))
+    am_plain_ms = time_ms(lambda: approx_mul_plain(am_a, am_b))
+    am_n = am_a.numel()
+    am_ops = (1 << 16) + am_n
+    am_bytes = 3 * 4 * am_n
+    am_bound, am_by = bound_ms(am_bytes, am_ops)
     kernels = [
         {"name": "fused_conv2d", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_conv.cu",
@@ -335,13 +577,44 @@ def main() -> int:
          "max_abs_err": errs["approx_matmul"], "ms": mm_ms,
          "plain_ms": mm_plain_ms, "bound_ms": mm_bound, "bound_by": mm_by,
          "library_ms": None, "shape": [1, pm, pk, 1]},
+        {"name": "fused_conv2d[lut]", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_conv.cu",
+         "replaces": "src/repro/kernels/fused_conv/kernel.py:59",
+         "launches": e_launches,
+         "max_abs_err": lut_errs["fused_conv_lut"], "ms": fl_ms,
+         "plain_ms": fl_plain_ms, "bound_ms": fc_bound, "bound_by": fc_by,
+         "library_ms": fl_lib_ms, "shape": [b, h, w, 3, 3], "mult": "exact"},
+        {"name": "closed_form_matmul[ring]", "route": "cuda",
+         "source": "src/repro_torch/csrc/approx_matmul.cu",
+         "replaces": "src/repro/kernels/approx_matmul/kernel.py:59",
+         "launches": p_launches["closed_form_matmul"],
+         "max_abs_err": mr_err, "ms": mr_ms,
+         "plain_ms": mr_plain_ms, "bound_ms": mr_bound, "bound_by": mr_by,
+         "library_ms": None, "shape": [1, hd_m, len(ring), 1], "mult": rk},
+        {"name": "lut_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/lut_matmul.cu",
+         "replaces": "src/repro/kernels/lut_matmul/kernel.py:74",
+         "launches": p_launches["lut_matmul"],
+         "max_abs_err": lut_errs["lut_matmul"], "ms": lm_ms,
+         "plain_ms": lm_plain_ms, "bound_ms": lm_bound, "bound_by": lm_by,
+         "library_ms": lm_lib_ms, "shape": [1, hd_m, 1, 1], "mult": "exact"},
+        {"name": "approx_mul", "route": "cuda",
+         "source": "src/repro_torch/csrc/approx_mul.cu",
+         "replaces": "src/repro/kernels/approx_mul/kernel.py:19",
+         "launches": am_launches,
+         "max_abs_err": lut_errs["approx_mul"], "ms": am_ms,
+         "plain_ms": am_plain_ms, "bound_ms": am_bound, "bound_by": am_by,
+         "library_ms": None, "shape": list(am_a.shape), "mult": "proposed"},
     ]
     emit("kernel_times", card=card, int32_peak_ops_per_s=INT32_OPS_PER_S,
-         hbm_bytes_per_s=HBM_BYTES_PER_S,
-         least_work={"fused_conv2d": {"bytes": fc_bytes, "ops": fc_ops},
-                     "closed_form_matmul": {"bytes": mm_bytes, "ops": mm_ops}},
-         share_of_bound={"fused_conv2d": fc_bound / fc_ms,
-                         "closed_form_matmul": mm_bound / mm_ms})
+         hbm_bytes_per_s=HBM_BYTES_PER_S, tf32={
+             "cudnn": torch.backends.cudnn.allow_tf32,
+             "matmul": torch.backends.cuda.matmul.allow_tf32},
+         least_work={k["name"]: {"bytes": by, "ops": op} for k, (by, op) in zip(
+             kernels, [(fc_bytes, fc_ops), (mm_bytes, mm_ops), (fc_bytes, fc_ops),
+                       (mr_bytes, mr_ops), (lm_bytes, lm_ops),
+                       (am_bytes, am_ops)])},
+         share_of_bound={k["name"]: k["bound_ms"] / k["ms"] for k in kernels})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

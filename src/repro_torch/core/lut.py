@@ -90,3 +90,21 @@ def f00(mult_name: str) -> int:
     table = build_lut(mult_name)
     off = 1 << (_lut_width(table) - 1)
     return int(table[off, off])
+
+
+def error_lut(mult_name: str) -> np.ndarray:
+    """(2^n)×(2^n) table of (approx − exact) — compact error characterization."""
+    table = build_lut(mult_name)
+    n = _lut_width(table)
+    lo, hi = -(1 << (n - 1)), 1 << (n - 1)
+    v = np.arange(lo, hi, dtype=np.int64)
+    exact = v[:, None] * v[None, :]
+    return (table.astype(np.int64) - exact).astype(np.int32)
+
+
+def error_moments(mult_name: str) -> dict:
+    """Mean/std of the error under uniform operands, normalized over the
+    table's own 2^(2n) entries (drives the ``approx_stat`` model)."""
+    e = error_lut(mult_name).astype(np.float64)
+    return dict(mean=float(e.mean()), std=float(e.std()),
+                max_abs=float(np.abs(e).max()))

@@ -30,21 +30,6 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p)
 
-#: elements of one (B, M, k_chunk, N) product slab in the plain version
-_SLAB_ELEMS = 1 << 22
-_MAX_K_CHUNK = 16
-
-
-def _as3(a: torch.Tensor, b: torch.Tensor):
-    if a.dim() != b.dim() or a.dim() not in (2, 3):
-        raise ValueError(f"expected (M,K)@(K,N) or (B,M,K)@(B,K,N), got "
-                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    if a.dim() == 2:
-        a, b = a[None], b[None]
-    if a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
-        raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    return a.to(torch.int32), b.to(torch.int32)
-
 
 def closed_form_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                              key: str) -> torch.Tensor:
@@ -53,7 +38,7 @@ def closed_form_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     bsz, m, _ = a.shape
     n = b.shape[2]
     cf = make_closed_form(key)
-    k_chunk = max(1, min(_MAX_K_CHUNK, _SLAB_ELEMS // max(1, bsz * m * n)))
+    k_chunk = blocking.plain_k_chunk(bsz, m, n)
 
     def walk(ap, bp):
         blocking.check_kernel_shapes(
@@ -104,7 +89,7 @@ def closed_form_matmul(a: torch.Tensor, b: torch.Tensor,
         raise ValueError("operands must be tensors on one device")
     key = mult.canonical_key(mult_key)
     squeeze = a.dim() == 2
-    a3, b3 = _as3(a, b)
+    a3, b3 = blocking.as3(a, b)
     with trace_span("kernel.closed_form_matmul", "kernel", mult=key,
                     m=a3.shape[1], k=a3.shape[2], n=b3.shape[2]):
         if a.device.type == "cpu":

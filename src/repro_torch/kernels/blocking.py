@@ -8,7 +8,8 @@ device decides between a kernel and its plain version.
 The contract stays because the plain twin of the matmul kernel walks k in
 fixed-size slabs: zero-padding k injects f(0,0) per padded element
 (approximate wirings map (0,0) to a nonzero compensation value), which is
-subtracted back here.
+subtracted back here. :func:`as3` and :func:`plain_k_chunk` are the shape
+half the contraction wrappers share.
 """
 from __future__ import annotations
 
@@ -16,6 +17,29 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+#: elements of one (B, M, k_chunk, N) product slab in a plain contraction
+_SLAB_ELEMS = 1 << 22
+_MAX_K_CHUNK = 16
+
+
+def as3(a: torch.Tensor, b: torch.Tensor):
+    """(M,K)@(K,N) or (B,M,K)@(B,K,N) operands → int32 (B,M,K), (B,K,N);
+    raises on any other rank or a shape mismatch."""
+    if a.dim() != b.dim() or a.dim() not in (2, 3):
+        raise ValueError(f"expected (M,K)@(K,N) or (B,M,K)@(B,K,N), got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.dim() == 2:
+        a, b = a[None], b[None]
+    if a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
+        raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    return a.to(torch.int32), b.to(torch.int32)
+
+
+def plain_k_chunk(bsz: int, m: int, n: int) -> int:
+    """k-slab width of a plain contraction: a (B, M, k, N) slab stays near
+    ``_SLAB_ELEMS`` elements, between 1 and ``_MAX_K_CHUNK``."""
+    return max(1, min(_MAX_K_CHUNK, _SLAB_ELEMS // max(1, bsz * m * n)))
 
 
 def check_kernel_shapes(kernel_name: str, ops_name: str, a_shape, b_shape,

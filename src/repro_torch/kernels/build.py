@@ -1,4 +1,4 @@
-"""Build, load and count the port's CUDA kernels.
+"""Build, load and count the port's CUDA kernels, and keep their tables.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes`` (no PyTorch headers, so a
@@ -12,6 +12,10 @@ at once. Only sources from this package are compiled; nothing is fetched.
 Calling convention of every entry point: pointers and the CUDA stream as
 ``c_void_p``, sizes as ``c_int``; the function returns ``cudaGetLastError()``
 after its launch, and :func:`check` raises on anything but 0.
+
+:func:`device_constant` keeps the constant tables the kernels read (product
+tables, per-tap columns) on the card, built once per key and device, so no
+launch uploads a table.
 """
 from __future__ import annotations
 
@@ -23,16 +27,21 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Callable, Dict, Hashable, Iterable, Sequence
+
+import numpy as np
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("fused_conv", "approx_matmul")
+SOURCES = ("fused_conv", "approx_matmul", "lut_matmul", "approx_mul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOAD_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_CONST_LOCK = threading.Lock()
+_CONSTS: Dict[tuple, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -115,6 +124,28 @@ def check(rc: int, what: str) -> None:
     """Raise unless a C entry point returned ``cudaSuccess`` (0)."""
     if rc != 0:
         raise RuntimeError(f"{what} failed: CUDA error code {rc}")
+
+
+def device_constant(key: Hashable, device,
+                    make: Callable[[], np.ndarray]) -> torch.Tensor:
+    """The tensor ``make()`` on ``device``, built once per (key, device).
+
+    On the card the upload runs once, then the stream is synchronised: the
+    table is complete before any worker's stream reads it, and no later
+    call copies from the host (a pageable copy per batch would block the
+    worker until its stream drained).
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _CONST_LOCK:
+        t = _CONSTS.get((key, device))
+        if t is None:
+            t = torch.from_numpy(np.array(make(), order="C")).to(device)
+            if device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+            _CONSTS[(key, device)] = t
+        return t
 
 
 class LaunchCounter:

@@ -12,6 +12,9 @@ Two execution paths:
   substrate's fused conv kernel where it has one (``approx_cuda``), else one
   im2col + substrate contraction. Both paths contract the same zero-padded
   tap products in the same int32 ring, so they are bit-identical.
+* :func:`edge_detect_planned` — the Laplacian split into tap groups, each
+  contracted on the substrate a :class:`~repro_torch.nn.plan.SubstratePlan`
+  assigns to its site.
 
 Pixels map to the signed operand domain of the substrate's width by an
 arithmetic shift (0..255 → 0..2^(N-1)-1); kernel coefficients outside the
@@ -84,12 +87,15 @@ def conv2d_int(img: Tensor, kernel, product_fn: Callable[[Tensor, Tensor], Tenso
     return out
 
 
-def _im2col(imgs: Tensor, kh: int, kw: int) -> Tensor:
-    """(B, H, W) int32, zero 'same' padding → (B, H, W, kh·kw) tap patches."""
+def _im2col(imgs: Tensor, kh: int, kw: int, taps=None) -> Tensor:
+    """(B, H, W) int32, zero 'same' padding → (B, H, W, len(taps)) patches of
+    the flat row-major tap indices ``taps`` (default: all kh·kw). Slices
+    only, so no index tensor is copied to the device."""
     _, h, w = imgs.shape
     ph, pw = kh // 2, kw // 2
     x = F.pad(imgs, (pw, pw, ph, ph))
-    cols = [x[:, di:di + h, dj:dj + w] for di in range(kh) for dj in range(kw)]
+    taps = range(kh * kw) if taps is None else taps
+    cols = [x[:, t // kw:t // kw + h, t % kw:t % kw + w] for t in taps]
     return torch.stack(cols, dim=-1)
 
 
@@ -99,7 +105,8 @@ _CONV_DIMS = (((3,), (0,)), ((), ()))
 
 
 def conv2d_batched(imgs: Tensor, kernel, substrate="approx_bitexact",
-                   fused: "bool | None" = None) -> Tensor:
+                   fused: "bool | None" = None,
+                   site: "str | None" = None) -> Tensor:
     """Batched 'same' integer convolution under a substrate.
 
     imgs: (B, H, W) or NHWC (B, H, W, C) integer tensor (channels are
@@ -109,7 +116,8 @@ def conv2d_batched(imgs: Tensor, kernel, substrate="approx_bitexact",
     ``fused`` selects the substrate's fused conv kernel: ``None`` (default)
     picks it whenever the substrate has ``fused_conv2d`` (``approx_cuda``);
     ``True`` forces it (raising where unavailable); ``False`` forces the
-    im2col + ``dot_general`` path. Both are bit-identical.
+    im2col + ``dot_general`` path. Both are bit-identical. ``site`` names
+    the contraction site (observational only).
     """
     from repro_torch.nn import substrate as sub
 
@@ -136,7 +144,7 @@ def conv2d_batched(imgs: Tensor, kernel, substrate="approx_bitexact",
         kernel_t = _kernel_tensor(kernel, imgs.device)
         patches = _im2col(imgs, kh, kw)  # (B, H, W, kh·kw)
         out = s.dot_general(patches, kernel_t.reshape(kh * kw, 1),
-                            sub.ContractionSpec(_CONV_DIMS))[..., 0]
+                            sub.ContractionSpec(_CONV_DIMS, site=site))[..., 0]
     if nhwc:
         out = out.reshape(b, c, h, w).permute(0, 2, 3, 1)
     return out
@@ -163,8 +171,63 @@ def edge_detect_batched(imgs_u8: Tensor, substrate="approx_bitexact") -> Tensor:
     s = sub.as_substrate(substrate)
     n = s.meta.width
     px = to_signed_pixels(imgs_u8, n)
-    raw = conv2d_batched(px, LAPLACIAN, s)
+    raw = conv2d_batched(px, LAPLACIAN, s, site=EDGE_SITE)
     return torch.clamp(_rescale_raw(raw, n), 0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# planned (multi-site) edge detection
+# ---------------------------------------------------------------------------
+
+#: site name of the uniform whole-kernel edge contraction
+EDGE_SITE = "conv.edge"
+
+#: the planned path's tap groups: each is a *split* of the 3×3 Laplacian —
+#: (site leaf, flat tap indices into the row-major kernel). The center tap
+#: (coefficient 8) dominates the response; the ring taps (all −1) are the
+#: smoothing term and tolerate cheaper substrates.
+_EDGE_TAP_GROUPS = (("center", (4,)), ("ring", (0, 1, 2, 3, 5, 6, 7, 8)))
+
+
+def edge_tap_sites() -> tuple:
+    """The planned edge workload's site names (``conv.edge.<group>``)."""
+    return tuple(f"{EDGE_SITE}.{name}" for name, _ in _EDGE_TAP_GROUPS)
+
+
+def edge_detect_planned(imgs_u8: Tensor, plan) -> Tensor:
+    """Laplacian edge maps under a per-site :class:`~repro_torch.nn.plan.SubstratePlan`.
+
+    The 3×3 conv splits into tap groups — ``conv.edge.center`` (the ×8 tap)
+    and ``conv.edge.ring`` (the eight −1 taps) — each contracted on the
+    substrate the plan assigns to its site, with pixels mapped to that
+    substrate's width and the response rescaled by it, then summed in the
+    exact int32 adder. Every substrate corrects its own f(0,0) padding, so a
+    uniform plan reproduces :func:`edge_detect_batched` exactly. Per-group
+    widths ≤ 8 rescale by left shifts, which distribute over the adder.
+    Returns (B, H, W) uint8 on the input's device.
+    """
+    from repro_torch.kernels import build
+    from repro_torch.nn import plan as plan_mod
+    from repro_torch.nn import substrate as sub
+
+    plan = plan_mod.as_plan(plan)
+    imgs_u8 = _images(imgs_u8)
+    lap = LAPLACIAN.reshape(-1)
+    total = None
+    for name, taps in _EDGE_TAP_GROUPS:
+        site = f"{EDGE_SITE}.{name}"
+        s = sub.get_substrate(plan.resolve(site))
+        n = s.meta.width
+        px = to_signed_pixels(imgs_u8, n)
+        patches = _im2col(px, 3, 3, taps)
+        coeffs = build.device_constant(
+            ("edge_taps", name), imgs_u8.device,
+            lambda taps=taps: lap[list(taps)].reshape(len(taps), 1))
+        raw = s.dot_general(patches, coeffs,
+                            sub.ContractionSpec(_CONV_DIMS, site=site))[..., 0]
+        r = _rescale_raw(raw, n)
+        total = r if total is None else total + r
+    return torch.clamp(total, 0, 255).to(torch.uint8)
 
 
 def psnr(ref, test, peak: float = 255.0) -> float:

@@ -13,20 +13,24 @@ integer contraction, exact int32-ring adder) and :class:`SubstrateMeta`.
 Registered backends (``list_substrates()``):
 
 * ``exact``           — float reference dot; exact integer contraction.
+* ``int8``            — symmetric int8 quantization boundary, exact integer
+                        contraction.
 * ``approx_bitexact`` — every product through the closed-form multiplier
                         model, plain torch. Any width 3..16.
 * ``approx_lut``      — the same contraction through the (2^N)² product
                         table, a plain torch gather. Widths ≤ 8.
+* ``approx_stat``     — exact contraction + the separable statistical error
+                        model (``_stat_tables``). Widths ≤ 8.
 * ``approx_cuda``     — the hand-written CUDA kernels (the counterpart of
                         ``approx_pallas``): ``dot_int``/``dot_general``
-                        through ``kernels/approx_matmul`` (batch dims as the
-                        kernel's grid z), convolutions through
-                        ``kernels/fused_conv``. Every CSP wiring at widths
-                        3..8. ``approx_pallas`` is registered as an alias,
-                        so specs written for ``repro`` resolve unchanged.
-* ``int8``, ``approx_stat`` — registered so their specs parse, but they come
-                        with the next slice of the port and raise
-                        ``NotImplementedError`` until then.
+                        through ``kernels/approx_matmul`` (the closed form)
+                        or ``kernels/lut_matmul`` (the product table: the
+                        ``exact`` wiring and ``kernel="lut"``), batch dims
+                        as the kernel's grid z; convolutions through
+                        ``kernels/fused_conv`` in the same kind. Every
+                        wiring at widths 3..8. ``approx_pallas`` is
+                        registered as an alias, so specs written for
+                        ``repro`` resolve unchanged.
 
 The kernel backends follow the device rule of ``kernels``: CPU tensors run
 the plain versions, CUDA tensors the kernels.
@@ -54,15 +58,12 @@ import torch.nn.functional as F
 
 from repro_torch.core import lut as lut_lib
 from repro_torch.core import multiplier as mult
+from repro_torch.kernels import build
 from repro_torch.nn import quant
 
 Tensor = torch.Tensor
 
 _K_CHUNK = 16  # k-slab size for the bit-exact contraction
-
-#: the slice of the port that brings the backends and options still missing
-_NEXT_SLICE = ("comes with the next slice of the port (ROADMAP.md, queue 1 "
-               "item 3 and queue 2 item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -171,15 +172,23 @@ class ContractionSpec:
     quant:             None → integer-domain contraction (operands must be
                        integers); a :class:`QuantPolicy` → float operands
                        through the quantization boundary.
+    site:              optional contraction-site name (``"conv.edge.center"``
+                       — see :mod:`repro_torch.nn.plan`); purely
+                       observational, the result never depends on it.
+
+    ``repro``'s ``partitioning`` field is not ported (ROADMAP.md, queue 1
+    item 11), so ``site`` is the third positional field here.
     """
 
     dimension_numbers: DimensionNumbers = MATMUL_DIMS
     quant: Optional[QuantPolicy] = None
+    site: Optional[str] = None
 
     @staticmethod
-    def matmul(quant: Optional[QuantPolicy] = None) -> "ContractionSpec":
+    def matmul(quant: Optional[QuantPolicy] = None,
+               site: Optional[str] = None) -> "ContractionSpec":
         """Plain ``(…, K) @ (K, N)`` spec."""
-        return ContractionSpec(MATMUL_DIMS, quant)
+        return ContractionSpec(MATMUL_DIMS, quant, site)
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +323,16 @@ def _bitexact_contract(a3: Tensor, b3: Tensor, product_fn, f00: int) -> Tensor:
     if pad:
         acc -= f00 * pad
     return acc
+
+
+@functools.lru_cache(maxsize=None)
+def _stat_tables(mult_key: str) -> tuple[np.ndarray, np.ndarray, float]:
+    """Separable error model (r[a], c[b], µ) from the width-N error LUT."""
+    e = lut_lib.error_lut(mult_key).astype(np.float64)
+    mu = e.mean()
+    r = e.mean(axis=1) - 0.5 * mu
+    c = e.mean(axis=0) - 0.5 * mu
+    return r.astype(np.float32), c.astype(np.float32), float(mu)
 
 
 def _exact_int_matmul(a3: Tensor, b3: Tensor) -> Tensor:
@@ -462,6 +481,23 @@ class ExactSubstrate(_SubstrateBase):
         return plan.unflatten(torch.matmul(plan.lhs3(x), plan.rhs3(w)))
 
 
+class Int8Substrate(_SubstrateBase):
+    """Symmetric int8 quantization boundary, exact integer contraction."""
+
+    def __init__(self, mult_name: str | None = None):
+        _reject_wiring("int8", mult_name)
+        self._f00 = 0
+        self.meta = SubstrateMeta("int8", "exact", bit_exact=True,
+                                  scalar_faithful=True, preferred_backend="any",
+                                  cost_hint="tensor-core")
+
+    def scalar(self, a, b):
+        return mult.exact_multiply(a, b)
+
+    def _contract3(self, a3, b3):
+        return _exact_int_matmul(self._stor(a3), self._stor(b3))
+
+
 class BitexactSubstrate(_SubstrateBase):
     """Every scalar product through the closed-form multiplier model (plain
     torch). Any wiring at any width 3..16."""
@@ -496,17 +532,13 @@ class LutSubstrate(_SubstrateBase):
                 "wider operands")
         self._key = key
         self._f00 = lut_lib.f00(key)
-        self._tables = {}  # device -> product table
         self.meta = SubstrateMeta("approx_lut", base, bit_exact=True,
                                   scalar_faithful=True, preferred_backend="any",
                                   cost_hint="gather", width=n)
 
     def _table(self, device) -> Tensor:
-        table = self._tables.get(device)
-        if table is None:
-            table = torch.tensor(lut_lib.build_lut(self._key), device=device)
-            self._tables[device] = table
-        return table
+        return build.device_constant(("lut", self._key), device,
+                                     lambda: lut_lib.build_lut(self._key))
 
     def scalar(self, a, b):
         a = torch.as_tensor(a)
@@ -525,16 +557,81 @@ class LutSubstrate(_SubstrateBase):
                                   self._f00)
 
 
-class CudaSubstrate(_SubstrateBase):
-    """The hand-written CUDA kernels, for every CSP wiring at widths 3..8.
+class StatSubstrate(_SubstrateBase):
+    """Exact integer contraction + separable statistical error model.
 
-    Counterpart of ``repro``'s ``PallasSubstrate`` with its ``"closed_form"``
-    kernel kind: contractions go through ``kernels/approx_matmul`` (the batch
-    dims of ``dot_general`` become the kernel's grid z, not a Python loop),
-    convolutions through :meth:`fused_conv2d` (``kernels/fused_conv``). On
-    CPU tensors both kernels run their plain versions. The ``"lut"`` kind
-    and the ``"exact"`` wiring (which needs the LUT kernel) raise
-    ``NotImplementedError`` until the LUT kernel is ported.
+    E[e(a,b)] ≈ r[a] + c[b] − µ, where e is the multiplier's error LUT and
+    r/c its row/column means. The correction is defined at contraction
+    level (``scalar_faithful=False``): ``dot_int`` sums the per-operand
+    float32 terms and truncates once per output element, while ``scalar``
+    truncates per product. Widths ≤ 8.
+    """
+
+    def __init__(self, mult_name: str | None = None):
+        base, n = _split_suffix(mult_name)
+        key, _, n = mult.resolve_multiplier(base, n)
+        if n > lut_lib.MAX_LUT_BITS:
+            raise ValueError(
+                "approx_stat fits its separable error model on the "
+                f"exhaustive error LUT (width <= {lut_lib.MAX_LUT_BITS}, "
+                f"got {n}); use approx_bitexact for wider operands")
+        self._key = key
+        self._f00 = None  # the correction is not separable per product
+        self.meta = SubstrateMeta("approx_stat", base, bit_exact=False,
+                                  scalar_faithful=False, preferred_backend="any",
+                                  cost_hint="tensor-core", width=n)
+
+    def _rc(self, device) -> tuple[Tensor, Tensor]:
+        """The model's (r, c) float32 tables on ``device``, uploaded once."""
+        r, c, _mu = _stat_tables(self._key)
+        return (build.device_constant(("stat_r", self._key), device, lambda: r),
+                build.device_constant(("stat_c", self._key), device, lambda: c))
+
+    def scalar(self, a, b):
+        n = self.meta.width
+        off = 1 << (n - 1)
+        a = mult.wrap_operand(torch.as_tensor(a).to(torch.int32), n)
+        b = mult.wrap_operand(torch.as_tensor(b).to(torch.int32), n)
+        r, c = self._rc(a.device)
+        corr = r[(a + off).long()] + c[(b + off).long()]
+        return a * b + corr.to(torch.int32)
+
+    def _contract3(self, a3, b3):
+        n = self.meta.width
+        off = 1 << (n - 1)
+        # wrap into the width's operand domain first, so the exact
+        # contraction and the correction gathers see the operands the scalar
+        # model does
+        aw = mult.wrap_operand(a3.to(torch.int32), n)
+        bw = mult.wrap_operand(b3.to(torch.int32), n)
+        exact = _exact_int_matmul(self._stor(aw), self._stor(bw))
+        r, c = self._rc(a3.device)
+        ra = r[(aw + off).long()].sum(dim=2)  # (B, M)
+        cb = c[(bw + off).long()].sum(dim=1)  # (B, N)
+        corr = ra[:, :, None] + cb[:, None, :]
+        return exact + corr.to(torch.int32)
+
+
+class CudaSubstrate(_SubstrateBase):
+    """The hand-written CUDA kernels, for every wiring at widths 3..8.
+
+    Counterpart of ``repro``'s ``PallasSubstrate``, with its two kernel
+    strategies behind one spec family, both bit-identical to
+    ``approx_bitexact`` at the same wiring and width:
+
+    * ``"closed_form"`` — the wiring's closed form: contractions through
+      ``kernels/approx_matmul``, convolutions through the closed-form kind
+      of ``kernels/fused_conv``;
+    * ``"lut"`` — one read per product of the wiring's flat (2^N · 2^N,)
+      product table: contractions through ``kernels/lut_matmul``,
+      convolutions through the LUT kind of ``kernels/fused_conv``. The
+      automatic choice for product models with no CSP closed form
+      (``"exact"``); forceable with ``kernel="lut"``.
+
+    ``kernel="auto"`` (the default) takes the closed form where the wiring
+    has one; ``kernel="closed_form"`` raises for ``"exact"``. The batch
+    dims of ``dot_general`` become the kernels' grid z, not a Python loop.
+    On CPU tensors the kernels run their plain versions.
     """
 
     def __init__(self, mult_name: str | None = None, kernel: str = "auto"):
@@ -544,44 +641,49 @@ class CudaSubstrate(_SubstrateBase):
             raise ValueError(
                 f"approx_cuda serves widths <= {lut_lib.MAX_LUT_BITS} (got "
                 f"{n}); use approx_bitexact for wider operands")
-        if kernel not in ("auto", "lut"):
+        if kernel not in ("auto", "closed_form", "lut"):
             raise ValueError(
-                f"unknown approx_cuda kernel strategy {kernel!r} (known: auto; "
-                "lut comes with the LUT kernel)")
-        if kernel == "lut" or base == "exact":
-            raise NotImplementedError(
-                f"approx_cuda:{key} needs the LUT kernel, which {_NEXT_SLICE}")
+                f"unknown approx_cuda kernel strategy {kernel!r} "
+                "(known: auto, closed_form, lut)")
         from repro_torch.kernels.closed_form import make_closed_form
 
         self._key = key
         self._f00 = lut_lib.f00(key)
-        self._product_fn = make_closed_form(key)
+        self._product_fn = None
+        if kernel in ("auto", "closed_form"):
+            try:
+                self._product_fn = make_closed_form(key)
+            except ValueError:  # no CSP structure (e.g. "exact")
+                if kernel == "closed_form":
+                    raise
+        self._kernel_kind = "closed_form" if self._product_fn else "lut"
         self.meta = SubstrateMeta(
             "approx_cuda", base, bit_exact=True, scalar_faithful=True,
-            preferred_backend="cuda", cost_hint="int32-alu", width=n)
+            preferred_backend="cuda",
+            cost_hint="int32-alu" if self._product_fn else "gather", width=n)
 
     def scalar(self, a, b):
-        return self._product_fn(a, b)
+        if self._product_fn is not None:
+            return self._product_fn(a, b)
+        return lut_lib.lut_multiply(a, b, lut_lib.build_lut(self._key))
 
     def _contract3(self, a3, b3):
-        from repro_torch.kernels.approx_matmul.ops import closed_form_matmul
+        if self._product_fn is not None:
+            from repro_torch.kernels.approx_matmul.ops import closed_form_matmul
 
-        return closed_form_matmul(a3, b3, self._key)
+            return closed_form_matmul(a3, b3, self._key)
+        from repro_torch.kernels.lut_matmul.ops import device_table, lut_matmul
+
+        return lut_matmul(a3, b3, device_table(self._key, a3.device))
 
     def fused_conv2d(self, imgs: Tensor, kernel) -> Tensor:
-        """Fused 'same' conv of (B, H, W) int32 images with every product
-        through the closed form (``kernels/fused_conv``); bit-identical to
-        the im2col + ``dot_general`` path."""
+        """Fused 'same' conv of (B, H, W) int32 images in this substrate's
+        kernel kind (``kernels/fused_conv``); bit-identical to the im2col +
+        ``dot_general`` path."""
         from repro_torch.kernels.fused_conv.ops import fused_conv2d
 
-        return fused_conv2d(imgs, kernel, self._key)
-
-
-def _not_ported(backend: str):
-    def factory(mult_name: str | None = None):
-        raise NotImplementedError(f"the {backend} backend {_NEXT_SLICE}")
-
-    return factory
+        return fused_conv2d(imgs, kernel, self._key,
+                            kernel_kind=self._kernel_kind)
 
 
 # ---------------------------------------------------------------------------
@@ -664,9 +766,9 @@ def as_substrate(s):
 
 
 register_substrate("exact", ExactSubstrate)
+register_substrate("int8", Int8Substrate)
 register_substrate("approx_bitexact", BitexactSubstrate)
 register_substrate("approx_lut", LutSubstrate)
+register_substrate("approx_stat", StatSubstrate)
 register_substrate("approx_cuda", CudaSubstrate)
 register_substrate("approx_pallas", CudaSubstrate)  # specs written for repro
-register_substrate("int8", _not_ported("int8"))
-register_substrate("approx_stat", _not_ported("approx_stat"))

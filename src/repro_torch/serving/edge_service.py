@@ -4,16 +4,19 @@ Counterpart of ``repro.serving.edge_service``. :class:`EdgeDetectService`
 queues single uint8 images, buckets them by padded shape, and drains each
 bucket through :func:`repro_torch.nn.conv.edge_detect_batched` on a
 registered substrate spec (``"approx_cuda"``, ``"approx_cuda:csp_axc1@4"``,
-``"approx_lut:design_du2022"``, …).
+``"approx_lut:design_du2022"``, …), or through
+:func:`repro_torch.nn.conv.edge_detect_planned` under a per-site
+:class:`~repro_torch.nn.plan.SubstratePlan`.
 
 Bit-identity contract: a served edge map equals the direct
-``edge_detect_batched(img[None], substrate)[0]`` exactly, for every
-substrate. Padding preserves this because images are zero-embedded at the
-top-left of the bucket shape, which is indistinguishable (to the 'same'
-convolution taps of every kept pixel) from the zero border the direct path
-applies — the kernels multiply those zeros too, f(0, c) included — and every
-contraction is independent per output pixel. Results are cropped back to the
-request shape.
+``edge_detect_batched(img[None], substrate)[0]`` (or
+``edge_detect_planned(img[None], plan)[0]``) exactly, for every
+substrate and plan. Padding preserves this because images are zero-embedded
+at the top-left of the bucket shape, which is indistinguishable (to the
+'same' convolution taps of every kept pixel) from the zero border the direct
+path applies — the kernels multiply those zeros too, f(0, c) included — and
+every contraction is independent per output pixel. Results are cropped back
+to the request shape.
 
 Device: ``device=None`` means ``"cuda"``; only an explicit ``device="cpu"``
 runs the plain versions. On the card, ``_process`` copies the padded batch
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.nn import conv
+from repro_torch.nn import plan as plan_mod
 from repro_torch.nn import substrate as sub
 from repro_torch.obs.trace import trace_span
 from repro_torch.serving.batcher import MicroBatcher, Ticket
@@ -49,10 +53,15 @@ def _ceil_to(x: int, mult: int) -> int:
 
 
 class EdgeDetectService:
-    """Micro-batched Laplacian edge detection on one product substrate.
+    """Micro-batched Laplacian edge detection on one product substrate
+    (or a per-tap-group :class:`~repro_torch.nn.plan.SubstratePlan`).
 
-    substrate:          spec string or substrate instance. Per-site
-                        ``SubstratePlan``s come with the plan slice.
+    substrate:          spec string, substrate instance, or a
+                        :class:`~repro_torch.nn.plan.SubstratePlan` (or its
+                        dict schema) assigning specs to the edge tap-group
+                        sites ``conv.edge.center`` / ``conv.edge.ring`` —
+                        plans serve through
+                        :func:`repro_torch.nn.conv.edge_detect_planned`.
     device:             ``None`` (→ ``"cuda"``), ``"cuda[:i]"`` or ``"cpu"``.
     max_batch_size:     flush a shape bucket at this many images.
     max_wait_s:         flush a partial bucket once its oldest image has
@@ -85,11 +94,6 @@ class EdgeDetectService:
             raise NotImplementedError(
                 "partitioned serving is not ported yet (ROADMAP.md, queue 1 "
                 "item 11)")
-        if isinstance(substrate, dict) or not (
-                isinstance(substrate, str) or hasattr(substrate, "meta")):
-            raise NotImplementedError(
-                "per-site substrate plans are not ported yet (ROADMAP.md, "
-                "queue 1 item 4); pass a spec string or a substrate")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -97,8 +101,14 @@ class EdgeDetectService:
                 "is available; pass device='cpu' to run the plain versions")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"device must be cuda or cpu, got {self.device}")
-        self.substrate = sub.as_substrate(substrate)
-        self.spec = self.substrate.meta.spec
+        if isinstance(substrate, (plan_mod.SubstratePlan, dict)):
+            self.plan = plan_mod.as_plan(substrate)
+            self.substrate = sub.get_substrate(self.plan.default)
+            self.spec = self.plan.label
+        else:
+            self.plan = None
+            self.substrate = sub.as_substrate(substrate)
+            self.spec = self.substrate.meta.spec
         self.bucket_granularity = bucket_granularity
         self.pad_batches = pad_batches
         self.device_latency_s = device_latency_s
@@ -178,13 +188,19 @@ class EdgeDetectService:
             inflight = self._dispatch(torch.from_numpy(batch))
         return inflight, [im.shape for im in imgs]
 
+    def _compute(self, batch: torch.Tensor) -> torch.Tensor:
+        """The edge-detect pipeline on a uint8 batch on the service's device."""
+        if self.plan is not None:
+            return conv.edge_detect_planned(batch, self.plan)
+        return conv.edge_detect_batched(batch, self.substrate)
+
     def _dispatch(self, host: torch.Tensor):
         """Run the pipeline on ``host`` (a uint8 CPU batch). CPU: returns the
         finished map. CUDA: returns (pinned host output, event, tensors to
         keep alive until the event) with the copies and kernels enqueued on
         this worker's stream."""
         if self.device.type == "cpu":
-            out = conv.edge_detect_batched(host, self.substrate)
+            out = self._compute(host)
             if self.device_latency_s > 0:
                 time.sleep(self.device_latency_s)
             return out, None, ()
@@ -192,7 +208,7 @@ class EdgeDetectService:
         pinned = host.pin_memory()
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
             dev = pinned.to(self.device, non_blocking=True)
-            out = conv.edge_detect_batched(dev, self.substrate)
+            out = self._compute(dev)
             if self._sleep_cycles:
                 torch.cuda._sleep(self._sleep_cycles)
             out_host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)

@@ -3,7 +3,8 @@
 Inputs are made with numpy and handed to both packages; every integer
 result must be exactly equal: compressor tables, the closed-form and
 structural multipliers (exhaustive at N=4 and N=8 for all 9 wirings plus
-``exact``, sampled at N=16), product tables and f(0,0).
+``exact``, sampled at N=16), product tables, f(0,0), error tables and
+their moments (equal in float64).
 """
 import numpy as np
 import pytest
@@ -147,3 +148,11 @@ def test_bad_keys_rejected_like_reference(bad):
     with pytest.raises(ValueError) as terr:
         tm.canonical_key(bad)
     assert str(terr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("key", ["proposed", "csp_axc1@4", "design_du2022@6",
+                                 "exact@5", "csp_krishna@8"])
+def test_error_lut_and_moments_match(key):
+    np.testing.assert_array_equal(tlut.error_lut(key), jlut.error_lut(key))
+    assert tlut.error_lut(key).dtype == np.int32
+    assert tlut.error_moments(key) == jlut.error_moments(key)

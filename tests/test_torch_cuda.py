@@ -14,9 +14,17 @@ from repro_torch.core import multiplier as mult
 from repro_torch.data import mixed_shape_batch
 from repro_torch.kernels.approx_matmul.ops import (closed_form_matmul,
                                                    closed_form_matmul_plain)
+from repro_torch.kernels.approx_mul.ops import approx_mul, approx_mul_plain
+from repro_torch.kernels.closed_form import approx_product_i32
 from repro_torch.kernels.fused_conv.ops import fused_conv2d, fused_conv2d_plain
+from repro_torch.kernels.lut_matmul.ops import (device_table, lut_matmul,
+                                                lut_matmul_plain)
 from repro_torch.nn import conv
 from repro_torch.serving import EdgeDetectService
+
+PLAN = {"version": 1, "default": "approx_cuda:proposed@8",
+        "rules": [{"site": "conv.edge.center", "spec": "approx_cuda:exact"},
+                  {"site": "conv.edge.ring", "spec": "approx_cuda:csp_axc1@6"}]}
 
 pytestmark = pytest.mark.cuda
 RNG = np.random.default_rng(3)
@@ -78,3 +86,106 @@ def test_service_on_the_card_matches_cpu(dev):
     before = fused_conv2d.launches.value
     conv.conv2d_batched(px, conv.LAPLACIAN, "approx_cuda")
     assert fused_conv2d.launches.value == before + 1
+
+
+@pytest.mark.parametrize("name", sorted(mult.WIRINGS) + ["exact"])
+def test_lut_matmul_exhaustive_n4(dev, name):
+    key = f"{name}@4"
+    v = torch.arange(-8, 8, dtype=torch.int32, device=dev)
+    before = lut_matmul.launches.value
+    got = lut_matmul(v[:, None], v[None, :], device_table(key, dev))
+    assert lut_matmul.launches.value == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), lut_lib.build_lut(key))
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (1, 17, 33, 9), (3, 65, 9, 3),
+                                   (2, 40, 100, 70)])
+def test_lut_matmul_kernel_vs_plain(dev, shape):
+    b, m, k, n = shape
+    a = torch.from_numpy(RNG.integers(-128, 128, (b, m, k)).astype(np.int32)).to(dev)
+    w = torch.from_numpy(RNG.integers(-128, 128, (b, k, n)).astype(np.int32)).to(dev)
+    for key in ("proposed", "exact", "design_strollo2020@4"):
+        t = device_table(key, dev)
+        torch.testing.assert_close(lut_matmul(a, w, t), lut_matmul_plain(a, w, t),
+                                   rtol=0, atol=0)
+
+
+def test_lut_matmul_k_tail_masks_the_product(dev):
+    """K=17 leaves a 1-element tail in the kernel's 16-wide slab: a zero
+    operand there would read f(0,0) = 192 (proposed@8) into the sum."""
+    assert lut_lib.f00("proposed") == 192
+    a = RNG.integers(-128, 128, (5, 17)).astype(np.int32)
+    w = RNG.integers(-128, 128, (17, 3)).astype(np.int32)
+    table = lut_lib.build_lut("proposed").astype(np.int64)
+    want = table[a[:, :, None] + 128, w[None, :, :] + 128].sum(axis=1)
+    got = lut_matmul(torch.from_numpy(a).to(dev), torch.from_numpy(w).to(dev),
+                     device_table("proposed", dev))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.astype(np.int32))
+    with pytest.raises(ValueError, match="lies on"):
+        lut_matmul(torch.from_numpy(a).to(dev), torch.from_numpy(w).to(dev),
+                   device_table("proposed", "cpu"))
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 13, 17), (3, 33, 65)])
+@pytest.mark.parametrize("kh_kw", [(1, 1), (3, 3), (5, 5)])
+def test_fused_conv_lut_kind_vs_plain(dev, shape, kh_kw):
+    x = torch.from_numpy(RNG.integers(-128, 128, shape).astype(np.int32)).to(dev)
+    kern = RNG.integers(-128, 128, kh_kw).astype(np.int32)
+    taps = tuple(tuple(int(c) for c in row) for row in kern)
+    for key in ("exact", "proposed", "csp_axc5@4"):
+        before = fused_conv2d.lut_launches.value
+        got = fused_conv2d(x, kern, key, kernel_kind="lut")
+        assert fused_conv2d.lut_launches.value == before + 1
+        torch.testing.assert_close(got, fused_conv2d_plain(x, taps, key, "lut"),
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(
+        fused_conv2d(x, kern, "proposed", kernel_kind="lut"),
+        fused_conv2d(x, kern, "proposed", kernel_kind="closed_form"),
+        rtol=0, atol=0)
+
+
+def test_fused_conv_lut_kind_zero_border(dev):
+    """Out-of-image taps read 0 and are looked up: f(0, c) != 0 under
+    kernel="lut" for a CSP wiring, and the whole 16x16 table (256 columns
+    of int16 in shared memory, above the 48 KiB default) still launches."""
+    x = torch.zeros((1, 5, 7), dtype=torch.int32, device=dev)
+    taps = tuple(tuple(int(c) for c in row) for row in conv.LAPLACIAN)
+    got = fused_conv2d(x, conv.LAPLACIAN, "csp_axc1", kernel_kind="lut")
+    torch.testing.assert_close(got, fused_conv2d_plain(x, taps, "csp_axc1", "lut"),
+                               rtol=0, atol=0)
+    assert (got != 0).all()
+    big = np.arange(-128, 128, dtype=np.int32).reshape(16, 16)
+    xs = torch.from_numpy(RNG.integers(-128, 128, (2, 40, 50)).astype(np.int32)).to(dev)
+    torch.testing.assert_close(
+        fused_conv2d(xs, big, "proposed", kernel_kind="lut"),
+        fused_conv2d_plain(xs, tuple(tuple(int(c) for c in r) for r in big),
+                           "proposed", "lut"), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 4097, 65536])
+def test_approx_mul_kernel_vs_plain(dev, n):
+    a = torch.from_numpy(RNG.integers(-2**31, 2**31, n, dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    b = torch.from_numpy(RNG.integers(-2**31, 2**31, n, dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    before = approx_mul.launches.value
+    got = approx_mul(a, b)
+    assert approx_mul.launches.value == before + 1
+    torch.testing.assert_close(got, approx_mul_plain(a, b), rtol=0, atol=0)
+    # a view one element in: not 16-byte aligned, the scalar kernel runs
+    torch.testing.assert_close(approx_mul(a[1:], b[1:]),
+                               approx_product_i32(a[1:], b[1:]), rtol=0, atol=0)
+
+
+def test_planned_service_on_the_card_matches_cpu(dev):
+    imgs = mixed_shape_batch(6, shapes=((8, 8), (12, 10), (33, 47)), seed=2)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        svc = EdgeDetectService(PLAN, device=device, max_batch_size=2,
+                                bucket_granularity=8, n_workers=2)
+        try:
+            outs[device] = svc.detect(imgs)
+        finally:
+            svc.close()
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        np.testing.assert_array_equal(a, b)

@@ -1,8 +1,9 @@
 """The ported main path against ``repro``: procedural images, the batched
-Laplacian edge detection on every ported spec at widths 4 and 8, PSNR, and
-the port's ``EdgeDetectService(device="cpu")`` against the JAX service at
-1/2/4 workers (byte-identical maps, the same metric family names, poison
-isolation)."""
+Laplacian edge detection on every ported spec at widths 4 and 8 (the
+``exact`` wiring under the kernel backend included, which runs the fused
+conv's LUT kind), PSNR, and the port's ``EdgeDetectService(device="cpu")``
+against the JAX service at 1/2/4 workers (byte-identical maps, the same
+metric family names, poison isolation), on a spec and on a per-site plan."""
 import numpy as np
 import pytest
 import torch
@@ -24,6 +25,9 @@ SPECS = {
     "approx_lut:csp_axc1@4": "approx_lut:csp_axc1@4",
     "approx_cuda:proposed@4": "approx_pallas:proposed@4",
     "approx_pallas:design_strollo2020@4": "approx_pallas:design_strollo2020@4",
+    "approx_cuda:exact": "approx_pallas:exact",
+    "approx_cuda:exact@5": "approx_pallas:exact@5",
+    "int8": "int8",
 }
 SMALL_SHAPES = ((8, 8), (12, 10), (16, 16), (9, 21))
 
@@ -134,5 +138,17 @@ def test_service_latency_emulation_and_bad_inputs():
         EdgeDetectService("exact", device="cpu", bucket_granularity=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EdgeDetectService("exact", device="cpu", partitioning=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EdgeDetectService({"default": "exact"}, device="cpu")
+    # a plan dict serves like the JAX service's, under emulated latency too
+    plan = {"default": "approx_cuda:proposed@8", "rules": [
+        {"site": "conv.edge.center", "spec": "approx_cuda:exact"},
+        {"site": "conv.edge.ring", "spec": "approx_cuda:csp_axc1@6"}]}
+    jplan = {"default": "approx_pallas:proposed@8", "rules": [
+        {"site": "conv.edge.center", "spec": "approx_pallas:exact"},
+        {"site": "conv.edge.ring", "spec": "approx_pallas:csp_axc1@6"}]}
+    jsvc, want = _serve(JService, jplan, list(imgs), 2)
+    tsvc, got = _serve(EdgeDetectService, plan, list(imgs), 2, device="cpu",
+                       device_latency_s=0.01)
+    assert tsvc.spec == "plan(approx_cuda:proposed@8+2 rules)"
+    assert jsvc.spec == "plan(approx_pallas:proposed@8+2 rules)"
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, np.asarray(w))

@@ -2,9 +2,10 @@
 tensors → its plain version) with ``repro``'s Pallas kernel (interpret mode
 off-TPU) and with its scalar oracle, mirroring ``tests/test_fused_conv.py``:
 wirings at N=4, widths 3..8, ragged shapes, 1×1/2×3/5×5 kernels, NHWC, and
-the zero border that must still be multiplied (f(0, c) ≠ 0). Where the
-Pallas kernel's interpret mode would dominate the run time, the reference
-side is ``repro``'s product table gathered in numpy (``_lut_conv``)."""
+the zero border that must still be multiplied (f(0, c) ≠ 0), in both
+product kinds (closed form and LUT, ``kernel_kind=``). Where the Pallas
+kernel's interpret mode would dominate the run time, the reference side is
+``repro``'s product table gathered in numpy (``_lut_conv``)."""
 import numpy as np
 import pytest
 import torch
@@ -14,6 +15,7 @@ from repro.core import multiplier as jm
 from repro.kernels.fused_conv.ops import fused_conv2d as j_fused
 from repro.nn import conv as jconv
 from repro.nn import substrate as jsub
+from repro_torch.kernels.fused_conv import ops as fc_ops
 from repro_torch.kernels.fused_conv.ops import fused_conv2d, fused_conv2d_plain
 from repro_torch.kernels.fused_conv.ref import fused_conv_ref
 from repro_torch.nn import conv
@@ -151,3 +153,98 @@ def test_fused_conv_rejects_other_devices_and_shapes():
     with pytest.raises(ValueError, match="fused=True"):
         conv.conv2d_batched(torch.zeros((1, 4, 4), dtype=torch.int32),
                             conv.LAPLACIAN, "approx_bitexact", fused=True)
+
+
+# -- the LUT kind -------------------------------------------------------------
+
+#: a 4×4 kernel holding every signed 4-bit tap value once
+TAPS_N4 = np.arange(-8, 8, dtype=np.int32).reshape(4, 4)
+
+
+@pytest.mark.parametrize("name", sorted(jm.WIRINGS) + ["exact"])
+def test_lut_kind_exhaustive_n4_matches_pallas(name):
+    """Every pixel value × every tap value at N=4 (the image holds all 16
+    values, the kernel all 16 taps), against the reference's LUT kind."""
+    key = f"{name}@4"
+    imgs = np.stack([RNG.permutation(np.tile(np.arange(-8, 8), 12)).reshape(12, 16)
+                     .astype(np.int32) for _ in range(2)])
+    want = np.asarray(j_fused(imgs, TAPS_N4, key, kernel_kind="lut"))
+    got = fused_conv2d(_t(imgs), TAPS_N4, key, kernel_kind="lut").numpy()
+    np.testing.assert_array_equal(got, want, err_msg=name)
+    np.testing.assert_array_equal(got, _lut_conv(imgs, TAPS_N4, key))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 9), (20, 7), (33, 65)])
+@pytest.mark.parametrize("key", ["exact", "csp_axc3@6"])
+def test_lut_kind_ragged_shapes(shape, key):
+    hi = 1 << (jm.split_width(key)[1] - 1)
+    imgs = _img(*shape, lo=-hi, hi=hi)[None]
+    want = np.asarray(j_fused(imgs, jconv.LAPLACIAN, key, kernel_kind="lut"))
+    got = fused_conv2d(_t(imgs), conv.LAPLACIAN, key, kernel_kind="lut")
+    np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{key} {shape}")
+
+
+def test_lut_kind_proposed8_equals_closed_form_kind():
+    imgs = np.stack([_img(17, 23) for _ in range(3)])
+    lut = fused_conv2d(_t(imgs), conv.LAPLACIAN, "proposed", kernel_kind="lut")
+    cf = fused_conv2d(_t(imgs), conv.LAPLACIAN, "proposed",
+                      kernel_kind="closed_form")
+    np.testing.assert_array_equal(lut.numpy(), cf.numpy())
+    np.testing.assert_array_equal(
+        lut.numpy(), np.asarray(j_fused(imgs, jconv.LAPLACIAN, "proposed",
+                                        kernel_kind="lut")))
+
+
+def test_lut_kind_zero_border_is_looked_up():
+    """Out-of-image taps read 0 and are looked up: f(0, c) ≠ 0 for a CSP
+    wiring, so a zero image answers Σ f(0, c); ``exact`` would hide this
+    (f(0, c) = 0 there)."""
+    imgs = np.zeros((1, 5, 6), np.int32)
+    got = fused_conv2d(_t(imgs), conv.LAPLACIAN, "csp_axc1",
+                       kernel_kind="lut").numpy()
+    want = np.asarray(j_fused(imgs, jconv.LAPLACIAN, "csp_axc1",
+                              kernel_kind="lut"))
+    np.testing.assert_array_equal(got, want)
+    assert (got != 0).all()
+    assert (fused_conv2d(_t(imgs), conv.LAPLACIAN, "exact").numpy() == 0).all()
+
+
+def test_lut_kind_operand_order_pixel_first():
+    """The pixel is the first operand and the tap the second; the CSP
+    multipliers are not symmetric, so swapping them changes the map."""
+    imgs = _img(9, 10)[None]
+    kern = RNG.integers(-128, 128, (3, 3)).astype(np.int32)
+    got = fused_conv2d(_t(imgs), kern, "proposed", kernel_kind="lut").numpy()
+    np.testing.assert_array_equal(got, _lut_conv(imgs, kern, "proposed"))
+    table = jlut.build_lut("proposed")
+    assert (table != table.T).any()
+
+
+def test_kernel_kinds_resolve_like_reference():
+    assert fc_ops.KERNEL_KINDS == ("auto", "closed_form", "lut")
+    assert fc_ops.resolve_kind("exact@4", "auto") == "lut"
+    assert fc_ops.resolve_kind("csp_axc1@4", "auto") == "closed_form"
+    assert fc_ops.resolve_kind("proposed", "lut") == "lut"
+    with pytest.raises(ValueError):
+        fused_conv2d(torch.zeros((1, 4, 4), dtype=torch.int32), conv.LAPLACIAN,
+                     "exact", kernel_kind="closed_form")
+    with pytest.raises(ValueError, match="unknown fused-conv kernel kind"):
+        fused_conv2d(torch.zeros((1, 4, 4), dtype=torch.int32), conv.LAPLACIAN,
+                     kernel_kind="tiled")
+
+
+def test_lut_columns_built_once_per_taps():
+    """The LUT kind's per-tap columns: one int16 column per distinct wrapped
+    tap value, the same tensor on every call (kept on the device, never
+    uploaded per batch), each tap pointing at its own column."""
+    taps = tuple(tuple(int(c) for c in row) for row in conv.LAPLACIAN)
+    slots, cols = fc_ops._lut_columns("proposed", taps, torch.device("cpu"))
+    again = fc_ops._lut_columns("proposed", taps, torch.device("cpu"))[1]
+    assert again is cols and cols.dtype == torch.int16 and cols.shape == (2, 256)
+    table = jlut.build_lut("proposed")
+    for t, c in enumerate(c for row in taps for c in row):
+        np.testing.assert_array_equal(cols[slots[t]].numpy(), table[:, c + 128])
+    before = (fused_conv2d.launches.value, fused_conv2d.lut_launches.value)
+    fused_conv2d(_t(_img(4, 5)[None]), conv.LAPLACIAN, "exact")
+    assert (fused_conv2d.launches.value,
+            fused_conv2d.lut_launches.value) == before  # no launch on CPU

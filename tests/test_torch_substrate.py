@@ -1,8 +1,8 @@
 """Parity of the port's substrate registry (``repro_torch.nn.substrate``)
 with ``repro.nn.substrate``: the spec grammar and its strictness, the
-``approx_pallas`` alias, the backends that wait for a later slice, and the
-unsharded ``dot_general`` cases of ``tests/test_dot_general.py`` on exact /
-approx_bitexact / approx_lut / approx_cuda (CPU tensors)."""
+``approx_pallas`` alias, the kernel kinds of ``approx_cuda``, and the
+unsharded ``dot_general`` cases of ``tests/test_dot_general.py`` on every
+backend (CPU tensors; ``repro``'s Pallas kernels run in interpret mode)."""
 import numpy as np
 import pytest
 import torch
@@ -82,13 +82,85 @@ def test_approx_pallas_alias_resolves_to_cuda_backend():
         sub.get_substrate("approx_cuda:proposed@16")
 
 
-@pytest.mark.parametrize("spec", ["int8", "approx_stat", "approx_cuda:exact",
-                                  "approx_pallas:exact@4"])
+#: backends and wirings whose contraction is a table or a statistical model:
+#: port spec → reference spec, and the tolerance of ``dot_general`` on
+#: integers. approx_stat adds a float32 sum of K per-operand corrections,
+#: truncated to int32 once per output; XLA and torch sum in different orders,
+#: so the float32 sums may differ by a few ulp (values ≪ 2^20 here, ulp
+#: ≤ 1/16), and two floats less than 1 apart truncate at most 1 apart.
+TABLE_SPECS = {"int8": ("int8", 0), "approx_stat": ("approx_stat", 1),
+               "approx_cuda:exact": ("approx_pallas:exact", 0),
+               "approx_pallas:exact@4": ("approx_pallas:exact@4", 0)}
+
+
+@pytest.mark.parametrize("spec", sorted(TABLE_SPECS))
 def test_later_slices_raise_not_implemented(spec):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        sub.get_substrate(spec)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        sub.CudaSubstrate("proposed", kernel="lut")
+    """These four specs raised NotImplementedError in the port's first
+    slice; each now resolves and matches ``repro`` on ``scalar`` (in-range
+    and wrapping operands) and on a ragged 2-D ``dot_int``."""
+    ref_spec, tol = TABLE_SPECS[spec]
+    s, js = sub.get_substrate(spec), jsub.get_substrate(ref_spec)
+    assert (s.meta.width, s.meta.bit_exact, s.meta.scalar_faithful) == \
+        (js.meta.width, js.meta.bit_exact, js.meta.scalar_faithful)
+    a = RNG.integers(-300, 300, 4096).astype(np.int32)
+    b = RNG.integers(-300, 300, 4096).astype(np.int32)
+    if spec == "int8":  # an exact product, no wrapping: keep it in range
+        a, b = a % 256 - 128, b % 256 - 128
+    np.testing.assert_array_equal(s.scalar(_t(a), _t(b)).numpy(),
+                                  np.asarray(js.scalar(a, b)), err_msg=spec)
+    x = RNG.integers(-128, 128, (9, 37)).astype(np.int32)
+    w = RNG.integers(-128, 128, (37, 5)).astype(np.int32)
+    np.testing.assert_allclose(s.dot_int(_t(x), _t(w)).numpy(),
+                               np.asarray(js.dot_int(x, w)), rtol=0, atol=tol,
+                               err_msg=spec)
+
+
+@pytest.mark.parametrize("spec", sorted(TABLE_SPECS))
+@pytest.mark.parametrize("case", DIM_CASES,
+                         ids=[str(i) for i in range(len(DIM_CASES))])
+def test_table_backends_dot_general_dims_match_reference(case, spec):
+    lhs_shape, rhs_shape, dims = case
+    ref_spec, tol = TABLE_SPECS[spec]
+    a = RNG.integers(-100, 100, lhs_shape).astype(np.int8)
+    b = RNG.integers(-100, 100, rhs_shape).astype(np.int8)
+    want = np.asarray(jsub.get_substrate(ref_spec).dot_general(
+        a, b, JSpec(dims)))
+    got = sub.get_substrate(spec).dot_general(_t(a), _t(b), ContractionSpec(dims))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol,
+                               err_msg=spec)
+
+
+@pytest.mark.parametrize("kernel", ["auto", "closed_form", "lut"])
+@pytest.mark.parametrize("key", ["proposed", "design_strollo2020@4", "exact@4"])
+def test_cuda_kernel_kinds_match_pallas_substrate(kernel, key):
+    """``CudaSubstrate(kernel=)`` takes ``PallasSubstrate``'s three values:
+    the same kind, the same cost hint, the same integers (K=19 leaves a K
+    tail, so the f(0,0) of proposed@8 under the table kind shows), and the
+    same refusal of ``closed_form`` for ``exact``."""
+    if kernel == "closed_form" and key.startswith("exact"):
+        with pytest.raises(ValueError):
+            jsub.PallasSubstrate(key, kernel=kernel)
+        with pytest.raises(ValueError):
+            sub.CudaSubstrate(key, kernel=kernel)
+        return
+    js = jsub.PallasSubstrate(key, kernel=kernel)
+    s = sub.CudaSubstrate(key, kernel=kernel)
+    assert s._kernel_kind == js._kernel_kind
+    assert s.meta.cost_hint == {"vpu": "int32-alu", "gather": "gather"}[
+        js.meta.cost_hint]
+    a = RNG.integers(-128, 128, (7, 19)).astype(np.int32)
+    b = RNG.integers(-128, 128, (19, 3)).astype(np.int32)
+    np.testing.assert_array_equal(s.dot_int(_t(a), _t(b)).numpy(),
+                                  np.asarray(js.dot_int(a, b)))
+    imgs = RNG.integers(-8, 8, (2, 9, 11)).astype(np.int32)
+    from repro.nn import conv as jconv
+
+    np.testing.assert_array_equal(
+        s.fused_conv2d(_t(imgs), jconv.LAPLACIAN).numpy(),
+        np.asarray(js.fused_conv2d(imgs, jconv.LAPLACIAN)))
+    with pytest.raises(ValueError, match="known: auto, closed_form, lut"):
+        sub.CudaSubstrate(key, kernel="tiled")
 
 
 @pytest.mark.parametrize("spec", sorted(SPECS))
@@ -130,7 +202,8 @@ POLICIES = [JQuant(), JQuant(x_mode="per_channel", w_mode="per_tensor"),
             JQuant(bits=4)]
 
 
-@pytest.mark.parametrize("spec", ["approx_bitexact", "approx_lut", "approx_cuda"])
+@pytest.mark.parametrize("spec", ["approx_bitexact", "approx_lut", "approx_cuda",
+                                  "int8"])
 @pytest.mark.parametrize("pol", range(len(POLICIES)))
 def test_quantized_float_path_matches_reference(spec, pol):
     """Integer contraction exact; the f32 scale product rounds the same way
@@ -139,7 +212,7 @@ def test_quantized_float_path_matches_reference(spec, pol):
     tq = QuantPolicy(bits=jq.bits, x_mode=jq.x_mode, w_mode=jq.w_mode)
     x = RNG.normal(size=(3, 5, 24)).astype(np.float32)
     w = RNG.normal(size=(24, 6)).astype(np.float32)
-    want = np.asarray(jsub.get_substrate(SPECS[spec]).dot_general(
+    want = np.asarray(jsub.get_substrate(SPECS.get(spec, spec)).dot_general(
         x, w, JSpec.matmul(quant=jq)))
     got = sub.get_substrate(spec).dot_general(_t(x), _t(w),
                                               ContractionSpec.matmul(quant=tq))
@@ -199,3 +272,20 @@ def test_quant_policy_validation():
         sub.get_substrate("approx_cuda:proposed@4").dot_general(
             torch.zeros((2, 3)), torch.zeros((3, 2)),
             ContractionSpec.matmul(quant=QuantPolicy(bits=8)))
+
+
+def test_contraction_site_is_observational():
+    """``ContractionSpec.site`` names the contraction; the result never
+    depends on it, as in ``repro``."""
+    a = _t(RNG.integers(-128, 128, (2, 5, 9)).astype(np.int32))
+    w = _t(RNG.integers(-128, 128, (9, 3)).astype(np.int32))
+    dims = (((2,), (0,)), ((), ()))
+    spec = ContractionSpec(dims, site="conv.edge.ring")
+    assert spec.site == "conv.edge.ring" and ContractionSpec().site is None
+    assert ContractionSpec.matmul(site="x").site == "x"
+    assert JSpec.matmul(site="x").site == "x"
+    for name in ("approx_cuda:csp_axc1@6", "approx_stat", "int8"):
+        s = sub.get_substrate(name)
+        np.testing.assert_array_equal(
+            s.dot_general(a, w, spec).numpy(),
+            s.dot_general(a, w, ContractionSpec(dims)).numpy())
