@@ -12,11 +12,16 @@ under ``torch.profiler`` and the port's span tracer; its Chrome trace goes to
 ``chiprun_out/chip_smoke_trace.json``. The same mix is then served under a
 per-site substrate plan (the center tap on the ``exact`` product table, the
 ring taps on csp_axc1@6) and checked against the planned pipeline built from
-the plain twins; the 512×512 set once more under uniform
-``approx_cuda:exact``. Every phase prints one JSON line; the line before the
-last lists the kernels with their launches on the path that runs them, their
-times and least-work bounds, and the last line is
-``{"ok": true, "device": ...}``.
+the plain twins; one planned window is traced the same way
+(``chiprun_out/chip_smoke_planned_trace.json``). The planned path must
+launch only the narrow design of the two contraction kernels; a wide
+contraction through ``dot_general`` (a dense layer's shape) drives their
+tile design. The 512×512 set is served once more under uniform
+``approx_cuda:exact``. Both designs of the contraction kernels are checked
+and timed at the three shapes the served paths give them. Every phase
+prints one JSON line; the line before the last lists the kernels with their
+launches on the path that runs them, their times and least-work bounds, and
+the last line is ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Needs CUDA; exits non-zero without it. Imports no JAX.
 """
@@ -40,6 +45,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 # SMs have 64 INT32 lanes beside 128 FP32 lanes, Hopper white paper).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2 / 2
+SLEEP_CYCLES = 20_000_000  # ~11 ms at 1.755 GHz: time to enqueue 10 calls
 WINDOWS = 5  # timed passes over the served mix, within one run
 PLANNED_WINDOWS = 3  # timed passes of the planned path
 #: the per-site plan the planned path serves (schema v1, as repro writes it)
@@ -65,11 +71,15 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Device time of one call, from CUDA events around ``iters`` calls."""
+    """Device time of one call, from CUDA events around ``iters`` calls. The
+    stream first sleeps on the card while the host enqueues every call, so
+    that the calls run back to back and the host's launch cost (Python,
+    ctypes, allocations) does not show in a kernel's time."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -126,13 +136,15 @@ def main() -> int:
     from repro_torch.core import lut as lut_lib
     from repro_torch.core import multiplier as mult
     from repro_torch.data import image_batch, mixed_shape_batch, photo_like
-    from repro_torch.kernels import build
+    from repro_torch.kernels import blocking, build
+    from repro_torch.kernels.approx_matmul import ops as am
     from repro_torch.kernels.approx_matmul.ops import (closed_form_matmul,
                                                        closed_form_matmul_plain)
     from repro_torch.kernels.approx_mul.ops import approx_mul, approx_mul_plain
     from repro_torch.kernels.closed_form import approx_product_i32
     from repro_torch.kernels.fused_conv.ops import (fused_conv2d,
                                                     fused_conv2d_plain)
+    from repro_torch.kernels.lut_matmul import ops as lm
     from repro_torch.kernels.lut_matmul.ops import (device_table, lut_matmul,
                                                     lut_matmul_plain)
     from repro_torch.nn import conv
@@ -315,8 +327,9 @@ def main() -> int:
     try:
         svc.detect(hd[:8] + tiles[:8] + ragged)  # warm-up: every bucket shape
         torch.cuda.synchronize()
-        fused_conv2d.launches.reset()
-        closed_form_matmul.launches.reset()
+        for counter in (fused_conv2d.launches, closed_form_matmul.launches,
+                        closed_form_matmul.narrow_launches):
+            counter.reset()
         served, first = window(svc)
         windows = [first]
         for _ in range(WINDOWS - 1):
@@ -330,7 +343,9 @@ def main() -> int:
                                          lap, s, fused=False)
         torch.cuda.synchronize()
         launches = {"fused_conv": fused_conv2d.launches.value,
-                    "approx_matmul": closed_form_matmul.launches.value}
+                    "approx_matmul": closed_form_matmul.launches.value,
+                    "approx_matmul_narrow":
+                        closed_form_matmul.narrow_launches.value}
         # one more window under torch.profiler (device activity) and the
         # port's span tracer (host phases); not counted in `windows`
         tracer = Tracer()
@@ -342,7 +357,9 @@ def main() -> int:
         prof.export_chrome_trace(str(trace_path))
     finally:
         svc.close()
-    require(all(v > 0 for v in launches.values()), f"launches {launches}")
+    # the im2col batch is (B*H*W x 9) @ (9 x 1): the narrow design
+    require(launches["fused_conv"] > 0 and launches["approx_matmul_narrow"] > 0
+            and launches["approx_matmul"] == 0, f"launches {launches}")
     for img, out in zip(images, served):
         require(out.shape == img.shape and out.dtype == np.uint8,
                 f"served map shape {out.shape} {out.dtype}")
@@ -364,18 +381,24 @@ def main() -> int:
          images_per_s_min=rates[0], images_per_s_max=rates[-1],
          launches=launches, psnr_proposed8_vs_exact_512_db=round(psnr, 4),
          byte_identical=True)
-    busy_us, by_name = device_busy(trace_path)
-    spans: dict = {}
-    for e in tracer.events():
-        spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
-    emit("main_path_trace", trace=str(trace_path.relative_to(out_dir.parent)),
-         window=traced,
-         device_busy_ms=busy_us / 1e3 if by_name else None,
-         device_idle_share=(1 - busy_us / 1e6 / traced["wall_s"]
-                            if by_name else None),
-         device_ms_by_name={k: v / 1e3 for k, v in sorted(
-             by_name.items(), key=lambda kv: -kv[1])[:8]},
-         host_span_ms_summed_over_threads=spans)
+
+    def emit_trace(phase: str, path: Path, traced: dict, tracer) -> None:
+        """Device busy/idle share and time per kernel or copy of one traced
+        window, and the port's host spans summed over the worker threads."""
+        busy_us, by_name = device_busy(path)
+        spans: dict = {}
+        for e in tracer.events():
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
+        emit(phase, trace=str(path.relative_to(out_dir.parent)),
+             window=traced,
+             device_busy_ms=busy_us / 1e3 if by_name else None,
+             device_idle_share=(1 - busy_us / 1e6 / traced["wall_s"]
+                                if by_name else None),
+             device_ms_by_name={k: v / 1e3 for k, v in sorted(
+                 by_name.items(), key=lambda kv: -kv[1])[:10]},
+             host_span_ms_summed_over_threads=spans)
+
+    emit_trace("main_path_trace", trace_path, traced, tracer)
 
     # -- 5b. planned path: EdgeDetectService(PLAN) ---------------------------
     plan = plan_mod.as_plan(PLAN)
@@ -425,6 +448,8 @@ def main() -> int:
         svc.detect(hd[:8] + tiles[:8] + ragged)  # warm-up: every bucket shape
         torch.cuda.synchronize()
         for counter in (lut_matmul.launches, closed_form_matmul.launches,
+                        lut_matmul.narrow_launches,
+                        closed_form_matmul.narrow_launches,
                         fused_conv2d.launches, fused_conv2d.lut_launches):
             counter.reset()
         p_served, first = window(svc)
@@ -437,11 +462,26 @@ def main() -> int:
         torch.cuda.synchronize()
         p_launches = {"lut_matmul": lut_matmul.launches.value,
                       "closed_form_matmul": closed_form_matmul.launches.value,
+                      "lut_matmul_narrow": lut_matmul.narrow_launches.value,
+                      "closed_form_matmul_narrow":
+                          closed_form_matmul.narrow_launches.value,
                       "fused_conv2d": fused_conv2d.launches.value,
                       "fused_conv2d_lut": fused_conv2d.lut_launches.value}
+        # one more planned window under torch.profiler and the span tracer
+        p_tracer = Tracer()
+        with tracing_scope(p_tracer), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p_prof:
+            _, p_traced = window(svc)
+            torch.cuda.synchronize()
+        p_trace_path = out_dir / "chip_smoke_planned_trace.json"
+        p_prof.export_chrome_trace(str(p_trace_path))
     finally:
         svc.close()
-    require(p_launches["lut_matmul"] > 0 and p_launches["closed_form_matmul"] > 0,
+    # the planned path launches only the narrow design of both kernels
+    require(p_launches["lut_matmul_narrow"] > 0
+            and p_launches["closed_form_matmul_narrow"] > 0
+            and p_launches["lut_matmul"] == 0
+            and p_launches["closed_form_matmul"] == 0,
             f"planned path launches {p_launches}")
     for img, out in zip(images, p_served):
         require(out.shape == img.shape and out.dtype == np.uint8,
@@ -459,6 +499,7 @@ def main() -> int:
          images_per_s_min=rates[0], images_per_s_max=rates[-1],
          launches=p_launches, psnr_plan_vs_exact_512_db=round(p_psnr, 4),
          byte_identical=True)
+    emit_trace("planned_path_trace", p_trace_path, p_traced, p_tracer)
 
     # uniform approx_cuda:exact: the fused conv's LUT kind on every batch
     svc = EdgeDetectService("approx_cuda:exact", max_batch_size=8,
@@ -477,6 +518,37 @@ def main() -> int:
             "uniform approx_cuda:exact maps differ from the exact backend's")
     emit("uniform_exact_path", images=len(tiles),
          launches={"fused_conv2d_lut": e_launches}, byte_identical=True)
+
+    # the tile design of both contraction kernels, on the path that takes
+    # it: dot_general at a dense layer's shape, (8 x 128 tokens x 64) @
+    # (64 x 256), K = 64 and N = 256 beyond the narrow design's limits
+    tokens = torch.from_numpy(rng.integers(-128, 128, (8, 128, 64))
+                              .astype(np.int32)).to(dev)
+    weight = torch.from_numpy(rng.integers(-128, 128, (64, 256))
+                              .astype(np.int32)).to(dev)
+    dense_dims = (((2,), (0,)), ((), ()))
+    a_w, b_w = tokens.reshape(1, -1, 64), weight[None]
+    wide_plain = {"approx_cuda": closed_form_matmul_plain(a_w, b_w, "proposed@8"),
+                  "approx_cuda:exact": lut_matmul_plain(
+                      a_w, b_w, device_table("exact", dev))}
+    for counter in (closed_form_matmul.launches, lut_matmul.launches,
+                    closed_form_matmul.narrow_launches, lut_matmul.narrow_launches):
+        counter.reset()
+    w_err = 0
+    for spec, want in wide_plain.items():
+        got = sub.get_substrate(spec).dot_general(
+            tokens, weight, sub.ContractionSpec(dense_dims))
+        w_err = max(w_err, max_abs_err(got, want[0].reshape(got.shape)))
+    torch.cuda.synchronize()
+    w_launches = {"closed_form_matmul": closed_form_matmul.launches.value,
+                  "lut_matmul": lut_matmul.launches.value,
+                  "closed_form_matmul_narrow": closed_form_matmul.narrow_launches.value,
+                  "lut_matmul_narrow": lut_matmul.narrow_launches.value}
+    require(w_launches["closed_form_matmul"] > 0 and w_launches["lut_matmul"] > 0,
+            f"wide contraction launches {w_launches}")
+    require(w_err == 0, "wide contraction vs plain")
+    emit("wide_contraction_path", shape=[8, 128, 64, 256], specs=list(wide_plain),
+         launches=w_launches, max_abs_err=w_err, tolerance=0)
 
     # the elementwise entry point, called as its users call it: one array of
     # multipliers over a (4096, 4096) operand pair
@@ -503,11 +575,47 @@ def main() -> int:
     fc_ops = tab + b * h * w * (distinct + lap.size - 1)
     fc_bytes = 4 * (2 * b * h * w + lap.size)
     fc_bound, fc_by = bound_ms(fc_bytes, fc_ops)
+
+    def designs(name: str, a3, w3, key: str = None, table=None) -> tuple:
+        """Both designs of one contraction kernel at one shape: each held
+        against the narrow design's plain twin (and the tile design's plain
+        version), then timed: tile through the private ``design=``, narrow
+        through the public entry point, and the two plain versions."""
+        if table is None:
+            key = mult.canonical_key(key)
+            nb = mult.split_width(key)[1]
+            public = lambda: closed_form_matmul(a3, w3, key)
+            tile = lambda: am._launch(a3, w3, key, design="tile")
+            plain_tile = lambda: closed_form_matmul_plain(a3, w3, key)
+            cols = lambda: am.closed_form_columns(w3, key)
+            counter = closed_form_matmul.narrow_launches
+        else:
+            nb = lm.table_width(table.shape[0])
+            public = lambda: lut_matmul(a3, w3, table)
+            tile = lambda: lm._launch(a3, w3, table, nb, design="tile")
+            plain_tile = lambda: lut_matmul_plain(a3, w3, table)
+            cols = lambda: lm.table_columns(w3, table)
+            counter = lut_matmul.narrow_launches
+        plain_narrow = lambda: blocking.narrow_matmul_plain(a3, cols(), nb)
+        want = plain_narrow()
+        before = counter.value
+        err = {"narrow": max_abs_err(public(), want),
+               "tile": max(max_abs_err(tile(), want),
+                           max_abs_err(plain_tile(), want))}
+        require(counter.value == before + 1, f"{name}: the shape is not narrow")
+        require(err == {"narrow": 0, "tile": 0}, f"{name}: designs {err}")
+        ms = {"tile": time_ms(tile), "narrow": time_ms(public),
+              "tile_plain": time_ms(plain_tile),
+              "narrow_plain": time_ms(plain_narrow)}
+        emit("contraction_designs", kernel=name,
+             shape=[*a3.shape, w3.shape[2]], mult=key or "table",
+             max_abs_err=err, ms=ms, tolerance=0)
+        return err, ms
+
     pm, pk = len(tiles) * 512 * 512, lap.size
     a_mm = conv._im2col(conv.to_signed_pixels(tile_dev, 8), 3, 3).reshape(1, pm, pk)
     w_mm = torch.from_numpy(lap.reshape(1, pk, 1)).to(dev)
-    mm_ms = time_ms(lambda: closed_form_matmul(a_mm, w_mm, "proposed"))
-    mm_plain_ms = time_ms(lambda: closed_form_matmul_plain(a_mm, w_mm, "proposed"))
+    mm_err, mm_ms = designs("closed_form_matmul", a_mm, w_mm, key="proposed@8")
     mm_ops = tab + pm * (pk + pk - 1)  # per row K table reads, K-1 adds
     mm_bytes = 4 * (pm * pk + pk + pm)
     mm_bound, mm_by = bound_ms(mm_bytes, mm_ops)
@@ -525,15 +633,14 @@ def main() -> int:
             "F.conv2d differs from the fused LUT kind under exact")
     # lut_matmul at the plan's center group: (B·H·W × 1) @ (1 × 1), exact@8
     hd_m = b * h * w
-    a_c = x.reshape(hd_m, 1)
-    w_c = torch.tensor([[int(lap_flat[4])]], dtype=torch.int32, device=dev)
+    a_c = x.reshape(1, hd_m, 1)
+    w_c = torch.tensor([[[int(lap_flat[4])]]], dtype=torch.int32, device=dev)
     t_exact = device_table("exact", dev)
-    lm_ms = time_ms(lambda: lut_matmul(a_c, w_c, t_exact))
-    lm_plain_ms = time_ms(lambda: lut_matmul_plain(a_c[None], w_c[None], t_exact))
-    a_cf, w_cf = a_c.to(torch.float32), w_c.to(torch.float32)
+    lm_err, lm_ms = designs("lut_matmul", a_c, w_c, table=t_exact)
+    a_cf, w_cf = a_c[0].to(torch.float32), w_c[0].to(torch.float32)
     lm_lib_ms = time_ms(lambda: torch.matmul(a_cf, w_cf))
     require(torch.equal(torch.matmul(a_cf, w_cf).to(torch.int32),
-                        lut_matmul(a_c, w_c, t_exact)),
+                        lut_matmul(a_c[0], w_c[0], t_exact)),
             "torch.matmul differs from lut_matmul under exact")
     lm_ops = table_ops(lap_flat[[4]], 8)[1] + hd_m  # one read per row
     lm_bytes = 4 * (hd_m + 1 + hd_m)
@@ -544,12 +651,7 @@ def main() -> int:
         1, hd_m, len(ring))
     w_r = torch.from_numpy(lap_flat[list(ring)].reshape(1, len(ring), 1)).to(dev)
     rk = "csp_axc1@6"
-    mr_err = max_abs_err(closed_form_matmul(a_r, w_r, rk),
-                         closed_form_matmul_plain(a_r, w_r, mult.canonical_key(rk)))
-    require(mr_err == 0, "approx matmul at the ring shape")
-    mr_ms = time_ms(lambda: closed_form_matmul(a_r, w_r, rk))
-    mr_plain_ms = time_ms(lambda: closed_form_matmul_plain(
-        a_r, w_r, mult.canonical_key(rk)))
+    mr_err, mr_ms = designs("closed_form_matmul[ring]", a_r, w_r, key=rk)
     mr_ops = (table_ops(lap_flat[list(ring)], 6)[1]
               + hd_m * (2 * len(ring) - 1))  # K table reads, K-1 adds per row
     mr_bytes = 4 * (hd_m * len(ring) + len(ring) + hd_m)
@@ -562,42 +664,61 @@ def main() -> int:
     am_ops = (1 << 16) + am_n
     am_bytes = 3 * 4 * am_n
     am_bound, am_by = bound_ms(am_bytes, am_ops)
+    cf_src = "src/repro_torch/csrc/approx_matmul.cu"
+    cf_tpu = "src/repro/kernels/approx_matmul/kernel.py:59"
+    lm_src = "src/repro_torch/csrc/lut_matmul.cu"
+    lm_tpu = "src/repro/kernels/lut_matmul/kernel.py:74"
+
+    def contraction_row(name, design, launches_, launched_on, err, ms, bound,
+                        by, library, shape, key):
+        """A row of the kernels line for one design of a contraction kernel;
+        its launches are those of the design on the path that runs it, its
+        error the worst of every check of the kernel (phases 4, 4b and the
+        design check at this shape)."""
+        lut = name.startswith("lut")
+        return {"name": name, "route": "cuda", "source": lm_src if lut else cf_src,
+                "replaces": lm_tpu if lut else cf_tpu, "launches": launches_,
+                "max_abs_err": max(err[design], lut_errs["lut_matmul"] if lut
+                                   else errs["approx_matmul"]),
+                "ms": ms[design], "plain_ms": ms[f"{design}_plain"],
+                "bound_ms": bound, "bound_by": by, "library_ms": library,
+                "shape": shape, "mult": key, "design": design,
+                "launches_on": launched_on}
+
+    mm_shape, mr_shape, lm_shape = [1, pm, pk, 1], [1, hd_m, len(ring), 1], [1, hd_m, 1, 1]
     kernels = [
         {"name": "fused_conv2d", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_conv.cu",
-         "replaces": "src/repro/kernels/fused_conv/kernel.py:59",
+         "replaces": "src/repro/kernels/fused_conv/kernel.py:55",
          "launches": launches["fused_conv"],
          "max_abs_err": errs["fused_conv"], "ms": fc_ms,
          "plain_ms": fc_plain_ms, "bound_ms": fc_bound, "bound_by": fc_by,
          "library_ms": None, "shape": [b, h, w, 3, 3]},
-        {"name": "closed_form_matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/approx_matmul.cu",
-         "replaces": "src/repro/kernels/approx_matmul/kernel.py:59",
-         "launches": launches["approx_matmul"],
-         "max_abs_err": errs["approx_matmul"], "ms": mm_ms,
-         "plain_ms": mm_plain_ms, "bound_ms": mm_bound, "bound_by": mm_by,
-         "library_ms": None, "shape": [1, pm, pk, 1]},
+        contraction_row("closed_form_matmul", "tile",
+                        w_launches["closed_form_matmul"], "wide_contraction_path",
+                        mm_err, mm_ms, mm_bound, mm_by, None, mm_shape, "proposed"),
+        contraction_row("closed_form_matmul[narrow]", "narrow",
+                        launches["approx_matmul_narrow"], "main_path",
+                        mm_err, mm_ms, mm_bound, mm_by, None, mm_shape, "proposed"),
         {"name": "fused_conv2d[lut]", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_conv.cu",
-         "replaces": "src/repro/kernels/fused_conv/kernel.py:59",
+         "replaces": "src/repro/kernels/fused_conv/kernel.py:55",
          "launches": e_launches,
          "max_abs_err": lut_errs["fused_conv_lut"], "ms": fl_ms,
          "plain_ms": fl_plain_ms, "bound_ms": fc_bound, "bound_by": fc_by,
          "library_ms": fl_lib_ms, "shape": [b, h, w, 3, 3], "mult": "exact"},
-        {"name": "closed_form_matmul[ring]", "route": "cuda",
-         "source": "src/repro_torch/csrc/approx_matmul.cu",
-         "replaces": "src/repro/kernels/approx_matmul/kernel.py:59",
-         "launches": p_launches["closed_form_matmul"],
-         "max_abs_err": mr_err, "ms": mr_ms,
-         "plain_ms": mr_plain_ms, "bound_ms": mr_bound, "bound_by": mr_by,
-         "library_ms": None, "shape": [1, hd_m, len(ring), 1], "mult": rk},
-        {"name": "lut_matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/lut_matmul.cu",
-         "replaces": "src/repro/kernels/lut_matmul/kernel.py:74",
-         "launches": p_launches["lut_matmul"],
-         "max_abs_err": lut_errs["lut_matmul"], "ms": lm_ms,
-         "plain_ms": lm_plain_ms, "bound_ms": lm_bound, "bound_by": lm_by,
-         "library_ms": lm_lib_ms, "shape": [1, hd_m, 1, 1], "mult": "exact"},
+        contraction_row("closed_form_matmul[ring]", "tile",
+                        w_launches["closed_form_matmul"], "wide_contraction_path",
+                        mr_err, mr_ms, mr_bound, mr_by, None, mr_shape, rk),
+        contraction_row("closed_form_matmul[ring,narrow]", "narrow",
+                        p_launches["closed_form_matmul_narrow"], "planned_path",
+                        mr_err, mr_ms, mr_bound, mr_by, None, mr_shape, rk),
+        contraction_row("lut_matmul", "tile", w_launches["lut_matmul"],
+                        "wide_contraction_path", lm_err, lm_ms, lm_bound, lm_by,
+                        lm_lib_ms, lm_shape, "exact"),
+        contraction_row("lut_matmul[narrow]", "narrow",
+                        p_launches["lut_matmul_narrow"], "planned_path",
+                        lm_err, lm_ms, lm_bound, lm_by, lm_lib_ms, lm_shape, "exact"),
         {"name": "approx_mul", "route": "cuda",
          "source": "src/repro_torch/csrc/approx_mul.cu",
          "replaces": "src/repro/kernels/approx_mul/kernel.py:19",
@@ -606,14 +727,22 @@ def main() -> int:
          "plain_ms": am_plain_ms, "bound_ms": am_bound, "bound_by": am_by,
          "library_ms": None, "shape": list(am_a.shape), "mult": "proposed"},
     ]
+    require(all(k["max_abs_err"] == 0 and k["launches"] > 0 for k in kernels),
+            "every kernel exact and launched on its path")
+    work = {"fused_conv2d": (fc_bytes, fc_ops),
+            "closed_form_matmul": (mm_bytes, mm_ops),
+            "closed_form_matmul[narrow]": (mm_bytes, mm_ops),
+            "fused_conv2d[lut]": (fc_bytes, fc_ops),
+            "closed_form_matmul[ring]": (mr_bytes, mr_ops),
+            "closed_form_matmul[ring,narrow]": (mr_bytes, mr_ops),
+            "lut_matmul": (lm_bytes, lm_ops), "lut_matmul[narrow]": (lm_bytes, lm_ops),
+            "approx_mul": (am_bytes, am_ops)}
     emit("kernel_times", card=card, int32_peak_ops_per_s=INT32_OPS_PER_S,
          hbm_bytes_per_s=HBM_BYTES_PER_S, tf32={
              "cudnn": torch.backends.cudnn.allow_tf32,
              "matmul": torch.backends.cuda.matmul.allow_tf32},
-         least_work={k["name"]: {"bytes": by, "ops": op} for k, (by, op) in zip(
-             kernels, [(fc_bytes, fc_ops), (mm_bytes, mm_ops), (fc_bytes, fc_ops),
-                       (mr_bytes, mr_ops), (lm_bytes, lm_ops),
-                       (am_bytes, am_ops)])},
+         least_work={k["name"]: {"bytes": work[k["name"]][0],
+                                 "ops": work[k["name"]][1]} for k in kernels},
          share_of_bound={k["name"]: k["bound_ms"] / k["ms"] for k in kernels})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

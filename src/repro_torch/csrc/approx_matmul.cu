@@ -1,4 +1,4 @@
-// Batched contraction under the CSP approximate multiplier.
+// Batched contraction under the CSP approximate multiplier, two designs.
 //
 // Replaces the TPU kernel src/repro/kernels/approx_matmul/kernel.py,
 // approx_matmul_pallas (body _matmul_kernel): (B,M,K) @ (B,K,N) int32 where
@@ -6,27 +6,36 @@
 // sum is exact in the int32 ring.
 //
 // Bound on the H100. The product is not a multiply-add, so tensor cores (and
-// cuBLAS, torch.matmul, _int_mm) cannot evaluate it. Where one operand has
-// few distinct values, as the conv path's (9 x 1) tap column, the least work
-// is a table read per product and the bytes of A bound it; this design
-// evaluates the generic closed form for each of the M*N*K products (on the
-// order of a hundred integer operations each), so INT32 ALU throughput
-// bounds it, and at N = 1 it idles 15 of the 16 threads of a tile row.
-// This first design: 16x16 output tiles, one thread per output,
-// A/B k-slabs of 16 staged in shared memory, grid (M-tiles, N-tiles, B) --
-// M on grid x because M reaches B*H*W rows on the im2col conv path, beyond
-// the 65535 limit of grid y. Ragged M/N/K are bounds-checked.
+// cuBLAS, torch.matmul, _int_mm) cannot evaluate it. Where b has few distinct
+// values per launch, as the conv path's (K x 1) tap column, the least work is
+// a table read per product, and the bytes of A and C bound it. The wrapper
+// (kernels/approx_matmul/ops.py) picks the design from the shape and width
+// alone (kernels/blocking.py, narrow_design):
 //
-// K tail: the *product* is masked, not the operand. A zero operand gives
-// f(0,0), which is 192 for proposed@8, so zero-filled slab entries must never
-// be multiplied into the sum; the JAX wrapper instead pads and subtracts
-// f00 * pad_k (blocking.pad_crop_correct). Both give the same integers.
+// * narrow (N <= 8, K <= 16, width <= 8; every shape the served paths give
+//   it): cf_columns_kernel evaluates the closed form once per (coefficient,
+//   operand) pair, B*K*N*2^n products, into int16 columns, and
+//   narrow_contract.cuh streams the rows against them: one shared-memory
+//   gather per product, so the bytes of A and C bound it.
+// * tile (wider N, longer K, widths 9..16): 16x16 output tiles, one thread
+//   per output, A/B k-slabs of 16 staged in shared memory, grid (M-tiles,
+//   N-tiles, B) -- M on grid x, beyond the 65535 limit of grid y. It
+//   evaluates the generic closed form for each of the M*N*K products (on the
+//   order of a hundred integer operations each), so INT32 ALU throughput
+//   bounds it. Ragged M/N/K are bounds-checked.
+//
+// K tail of the tile design: the *product* is masked, not the operand. A
+// zero operand gives f(0,0), which is 192 for proposed@8, so zero-filled
+// slab entries must never be multiplied into the sum; the JAX wrapper
+// instead pads and subtracts f00 * pad_k (blocking.pad_crop_correct). Both
+// give the same integers. The narrow design has no K slab and no K tail.
 
 #include <cuda_runtime.h>
 
 #include <cstring>
 
 #include "closed_form.cuh"
+#include "narrow_contract.cuh"
 
 #define MM_TILE 16
 
@@ -60,8 +69,9 @@ __global__ void approx_matmul_kernel(const int32_t* __restrict__ A,
   }
 }
 
-// a: contiguous (B, M, K), b: (B, K, N), c: (B, M, N), all int32 on the card.
-// params: CF_PARAM_LEN host int32. Returns cudaGetLastError().
+// The tile design. a: contiguous (B, M, K), b: (B, K, N), c: (B, M, N), all
+// int32 on the card. params: CF_PARAM_LEN host int32. Returns
+// cudaGetLastError().
 extern "C" int approx_matmul_launch(const void* a, const void* b, void* c,
                                     int B, int M, int K, int N,
                                     const void* params, void* stream) {
@@ -77,4 +87,42 @@ extern "C" int approx_matmul_launch(const void* a, const void* b, void* c,
       static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
       static_cast<int32_t*>(c), M, K, N, cf);
   return static_cast<int>(cudaGetLastError());
+}
+
+// col[e] = f(x - 2^(n-1), b[e >> n]) with x = e & (2^n - 1): the columns of
+// narrow_contract.cuh, b being contiguous (B, K, N).
+__global__ void cf_columns_kernel(const int32_t* __restrict__ b,
+                                  int16_t* __restrict__ cols,
+                                  long long n_entries, const CFParams cf) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (e >= n_entries) return;
+  const int n = cf.p[0];
+  const int32_t x = static_cast<int32_t>(e & ((1 << n) - 1)) - (1 << (n - 1));
+  cols[e] = static_cast<int16_t>(cf_product(x, b[e >> n], cf));
+}
+
+// The narrow design. a: contiguous (B, M, K), b: (B, K, N), c: (B, M, N),
+// all int32 on the card; cols: B*K*N*2^n int16 scratch on the card, written
+// here. params: CF_PARAM_LEN host int32 (its width n <= 8). Contract in
+// narrow_contract.cuh. Returns cudaGetLastError().
+extern "C" int approx_matmul_narrow_launch(const void* a, const void* b,
+                                           void* c, void* cols, int B, int M,
+                                           int K, int N, const void* params,
+                                           void* stream) {
+  CFParams cf;
+  std::memcpy(cf.p, params, sizeof(cf.p));
+  const int n = cf.p[0];
+  cudaError_t e = narrow_contract_check(a, cols, c, B, M, K, N, n);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n_entries = (static_cast<long long>(B) * K * N) << n;
+  cf_columns_kernel<<<static_cast<unsigned>((n_entries + 255) / 256), 256, 0,
+                      s>>>(static_cast<const int32_t*>(b),
+                           static_cast<int16_t*>(cols), n_entries, cf);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(narrow_contract(
+      static_cast<const int32_t*>(a), static_cast<const int16_t*>(cols),
+      static_cast<int32_t*>(c), B, M, K, N, n, s));
 }

@@ -10,8 +10,11 @@
 //
 // Cost: a generic product is on the order of a hundred integer operations
 // (truncation loop, conversion term, compare-select error sums) read from
-// the block, and tensor cores cannot evaluate it; a caller whose coefficient
-// is fixed can tabulate it instead (later work). All
+// the block, and tensor cores cannot evaluate it. Where the coefficient is
+// fixed for a launch, approx_matmul.cu's narrow design tabulates it instead:
+// 2^n products per coefficient into a column, then one shared-memory read
+// per product (narrow_contract.cuh). The tile design and fused_conv.cu's
+// closed-form kind still evaluate it once per product. All
 // arithmetic is on uint32 so that the int32 ring's wraparound is defined in
 // C++; signed values come back through the shift-based width wrap.
 #pragma once

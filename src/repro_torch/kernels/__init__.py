@@ -6,9 +6,17 @@
   closed form (``csrc/fused_conv.cu``);
 * ``approx_matmul`` — batched contraction with every product through the
   closed form (``csrc/approx_matmul.cu``);
+* ``lut_matmul`` — the same with every product read from a product table
+  (``csrc/lut_matmul.cu``); both contractions have a narrow design
+  (``csrc/narrow_contract.cuh``) and a tile design, picked by
+  ``blocking.narrow_design``;
+* ``approx_mul`` — the elementwise proposed@8 product
+  (``csrc/approx_mul.cu``);
 * ``build`` — nvcc build, ctypes loading and launch counters;
-* ``blocking`` — the pad / crop / f(0,0) contract.
+* ``blocking`` — the pad / crop / f(0,0) contract, the narrow design's
+  dispatch rule and its plain twin.
 
 A wrapper runs its kernel for a CUDA tensor and its plain version for a CPU
-tensor; ``<wrapper>.launches`` counts kernel launches.
+tensor; ``<wrapper>.launches`` counts kernel launches (per design or kind:
+``.narrow_launches``, ``fused_conv2d.lut_launches``).
 """

@@ -5,12 +5,26 @@ Counterpart of ``repro.kernels.approx_matmul.ops``.
 (B,M,K)@(B,K,N), int32, with every scalar product the wiring's closed form
 and an exact int32-ring sum:
 
-* a CUDA tensor launches the hand-written kernel (it replaces the TPU kernel
+* a CUDA tensor launches a hand-written kernel (they replace the TPU kernel
   ``repro/kernels/approx_matmul/kernel.py``, ``approx_matmul_pallas``;
-  design and bound in the source's header), with the batch as grid z, or
-  raises — there is no fallback;
+  designs and bounds in the source's header) or raises — there is no
+  fallback. :func:`~repro_torch.kernels.blocking.narrow_design` picks the
+  design from the shape and width: the *narrow* design (N ≤ 8, K ≤ 16,
+  width ≤ 8: every shape the served paths give it) tabulates the closed
+  form per coefficient (:func:`closed_form_columns`) and streams the rows
+  against those columns; the *tile* design (16×16 output tiles, the batch
+  as grid z) takes every other shape. The narrow design needs 16-byte
+  aligned batches: an A whose base is not 16-byte aligned (a view with a
+  storage offset), or a batched A with M % 4 ≠ 0, is first copied into a
+  fresh buffer, its rows zero-padded to a multiple of 4, and the result
+  cropped;
 * a CPU tensor runs :func:`closed_form_matmul_plain`: k walked in slabs
   under the pad / crop / f(0,0) contract of ``kernels.blocking``.
+
+``closed_form_matmul.launches`` counts tile launches and
+``closed_form_matmul.narrow_launches`` narrow ones. The narrow design's
+plain twin is :func:`closed_form_columns` with
+:func:`~repro_torch.kernels.blocking.narrow_matmul_plain`.
 
 :func:`approx_matmul` is the historical proposed@8 entry point.
 """
@@ -22,6 +36,7 @@ import torch
 
 from repro_torch.core import multiplier as mult
 from repro_torch.kernels import blocking, build
+from repro_torch.kernels.blocking import narrow_matmul_plain  # noqa: F401
 from repro_torch.kernels.closed_form import (closed_form_f00, closed_form_params,
                                              make_closed_form)
 from repro_torch.obs.trace import trace_span
@@ -29,6 +44,9 @@ from repro_torch.obs.trace import trace_span
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p)
+_NARROW_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
 
 
 def closed_form_matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -55,18 +73,46 @@ def closed_form_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                                      block_m=1, block_n=1, block_k=k_chunk)
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, key: str) -> torch.Tensor:
-    a = a.contiguous()
-    b = b.contiguous()
+def closed_form_columns(b: torch.Tensor, key: str) -> torch.Tensor:
+    """The narrow design's product columns, plain, on any device: (B,K,N)
+    coefficients → (B,K,N,2^n) int32 with ``[z,k,j,x] = f(x − 2^(n−1),
+    b[z,k,j])``, the closed form of ``key`` at its width n."""
+    n = mult.split_width(key)[1]
+    x = torch.arange(1 << n, dtype=torch.int32, device=b.device) - (1 << (n - 1))
+    return make_closed_form(key)(x, b.to(torch.int32)[..., None])
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, key: str,
+            design: "str | None" = None) -> torch.Tensor:
+    """Launch the kernel of ``design`` (``"narrow"`` or ``"tile"``; None:
+    :func:`~repro_torch.kernels.blocking.narrow_design` decides) on CUDA
+    (B,M,K)@(B,K,N) int32."""
     bsz, m, k = a.shape
     n = b.shape[2]
+    n_bits = mult.split_width(key)[1]
+    design = blocking.resolve_design(
+        design, blocking.narrow_design(k, n, n_bits), "approx_matmul",
+        f"K={k}, N={n} at width {n_bits}")
     if not (bsz <= 65535 and (n + 15) // 16 <= 65535 and max(m, k) < 2**31):
         raise ValueError(f"approx_matmul grid limit exceeded by "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     if bsz * m * n == 0 or k == 0:
         return torch.zeros((bsz, m, n), dtype=torch.int32, device=a.device)
-    out = torch.empty((bsz, m, n), dtype=torch.int32, device=a.device)
     params = closed_form_params(key)
+    if design == "narrow":
+        a, b, out, cols, crop = blocking.narrow_operands(a, b, n_bits)
+        fn = build.load_function("approx_matmul", "approx_matmul_narrow_launch",
+                                 _NARROW_ARGTYPES)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), cols.data_ptr(),
+                    bsz, a.shape[1], k, n, params.ctypes.data, stream)
+        build.check(rc, "approx_matmul_narrow_launch")
+        closed_form_matmul.narrow_launches.add()
+        return out if crop is None else out[:, :crop].contiguous()
+    a = a.contiguous()
+    b = b.contiguous()
+    out = torch.empty((bsz, m, n), dtype=torch.int32, device=a.device)
     fn = build.load_function("approx_matmul", "approx_matmul_launch", _ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -82,8 +128,9 @@ def closed_form_matmul(a: torch.Tensor, b: torch.Tensor,
     """(M,K)@(K,N) or (B,M,K)@(B,K,N) under any CSP wiring's closed form.
 
     ``mult_key``: ``"name[@N]"`` (aliases resolve). Returns int32 of shape
-    (M,N) or (B,M,N). The operands' device decides: CUDA launches the kernel
-    (or raises), CPU runs :func:`closed_form_matmul_plain`.
+    (M,N) or (B,M,N). The operands' device decides: CUDA launches the
+    kernel of the design the shape takes (or raises), CPU runs
+    :func:`closed_form_matmul_plain`.
     """
     if not (torch.is_tensor(a) and torch.is_tensor(b)) or a.device != b.device:
         raise ValueError("operands must be tensors on one device")
@@ -102,7 +149,8 @@ def closed_form_matmul(a: torch.Tensor, b: torch.Tensor,
     return out[0] if squeeze else out
 
 
-closed_form_matmul.launches = build.LaunchCounter()
+closed_form_matmul.launches = build.LaunchCounter()         # tile design
+closed_form_matmul.narrow_launches = build.LaunchCounter()  # narrow design
 
 
 def approx_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

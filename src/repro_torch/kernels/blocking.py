@@ -10,6 +10,13 @@ fixed-size slabs: zero-padding k injects f(0,0) per padded element
 (approximate wirings map (0,0) to a nonzero compensation value), which is
 subtracted back here. :func:`as3` and :func:`plain_k_chunk` are the shape
 half the contraction wrappers share.
+
+Both contraction kernels have two designs on the card, chosen by
+:func:`narrow_design` from the shape and the operand width alone: the
+*narrow* design (``csrc/narrow_contract.cuh``) contracts the rows against
+one 2^n-entry product column per coefficient, and the *tile* design (16×16
+output tiles) takes every other shape. :func:`narrow_matmul_plain` is the
+narrow design's plain twin.
 """
 from __future__ import annotations
 
@@ -21,6 +28,16 @@ import torch.nn.functional as F
 #: elements of one (B, M, k_chunk, N) product slab in a plain contraction
 _SLAB_ELEMS = 1 << 22
 _MAX_K_CHUNK = 16
+
+#: Thresholds of the narrow design (``NC_MAX_*`` in narrow_contract.cuh).
+#: N: a thread keeps one sum per output column for each of its 4 rows, 32
+#: registers at 8. K: the kernel is compiled for each K up to 16, and a tile
+#: of 1024 rows takes 4·K KiB of shared memory per pipeline stage (128 KiB in
+#: 2 stages at 16). Width: one int16 column of 2^n entries per coefficient.
+#: Together they bound the columns a block stages to K·N·2^n·2 B ≤ 64 KiB.
+NARROW_MAX_N = 8
+NARROW_MAX_K = 16
+NARROW_MAX_BITS = 8
 
 
 def as3(a: torch.Tensor, b: torch.Tensor):
@@ -34,6 +51,65 @@ def as3(a: torch.Tensor, b: torch.Tensor):
     if a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
         raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     return a.to(torch.int32), b.to(torch.int32)
+
+
+def narrow_design(k: int, n: int, n_bits: int) -> bool:
+    """Whether a (B,M,k)@(B,k,n) contraction at operand width ``n_bits``
+    runs the narrow design on the card (else the tile design). A pure
+    function of shape and width; every shape the served paths give the
+    contraction kernels (n = 1, k ≤ 9, width ≤ 8) is narrow."""
+    return (1 <= n <= NARROW_MAX_N and 1 <= k <= NARROW_MAX_K
+            and 1 <= n_bits <= NARROW_MAX_BITS)
+
+
+def narrow_matmul_plain(a: torch.Tensor, cols: torch.Tensor,
+                        n_bits: int) -> torch.Tensor:
+    """Plain twin of the narrow design on any device: (B,M,K) int32 rows
+    against (B,K,N,2^n) product columns, ``out[z,m,j] = Σ_k cols[z,k,j,
+    (a[z,m,k] + 2^(n-1)) & (2^n − 1)]`` summed in the int32 ring."""
+    off, mask = 1 << (n_bits - 1), (1 << n_bits) - 1
+    bsz, m, k = a.shape
+    n = cols.shape[2]
+    acc = torch.zeros((bsz, n, m), dtype=torch.int32, device=a.device)
+    for kk in range(k):
+        idx = ((a[:, :, kk] + off) & mask).long()  # (B, M)
+        acc += torch.gather(cols[:, kk].to(torch.int32), 2,
+                            idx[:, None, :].expand(bsz, n, m))
+    return acc.transpose(1, 2).contiguous()
+
+
+def resolve_design(design: "str | None", narrow_ok: bool, kernel: str,
+                   what: str) -> str:
+    """``"narrow"`` or ``"tile"``: ``design`` where given (raising if the
+    narrow design cannot take ``what``), else narrow wherever it can."""
+    if design is None:
+        return "narrow" if narrow_ok else "tile"
+    if design not in ("narrow", "tile"):
+        raise ValueError(f"unknown {kernel} design {design!r}")
+    if design == "narrow" and not narrow_ok:
+        raise ValueError(f"the narrow design does not take {what}")
+    return design
+
+
+def narrow_operands(a: torch.Tensor, b: torch.Tensor, n_bits: int):
+    """(A, B, out, cols, rows to crop to or None) for a narrow launch on
+    (B,M,K)@(B,K,N): contiguous operands with every batch of A and of the
+    output 16-byte aligned, as the kernel requires, and the empty output
+    and int16 column scratch on the operands' device (and so the caller's
+    stream). A is copied only where it would not be aligned, its rows
+    zero-padded to a multiple of 4 when batched; the caller crops."""
+    a = a.contiguous()
+    bsz, m, k = a.shape
+    pad = (-m) % 4 if bsz > 1 else 0
+    if pad:
+        a = F.pad(a, (0, 0, 0, pad))
+    elif a.data_ptr() % 16:
+        a = a.clone()
+    n = b.shape[2]
+    out = torch.empty((bsz, m + pad, n), dtype=torch.int32, device=a.device)
+    cols = torch.empty((bsz, k, n, 1 << n_bits), dtype=torch.int16,
+                       device=a.device)
+    return a, b.contiguous(), out, cols, (m if pad else None)
 
 
 def plain_k_chunk(bsz: int, m: int, n: int) -> int:

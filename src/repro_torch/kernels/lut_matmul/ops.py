@@ -10,11 +10,24 @@ product read from the flat (2^{2N},) product table of any wiring at widths
 which biases the signed operands into table rows/columns and wraps
 out-of-range ints to their low N bits; the sum is exact in the int32 ring.
 
-* a CUDA tensor launches the hand-written kernel (it replaces the TPU kernel
-  ``repro/kernels/lut_matmul/kernel.py``, ``lut_matmul_pallas``; design and
-  bound in the source's header), with the batch as grid z, or raises —
-  there is no fallback;
+* a CUDA tensor launches a hand-written kernel (they replace the TPU kernel
+  ``repro/kernels/lut_matmul/kernel.py``, ``lut_matmul_pallas``; designs
+  and bounds in the source's header) or raises — there is no fallback.
+  :func:`~repro_torch.kernels.blocking.narrow_design` picks the design from
+  the shape and width: the *narrow* design (N ≤ 8, K ≤ 16: every shape the
+  served plans give it) copies each coefficient's table column
+  (:func:`table_columns`) into int16 and streams the rows against it; the
+  *tile* design (16×16 output tiles, the batch as grid z) takes every
+  other shape, and any table with an entry beyond int16 (no product table
+  of a width ≤ 8 has one; a table not from :func:`device_table` is checked
+  once per tensor version, which synchronises). A batch that is not
+  16-byte aligned is copied first, as in ``kernels.approx_matmul``;
 * a CPU tensor runs :func:`lut_matmul_plain`, k walked in slabs.
+
+``lut_matmul.launches`` counts tile launches and
+``lut_matmul.narrow_launches`` narrow ones. The narrow design's plain twin
+is :func:`table_columns` with
+:func:`~repro_torch.kernels.blocking.narrow_matmul_plain`.
 
 The table must lie on the operands' device: :func:`device_table` keeps one
 per (wiring, device), uploaded once, so no call copies a table.
@@ -28,11 +41,17 @@ import torch
 from repro_torch.core import lut as lut_lib
 from repro_torch.core import multiplier as mult
 from repro_torch.kernels import blocking, build
+from repro_torch.kernels.blocking import narrow_matmul_plain  # noqa: F401
 from repro_torch.obs.trace import trace_span
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_NARROW_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p)
+_INT16 = (-(1 << 15), (1 << 15) - 1)
 
 
 def table_width(size: int) -> int:
@@ -49,8 +68,35 @@ def device_table(mult_key: str, device) -> torch.Tensor:
     """The flat int32 product table of ``mult_key`` on ``device``, built and
     uploaded once per (key, device)."""
     key = mult.canonical_key(mult_key)
-    return build.device_constant(("flat_lut", key), device,
-                                 lambda: lut_lib.flat_lut(key))
+    t = build.device_constant(("flat_lut", key), device,
+                              lambda: lut_lib.flat_lut(key))
+    if not hasattr(t, "_int16_at"):  # checked on the host copy, no sync
+        host = lut_lib.flat_lut(key)
+        t._int16_at = (t._version, bool(host.min() >= _INT16[0]
+                                        and host.max() <= _INT16[1]))
+    return t
+
+
+def _fits_int16(table: torch.Tensor) -> bool:
+    """Whether every entry of ``table`` is an int16, as the narrow design's
+    columns store it; computed once per tensor version."""
+    version, ok = getattr(table, "_int16_at", (None, False))
+    if version != table._version:
+        ok = bool(((table >= _INT16[0]) & (table <= _INT16[1])).all())
+        table._int16_at = (table._version, ok)
+    return ok
+
+
+def table_columns(b: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The narrow design's product columns, plain, on any device: (B,K,N)
+    coefficients → (B,K,N,2^n) int32 with ``[z,k,j,x] = table[x << n |
+    ((b[z,k,j] + off) & mask)]``: the table's column of each coefficient
+    (the pixel is the row operand)."""
+    n = table_width(table.shape[0])
+    off, mask = 1 << (n - 1), (1 << n) - 1
+    x = torch.arange(1 << n, dtype=torch.int32, device=b.device)
+    bi = (b.to(torch.int32)[..., None] + off) & mask
+    return table[((x << n) | bi).long()]
 
 
 def _check_table(table: torch.Tensor, device) -> int:
@@ -87,16 +133,34 @@ def lut_matmul_plain(a: torch.Tensor, b: torch.Tensor,
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
-            n_bits: int) -> torch.Tensor:
-    a = a.contiguous()
-    b = b.contiguous()
+            n_bits: int, design: "str | None" = None) -> torch.Tensor:
+    """Launch the kernel of ``design`` (``"narrow"`` or ``"tile"``; None:
+    :func:`~repro_torch.kernels.blocking.narrow_design` and the table's
+    range decide) on CUDA (B,M,K)@(B,K,N) int32."""
     bsz, m, k = a.shape
     n = b.shape[2]
+    design = blocking.resolve_design(
+        design, blocking.narrow_design(k, n, n_bits) and _fits_int16(table),
+        "lut_matmul", f"K={k}, N={n} at width {n_bits}, or a table beyond int16")
     if not (bsz <= 65535 and (n + 15) // 16 <= 65535 and max(m, k) < 2**31):
         raise ValueError(f"lut_matmul grid limit exceeded by "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     if bsz * m * n == 0 or k == 0:
         return torch.zeros((bsz, m, n), dtype=torch.int32, device=a.device)
+    if design == "narrow":
+        a, b, out, cols, crop = blocking.narrow_operands(a, b, n_bits)
+        fn = build.load_function("lut_matmul", "lut_matmul_narrow_launch",
+                                 _NARROW_ARGTYPES)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(a.data_ptr(), b.data_ptr(), table.data_ptr(),
+                    out.data_ptr(), cols.data_ptr(), bsz, a.shape[1], k, n,
+                    n_bits, stream)
+        build.check(rc, "lut_matmul_narrow_launch")
+        lut_matmul.narrow_launches.add()
+        return out if crop is None else out[:, :crop].contiguous()
+    a = a.contiguous()
+    b = b.contiguous()
     out = torch.empty((bsz, m, n), dtype=torch.int32, device=a.device)
     fn = build.load_function("lut_matmul", "lut_matmul_launch", _ARGTYPES)
     with torch.cuda.device(a.device):
@@ -114,8 +178,8 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor,
 
     ``table``: flat (2^{2N},) int32 tensor on the operands' device (raises
     otherwise). Returns int32 of shape (M,N) or (B,M,N). The operands'
-    device decides: CUDA launches the kernel (or raises), CPU runs
-    :func:`lut_matmul_plain`.
+    device decides: CUDA launches the kernel of the design the shape takes
+    (or raises), CPU runs :func:`lut_matmul_plain`.
     """
     if not (torch.is_tensor(a) and torch.is_tensor(b)) or a.device != b.device:
         raise ValueError("operands must be tensors on one device")
@@ -134,4 +198,5 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor,
     return out[0] if squeeze else out
 
 
-lut_matmul.launches = build.LaunchCounter()
+lut_matmul.launches = build.LaunchCounter()         # tile design
+lut_matmul.narrow_launches = build.LaunchCounter()  # narrow design

@@ -12,14 +12,18 @@ import torch
 from repro_torch.core import lut as lut_lib
 from repro_torch.core import multiplier as mult
 from repro_torch.data import mixed_shape_batch
+from repro_torch.kernels import blocking
+from repro_torch.kernels.approx_matmul import ops as am
 from repro_torch.kernels.approx_matmul.ops import (closed_form_matmul,
                                                    closed_form_matmul_plain)
 from repro_torch.kernels.approx_mul.ops import approx_mul, approx_mul_plain
 from repro_torch.kernels.closed_form import approx_product_i32
 from repro_torch.kernels.fused_conv.ops import fused_conv2d, fused_conv2d_plain
+from repro_torch.kernels.lut_matmul import ops as lm
 from repro_torch.kernels.lut_matmul.ops import (device_table, lut_matmul,
                                                 lut_matmul_plain)
 from repro_torch.nn import conv
+from repro_torch.nn import substrate as sub
 from repro_torch.serving import EdgeDetectService
 
 PLAN = {"version": 1, "default": "approx_cuda:proposed@8",
@@ -189,3 +193,130 @@ def test_planned_service_on_the_card_matches_cpu(dev):
             svc.close()
     for a, b in zip(outs["cpu"], outs["cuda"]):
         np.testing.assert_array_equal(a, b)
+
+
+# -- the narrow design of the two contraction kernels -------------------------
+
+NARROW_SHAPES = [(1, 1, 1, 1), (1, 4099, 9, 1), (1, 1027, 8, 1),
+                 (2, 77, 5, 3), (3, 64, 16, 8), (1, 5001, 1, 8),
+                 (2, 1030, 9, 1)]
+
+
+def _both_designs(a, w, key=None, table=None):
+    """(narrow, tile, plain twin of narrow) of one contraction, each design
+    launched once (checked on its counter)."""
+    if table is None:
+        n_bits = mult.split_width(key)[1]
+        launch = lambda d: am._launch(a, w, key, design=d)
+        counters = (am.closed_form_matmul.narrow_launches,
+                    am.closed_form_matmul.launches)
+        cols = am.closed_form_columns(w, key)
+    else:
+        n_bits = lm.table_width(table.shape[0])
+        launch = lambda d: lm._launch(a, w, table, n_bits, design=d)
+        counters = (lm.lut_matmul.narrow_launches, lm.lut_matmul.launches)
+        cols = lm.table_columns(w, table)
+    out = {}
+    for design, counter in zip(("narrow", "tile"), counters):
+        before = counter.value
+        out[design] = launch(design)
+        assert counter.value == before + 1, design
+    return out["narrow"], out["tile"], blocking.narrow_matmul_plain(a, cols, n_bits)
+
+
+@pytest.mark.parametrize("shape", NARROW_SHAPES)
+def test_narrow_kernels_vs_plain_and_tile(dev, shape):
+    """M tails (M % 4 != 0), K = 1..16, N = 1 and 8, batches with a distinct
+    b each (padded to M % 4 == 0 and cropped), operands anywhere in int32."""
+    b, m, k, n = shape
+    a = torch.from_numpy(RNG.integers(-2**31, 2**31, (b, m, k), dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    w = torch.from_numpy(RNG.integers(-40, 40, (b, k, n)).astype(np.int32)).to(dev)
+    for key in ("proposed@8", "csp_axc1@6", "design_strollo2020@4"):
+        nar, tile, plain = _both_designs(a, w, key=key)
+        torch.testing.assert_close(nar, plain, rtol=0, atol=0)
+        torch.testing.assert_close(nar, tile, rtol=0, atol=0)
+    for key in ("exact", "proposed", "csp_axc5@3"):
+        nar, tile, plain = _both_designs(a, w, table=device_table(key, dev))
+        torch.testing.assert_close(nar, plain, rtol=0, atol=0)
+        torch.testing.assert_close(nar, tile, rtol=0, atol=0)
+
+
+def test_narrow_kernels_take_an_unaligned_view(dev):
+    """A view with a storage offset of 4 bytes: the wrapper copies it to an
+    aligned buffer before the 16-byte copies of the narrow design."""
+    m, k = 4099, 9
+    base = torch.from_numpy(RNG.integers(-128, 128, 1 + m * k).astype(np.int32)).to(dev)
+    a = base[1:].view(1, m, k)
+    assert a.data_ptr() % 16
+    w = torch.from_numpy(RNG.integers(-128, 128, (1, k, 1)).astype(np.int32)).to(dev)
+    nar, tile, plain = _both_designs(a, w, key="proposed@8")
+    torch.testing.assert_close(nar, plain, rtol=0, atol=0)
+    torch.testing.assert_close(nar, tile, rtol=0, atol=0)
+    nar, tile, _ = _both_designs(a, w, table=device_table("exact", dev))
+    torch.testing.assert_close(nar, tile, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", sorted(mult.WIRINGS) + ["exact"])
+def test_narrow_exhaustive_n4_per_coefficient(dev, name):
+    """Every operand pair at width 4 through the narrow design, as a
+    (16 x 1) @ (1 x 1) contraction per coefficient."""
+    key = f"{name}@4"
+    want = lut_lib.build_lut(key)
+    v = torch.arange(-8, 8, dtype=torch.int32, device=dev)
+    t = device_table(key, dev)
+    before = (closed_form_matmul.narrow_launches.value,
+              lut_matmul.narrow_launches.value)
+    for j, c in enumerate(range(-8, 8)):
+        w = torch.full((1, 1), c, dtype=torch.int32, device=dev)
+        np.testing.assert_array_equal(lut_matmul(v[:, None], w, t)[:, 0].cpu().numpy(),
+                                      want[:, j])
+        if name != "exact":
+            np.testing.assert_array_equal(
+                closed_form_matmul(v[:, None], w, key)[:, 0].cpu().numpy(), want[:, j])
+    assert lut_matmul.narrow_launches.value == before[1] + 16
+    assert closed_form_matmul.narrow_launches.value == before[0] + (
+        0 if name == "exact" else 16)
+
+
+def test_narrow_served_shapes_scaled_down(dev):
+    """The planned path's tap groups and the im2col conv at 2 x 33 x 47
+    through the substrates, against the CPU."""
+    imgs = mixed_shape_batch(2, shapes=((33, 47),), seed=4)
+    x = torch.from_numpy(np.stack(imgs))
+    lap = conv.LAPLACIAN.reshape(-1)
+    for spec, taps in (("approx_cuda:exact", (4,)),
+                       ("approx_cuda:csp_axc1@6", (0, 1, 2, 3, 5, 6, 7, 8)),
+                       ("approx_cuda", tuple(range(9)))):
+        s = sub.get_substrate(spec)
+        px = conv.to_signed_pixels(x, s.meta.width)
+        patches = conv._im2col(px, 3, 3, taps)
+        coeffs = torch.from_numpy(lap[list(taps)].reshape(len(taps), 1))
+        spec_c = sub.ContractionSpec(conv._CONV_DIMS)
+        before = (closed_form_matmul.narrow_launches.value,
+                  lut_matmul.narrow_launches.value)
+        got = s.dot_general(patches.to(dev), coeffs.to(dev), spec_c)
+        assert (closed_form_matmul.narrow_launches.value
+                + lut_matmul.narrow_launches.value) == sum(before) + 1
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      s.dot_general(patches, coeffs, spec_c).numpy())
+
+
+def test_planned_service_launches_only_the_narrow_design(dev):
+    imgs = mixed_shape_batch(4, shapes=((16, 16), (33, 47)), seed=5)
+    counters = (closed_form_matmul.launches, closed_form_matmul.narrow_launches,
+                lut_matmul.launches, lut_matmul.narrow_launches)
+    svc = EdgeDetectService(PLAN, max_batch_size=2, bucket_granularity=8,
+                            n_workers=2)
+    try:
+        svc.detect(imgs[:1])
+        torch.cuda.synchronize()
+        before = [c.value for c in counters]
+        svc.detect(imgs)
+        torch.cuda.synchronize()
+    finally:
+        svc.close()
+    tile_cf, narrow_cf, tile_lut, narrow_lut = (
+        c.value - b for c, b in zip(counters, before))
+    assert tile_cf == tile_lut == 0
+    assert narrow_cf > 0 and narrow_lut > 0
