@@ -17,8 +17,11 @@ the plain twins; one planned window is traced the same way
 launch only the narrow design of the two contraction kernels; a wide
 contraction through ``dot_general`` (a dense layer's shape) drives their
 tile design. The 512×512 set is served once more under uniform
-``approx_cuda:exact``. Both designs of the contraction kernels are checked
-and timed at the three shapes the served paths give them. Every phase
+``approx_cuda:exact``. The fused conv's stencil design must be the only one
+the uniform paths launch (both product kinds); its generic design runs on
+the paths that take it (the closed form at width 12, a 7×7 kernel). Both
+designs of the fused conv and of the contraction kernels are checked and
+timed at the shapes the served paths give them. Every phase
 prints one JSON line; the line before the last lists the kernels with their
 launches on the path that runs them, their times and least-work bounds, and
 the last line is ``{"ok": true, "device": ...}``.
@@ -142,8 +145,11 @@ def main() -> int:
                                                        closed_form_matmul_plain)
     from repro_torch.kernels.approx_mul.ops import approx_mul, approx_mul_plain
     from repro_torch.kernels.closed_form import approx_product_i32
+    from repro_torch.kernels.fused_conv import ops as fc
     from repro_torch.kernels.fused_conv.ops import (fused_conv2d,
-                                                    fused_conv2d_plain)
+                                                    fused_conv2d_plain,
+                                                    fused_conv_columns,
+                                                    stencil_conv_plain)
     from repro_torch.kernels.lut_matmul import ops as lm
     from repro_torch.kernels.lut_matmul.ops import (device_table, lut_matmul,
                                                     lut_matmul_plain)
@@ -197,23 +203,50 @@ def main() -> int:
     lap = conv.LAPLACIAN
     taps_lap = tuple(tuple(int(c) for c in row) for row in lap)
     k5 = rng.integers(-8, 9, (5, 5)).astype(np.int32)
+    # W % 4 != 0 at 47, 129 and 70 (the stencil design's scalar path), a
+    # 5x5 kernel, and proposed@12, which only the generic design takes
     conv_cases = [((8, 1088, 1920), lap, "proposed"),
                   ((3, 33, 47), lap, "proposed"),
                   ((5, 17, 129), lap, "proposed"),
                   ((2, 40, 70), k5, "proposed"),
                   ((3, 33, 47), lap, "design_strollo2020@4"),
-                  ((3, 33, 47), lap, "csp_axc5@4")]
-    errs = {"fused_conv": 0, "approx_matmul": 0}
+                  ((3, 33, 47), lap, "csp_axc5@4"),
+                  ((2, 37, 70), lap, "proposed@12")]
+    errs = {"fused_conv[stencil]": 0, "fused_conv[generic]": 0,
+            "approx_matmul": 0}
+
+    def conv_designs(x, kern, key: str, kind: str) -> dict:
+        """Both designs of one product kind at one shape: the public entry
+        point (the stencil design wherever it takes the shape) and the
+        stencil design against its plain twin, the generic design (private
+        ``design=``) against fused_conv2d_plain; each error in the int32
+        ring."""
+        key = mult.canonical_key(key)
+        n = mult.split_width(key)[1]
+        taps = tuple(tuple(int(c) for c in row) for row in kern)
+        plain = fused_conv2d_plain(x, taps, key, kind)
+        err = {"generic": max_abs_err(
+            fc._launch(x, taps, key, kind, design="generic"), plain)}
+        public = fused_conv2d(x, kern, key, kernel_kind=kind)
+        if fc.conv_design(taps, key) == "stencil":
+            slots, cols = fused_conv_columns(taps, key, kind, dev)
+            twin = stencil_conv_plain(x, slots, cols, n, *np.shape(kern))
+            err["stencil"] = max(max_abs_err(public, twin),
+                                 max_abs_err(public, plain))
+        else:
+            err["generic"] = max(err["generic"], max_abs_err(public, plain))
+        torch.cuda.synchronize()
+        return err
+
     for shape, kern, key in conv_cases:
         hi = 1 << (mult.split_width(key)[1] - 1)
         x = torch.from_numpy(rng.integers(-hi, hi, shape).astype(np.int32)).to(dev)
-        taps = tuple(tuple(int(c) for c in row) for row in kern)
-        e = max_abs_err(fused_conv2d(x, kern, key),
-                        fused_conv2d_plain(x, taps, mult.canonical_key(key)))
-        errs["fused_conv"] = max(errs["fused_conv"], e)
+        e = conv_designs(x, kern, key, "closed_form")
+        for design, v in e.items():
+            errs[f"fused_conv[{design}]"] = max(errs[f"fused_conv[{design}]"], v)
         emit("fused_conv_vs_plain", shape=list(shape), kernel=list(kern.shape),
-             mult=key, max_abs_err=e, tolerance=0)
-        require(e == 0, f"fused conv {shape} {key}")
+             mult=key, kind="closed_form", max_abs_err=e, tolerance=0)
+        require(set(e.values()) == {0}, f"fused conv {shape} {key}: {e}")
     mm_cases = [(1, 1000, 777, 333, "proposed"), (4, 65, 9, 3, "proposed"),
                 (1, 8 * 1088 * 1920, 9, 1, "proposed"),
                 (1, 17, 33, 9, "design_strollo2020@4")]
@@ -230,7 +263,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # -- 4b. the LUT kernels and approx_mul vs plain (every check exact) ----
-    lut_errs = {"lut_matmul": 0, "fused_conv_lut": 0, "approx_mul": 0}
+    lut_errs = {"lut_matmul": 0, "fused_conv_lut[stencil]": 0,
+                "fused_conv_lut[generic]": 0, "approx_mul": 0}
     pairs = 0
     for name in sorted(mult.WIRINGS) + ["exact"]:
         key = f"{name}@4"
@@ -265,16 +299,25 @@ def main() -> int:
         require(e == 0, f"lut_matmul {(b, m, k, n)} {key}")
     x_hd = torch.from_numpy(rng.integers(0, 128, (8, 1088, 1920))
                             .astype(np.int32)).to(dev)
-    for key in ("exact", "proposed"):
-        got = fused_conv2d(x_hd, lap, key, kernel_kind="lut")
-        e = max_abs_err(got, fused_conv2d_plain(x_hd, taps_lap, key, "lut"))
-        if key == "proposed":  # the table kind equals the closed-form kind
-            e = max(e, max_abs_err(got, fused_conv2d(
-                x_hd, lap, key, kernel_kind="closed_form")))
-        lut_errs["fused_conv_lut"] = max(lut_errs["fused_conv_lut"], e)
-        emit("fused_conv_lut_vs_plain", shape=list(x_hd.shape), mult=key,
-             max_abs_err=e, tolerance=0)
-        require(e == 0, f"fused conv lut kind {key}")
+    lut_conv_cases = [(x_hd, lap, "exact"), (x_hd, lap, "proposed")] + [
+        (torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int32)).to(dev),
+         kern, key) for shape, kern, key in conv_cases[1:]
+        if mult.split_width(key)[1] <= 8] + [
+        (torch.from_numpy(rng.integers(-128, 128, (3, 33, 47)).astype(np.int32))
+         .to(dev), lap, "exact")]
+    for x_l, kern, key in lut_conv_cases:
+        e = conv_designs(x_l, kern, key, "lut")
+        if key == "proposed" and x_l is x_hd:  # the table kind = the closed form
+            e["stencil"] = max(e["stencil"], max_abs_err(
+                fused_conv2d(x_l, lap, key, kernel_kind="lut"),
+                fused_conv2d(x_l, lap, key, kernel_kind="closed_form")))
+        for design, v in e.items():
+            lut_errs[f"fused_conv_lut[{design}]"] = max(
+                lut_errs[f"fused_conv_lut[{design}]"], v)
+        emit("fused_conv_lut_vs_plain", shape=list(x_l.shape),
+             kernel=list(np.shape(kern)), mult=key, kind="lut", max_abs_err=e,
+             tolerance=0)
+        require(set(e.values()) == {0}, f"fused conv lut kind {key}: {e}")
     v = torch.arange(-128, 128, dtype=torch.int32, device=dev)
     ga, gb = torch.meshgrid(v, v, indexing="ij")
     e = max_abs_err(approx_mul(ga, gb), approx_product_i32(ga, gb))
@@ -327,7 +370,9 @@ def main() -> int:
     try:
         svc.detect(hd[:8] + tiles[:8] + ragged)  # warm-up: every bucket shape
         torch.cuda.synchronize()
-        for counter in (fused_conv2d.launches, closed_form_matmul.launches,
+        for counter in (fused_conv2d.launches, fused_conv2d.lut_launches,
+                        fused_conv2d.stencil_launches,
+                        closed_form_matmul.launches,
                         closed_form_matmul.narrow_launches):
             counter.reset()
         served, first = window(svc)
@@ -342,7 +387,12 @@ def main() -> int:
         im2col_raw = conv.conv2d_batched(conv.to_signed_pixels(tile_dev, 8),
                                          lap, s, fused=False)
         torch.cuda.synchronize()
-        launches = {"fused_conv": fused_conv2d.launches.value,
+        # every fused launch here is the closed-form kind; those that are
+        # not stencil launches are the generic design's
+        launches = {"fused_conv_stencil": fused_conv2d.stencil_launches.value,
+                    "fused_conv_generic": fused_conv2d.launches.value
+                        - fused_conv2d.stencil_launches.value,
+                    "fused_conv_lut": fused_conv2d.lut_launches.value,
                     "approx_matmul": closed_form_matmul.launches.value,
                     "approx_matmul_narrow":
                         closed_form_matmul.narrow_launches.value}
@@ -357,8 +407,12 @@ def main() -> int:
         prof.export_chrome_trace(str(trace_path))
     finally:
         svc.close()
-    # the im2col batch is (B*H*W x 9) @ (9 x 1): the narrow design
-    require(launches["fused_conv"] > 0 and launches["approx_matmul_narrow"] > 0
+    # the fused conv runs only its stencil design; the im2col batch is
+    # (B*H*W x 9) @ (9 x 1): the narrow design
+    require(launches["fused_conv_stencil"] > 0
+            and launches["fused_conv_generic"] == 0
+            and launches["fused_conv_lut"] == 0
+            and launches["approx_matmul_narrow"] > 0
             and launches["approx_matmul"] == 0, f"launches {launches}")
     for img, out in zip(images, served):
         require(out.shape == img.shape and out.dtype == np.uint8,
@@ -507,17 +561,57 @@ def main() -> int:
     try:
         svc.detect(tiles[:8])  # warm-up
         torch.cuda.synchronize()
-        fused_conv2d.lut_launches.reset()
+        for counter in (fused_conv2d.launches, fused_conv2d.lut_launches,
+                        fused_conv2d.stencil_launches):
+            counter.reset()
         e_served = svc.detect(tiles, timeout=300.0)
         torch.cuda.synchronize()
-        e_launches = fused_conv2d.lut_launches.value
+        e_launches = {"fused_conv2d_lut_stencil": fused_conv2d.stencil_launches.value,
+                      "fused_conv2d_lut_generic": fused_conv2d.lut_launches.value
+                          - fused_conv2d.stencil_launches.value,
+                      "fused_conv2d": fused_conv2d.launches.value}
     finally:
         svc.close()
-    require(e_launches > 0, f"uniform exact: fused LUT launches {e_launches}")
+    require(e_launches["fused_conv2d_lut_stencil"] > 0
+            and e_launches["fused_conv2d_lut_generic"] == 0
+            and e_launches["fused_conv2d"] == 0,
+            f"uniform exact: fused launches {e_launches}")
     require(np.array_equal(np.stack(e_served), exact),
             "uniform approx_cuda:exact maps differ from the exact backend's")
-    emit("uniform_exact_path", images=len(tiles),
-         launches={"fused_conv2d_lut": e_launches}, byte_identical=True)
+    emit("uniform_exact_path", images=len(tiles), launches=e_launches,
+         byte_identical=True)
+
+    # the fused conv's generic design, on the paths that take it: the closed
+    # form at width 12 (fused_conv2d serves widths to 16) and a 7x7 kernel,
+    # beyond the stencil design's 5x5, through conv2d_batched in both kinds
+    k7 = rng.integers(-100, 100, (7, 7)).astype(np.int32)
+    taps_k7 = tuple(tuple(int(c) for c in row) for row in k7)
+    for counter in (fused_conv2d.launches, fused_conv2d.lut_launches,
+                    fused_conv2d.stencil_launches):
+        counter.reset()
+    g_err = max(
+        max_abs_err(fused_conv2d(conv.to_signed_pixels(tile_dev, 12), lap,
+                                 "proposed@12"),
+                    fused_conv2d_plain(conv.to_signed_pixels(tile_dev, 12),
+                                       taps_lap, "proposed@12")),
+        max_abs_err(conv.conv2d_batched(conv.to_signed_pixels(tile_dev, 8), k7, s),
+                    fused_conv2d_plain(conv.to_signed_pixels(tile_dev, 8),
+                                       taps_k7, "proposed")),
+        max_abs_err(conv.conv2d_batched(conv.to_signed_pixels(tile_dev, 8), k7,
+                                        sub.get_substrate("approx_cuda:exact")),
+                    fused_conv2d_plain(conv.to_signed_pixels(tile_dev, 8),
+                                       taps_k7, "exact", "lut")))
+    torch.cuda.synchronize()
+    g_launches = {"fused_conv2d": fused_conv2d.launches.value,
+                  "fused_conv2d_lut": fused_conv2d.lut_launches.value,
+                  "fused_conv2d_stencil": fused_conv2d.stencil_launches.value}
+    require(g_launches["fused_conv2d"] > 0 and g_launches["fused_conv2d_lut"] > 0
+            and g_launches["fused_conv2d_stencil"] == 0,
+            f"generic conv path launches {g_launches}")
+    require(g_err == 0, "generic conv path vs plain")
+    emit("generic_conv_path", shape=list(tile_dev.shape),
+         cases=["proposed@12 3x3", "proposed 7x7", "exact 7x7"],
+         launches=g_launches, max_abs_err=g_err, tolerance=0)
 
     # the tile design of both contraction kernels, on the path that takes
     # it: dot_general at a dense layer's shape, (8 x 128 tokens x 64) @
@@ -568,8 +662,24 @@ def main() -> int:
     hd_u8 = torch.from_numpy(
         np.stack([np.pad(f, ((0, 8), (0, 0))) for f in hd[:8]])).to(dev)
     x = conv.to_signed_pixels(hd_u8, 8)
-    fc_ms = time_ms(lambda: fused_conv2d(x, lap, "proposed"))
-    fc_plain_ms = time_ms(lambda: fused_conv2d_plain(x, taps_lap, "proposed"))
+
+    def fused_times(key: str, kind: str) -> dict:
+        """Both designs of one product kind at the main path's shape, and
+        their plain versions: the stencil design through the public entry
+        point, the generic one through the private ``design=``."""
+        slots, cols = fused_conv_columns(taps_lap, key, kind, dev)
+        return {"stencil": time_ms(lambda: fused_conv2d(x, lap, key,
+                                                        kernel_kind=kind)),
+                "generic": time_ms(lambda: fc._launch(x, taps_lap, key, kind,
+                                                      design="generic")),
+                "stencil_plain": time_ms(lambda: stencil_conv_plain(
+                    x, slots, cols, n_bits, 3, 3)),
+                "generic_plain": time_ms(lambda: fused_conv2d_plain(
+                    x, taps_lap, key, kind))}
+
+    fc_ms = fused_times("proposed", "closed_form")
+    emit("fused_conv_designs", shape=list(x.shape), mult="proposed",
+         kind="closed_form", ms=fc_ms)
     distinct, tab = table_ops(lap, n_bits)
     # per input pixel one table read per distinct tap, per output kh·kw-1 adds
     fc_ops = tab + b * h * w * (distinct + lap.size - 1)
@@ -623,11 +733,19 @@ def main() -> int:
     # the fused conv's LUT kind at the same batch under `exact`; its library
     # yardstick is one float32 cuDNN convolution (TF32 off, set above): exact
     # here, since every |sum| < 2^24
-    fl_ms = time_ms(lambda: fused_conv2d(x, lap, "exact"))
-    fl_plain_ms = time_ms(lambda: fused_conv2d_plain(x, taps_lap, "exact", "lut"))
+    fl_ms = fused_times("exact", "lut")
     xf = x.to(torch.float32)[:, None]
     lap_f = torch.from_numpy(lap.astype(np.float32))[None, None].to(dev)
     fl_lib_ms = time_ms(lambda: F.conv2d(xf, lap_f, padding=1))
+    emit("fused_conv_designs", shape=list(x.shape), mult="exact", kind="lut",
+         ms=fl_ms, library_ms=fl_lib_ms)
+    # the stencil design is what the served paths launch: it must beat the
+    # generic design by 10x in the closed-form kind, and be no slower than
+    # the generic design or F.conv2d in the LUT kind
+    require(fc_ms["generic"] >= 10 * fc_ms["stencil"]
+            and fl_ms["stencil"] <= min(fl_ms["generic"], fl_lib_ms),
+            f"fused conv designs: closed form {fc_ms}, lut {fl_ms}, "
+            f"F.conv2d {fl_lib_ms}")
     require(torch.equal(F.conv2d(xf, lap_f, padding=1)[:, 0].to(torch.int32),
                         fused_conv2d(x, lap, "exact")),
             "F.conv2d differs from the fused LUT kind under exact")
@@ -686,27 +804,39 @@ def main() -> int:
                 "launches_on": launched_on}
 
     mm_shape, mr_shape, lm_shape = [1, pm, pk, 1], [1, hd_m, len(ring), 1], [1, hd_m, 1, 1]
+
+    def fused_row(name, kind, design, launches_, launched_on, err, ms, library,
+                  key):
+        """A row of the kernels line for one design of one product kind of
+        the fused conv; both share the TPU kernel and the bound."""
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/fused_conv.cu",
+                "replaces": "src/repro/kernels/fused_conv/kernel.py:55",
+                "launches": launches_, "max_abs_err": err, "ms": ms[design],
+                "plain_ms": ms[f"{design}_plain"], "bound_ms": fc_bound,
+                "bound_by": fc_by, "library_ms": library,
+                "shape": [b, h, w, 3, 3], "mult": key, "kind": kind,
+                "design": design, "launches_on": launched_on}
+
     kernels = [
-        {"name": "fused_conv2d", "route": "cuda",
-         "source": "src/repro_torch/csrc/fused_conv.cu",
-         "replaces": "src/repro/kernels/fused_conv/kernel.py:55",
-         "launches": launches["fused_conv"],
-         "max_abs_err": errs["fused_conv"], "ms": fc_ms,
-         "plain_ms": fc_plain_ms, "bound_ms": fc_bound, "bound_by": fc_by,
-         "library_ms": None, "shape": [b, h, w, 3, 3]},
+        fused_row("fused_conv2d[stencil]", "closed_form", "stencil",
+                  launches["fused_conv_stencil"], "main_path",
+                  errs["fused_conv[stencil]"], fc_ms, None, "proposed"),
+        fused_row("fused_conv2d", "closed_form", "generic",
+                  g_launches["fused_conv2d"], "generic_conv_path",
+                  errs["fused_conv[generic]"], fc_ms, None, "proposed"),
         contraction_row("closed_form_matmul", "tile",
                         w_launches["closed_form_matmul"], "wide_contraction_path",
                         mm_err, mm_ms, mm_bound, mm_by, None, mm_shape, "proposed"),
         contraction_row("closed_form_matmul[narrow]", "narrow",
                         launches["approx_matmul_narrow"], "main_path",
                         mm_err, mm_ms, mm_bound, mm_by, None, mm_shape, "proposed"),
-        {"name": "fused_conv2d[lut]", "route": "cuda",
-         "source": "src/repro_torch/csrc/fused_conv.cu",
-         "replaces": "src/repro/kernels/fused_conv/kernel.py:55",
-         "launches": e_launches,
-         "max_abs_err": lut_errs["fused_conv_lut"], "ms": fl_ms,
-         "plain_ms": fl_plain_ms, "bound_ms": fc_bound, "bound_by": fc_by,
-         "library_ms": fl_lib_ms, "shape": [b, h, w, 3, 3], "mult": "exact"},
+        fused_row("fused_conv2d[lut,stencil]", "lut", "stencil",
+                  e_launches["fused_conv2d_lut_stencil"], "uniform_exact_path",
+                  lut_errs["fused_conv_lut[stencil]"], fl_ms, fl_lib_ms, "exact"),
+        fused_row("fused_conv2d[lut]", "lut", "generic",
+                  g_launches["fused_conv2d_lut"], "generic_conv_path",
+                  lut_errs["fused_conv_lut[generic]"], fl_ms, fl_lib_ms, "exact"),
         contraction_row("closed_form_matmul[ring]", "tile",
                         w_launches["closed_form_matmul"], "wide_contraction_path",
                         mr_err, mr_ms, mr_bound, mr_by, None, mr_shape, rk),
@@ -729,7 +859,9 @@ def main() -> int:
     ]
     require(all(k["max_abs_err"] == 0 and k["launches"] > 0 for k in kernels),
             "every kernel exact and launched on its path")
-    work = {"fused_conv2d": (fc_bytes, fc_ops),
+    work = {"fused_conv2d[stencil]": (fc_bytes, fc_ops),
+            "fused_conv2d": (fc_bytes, fc_ops),
+            "fused_conv2d[lut,stencil]": (fc_bytes, fc_ops),
             "closed_form_matmul": (mm_bytes, mm_ops),
             "closed_form_matmul[narrow]": (mm_bytes, mm_ops),
             "fused_conv2d[lut]": (fc_bytes, fc_ops),

@@ -89,22 +89,10 @@ extern "C" int approx_matmul_launch(const void* a, const void* b, void* c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// col[e] = f(x - 2^(n-1), b[e >> n]) with x = e & (2^n - 1): the columns of
-// narrow_contract.cuh, b being contiguous (B, K, N).
-__global__ void cf_columns_kernel(const int32_t* __restrict__ b,
-                                  int16_t* __restrict__ cols,
-                                  long long n_entries, const CFParams cf) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (e >= n_entries) return;
-  const int n = cf.p[0];
-  const int32_t x = static_cast<int32_t>(e & ((1 << n) - 1)) - (1 << (n - 1));
-  cols[e] = static_cast<int16_t>(cf_product(x, b[e >> n], cf));
-}
-
 // The narrow design. a: contiguous (B, M, K), b: (B, K, N), c: (B, M, N),
 // all int32 on the card; cols: B*K*N*2^n int16 scratch on the card, written
-// here. params: CF_PARAM_LEN host int32 (its width n <= 8). Contract in
+// here by cf_columns_kernel (closed_form.cuh), one column per entry of b.
+// params: CF_PARAM_LEN host int32 (its width n <= 8). Contract in
 // narrow_contract.cuh. Returns cudaGetLastError().
 extern "C" int approx_matmul_narrow_launch(const void* a, const void* b,
                                            void* c, void* cols, int B, int M,

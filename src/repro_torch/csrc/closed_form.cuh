@@ -11,12 +11,19 @@
 // Cost: a generic product is on the order of a hundred integer operations
 // (truncation loop, conversion term, compare-select error sums) read from
 // the block, and tensor cores cannot evaluate it. Where the coefficient is
-// fixed for a launch, approx_matmul.cu's narrow design tabulates it instead:
-// 2^n products per coefficient into a column, then one shared-memory read
-// per product (narrow_contract.cuh). The tile design and fused_conv.cu's
-// closed-form kind still evaluate it once per product. All
+// fixed for a launch, the kernels tabulate it instead: cf_columns_kernel
+// below writes 2^n products per coefficient into an int16 column, and the
+// served designs read one column entry per product from shared memory
+// (approx_matmul.cu's narrow design through narrow_contract.cuh,
+// fused_conv.cu's stencil design). Only the generic designs (approx_matmul's
+// tile design, fused_conv's generic kernel: widths 9..16, wide shapes, large
+// conv kernels) still evaluate it once per product. All
 // arithmetic is on uint32 so that the int32 ring's wraparound is defined in
 // C++; signed values come back through the shift-based width wrap.
+//
+// Both approx_matmul.cu and fused_conv.cu include this header, each into
+// its own library: the kernel below has internal linkage, so nothing of it
+// is unified across the two when both are loaded into one process.
 #pragma once
 
 #include <cstdint>
@@ -75,3 +82,23 @@ __device__ __forceinline__ int32_t cf_product(int32_t a_in, int32_t b_in,
   }
   return cf_wrap(raw, 2 * n);
 }
+
+namespace {
+
+// col[e] = f(x - 2^(n-1), b[e >> n]) with x = e & (2^n - 1): one int16
+// column of 2^n products per coefficient b[k] (n <= 8, so the products wrap
+// to 2n <= 16 bits and int16 is lossless). A column indexed by
+// (a + 2^(n-1)) & (2^n - 1) equals f(a, b[k]) for every int32 a, since
+// cf_product wraps its first operand to n bits before anything else.
+__global__ void cf_columns_kernel(const int32_t* __restrict__ b,
+                                  int16_t* __restrict__ cols,
+                                  long long n_entries, const CFParams cf) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (e >= n_entries) return;
+  const int n = cf.p[0];
+  const int32_t x = static_cast<int32_t>(e & ((1 << n) - 1)) - (1 << (n - 1));
+  cols[e] = static_cast<int16_t>(cf_product(x, b[e >> n], cf));
+}
+
+}  // namespace

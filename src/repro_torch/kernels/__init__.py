@@ -3,7 +3,9 @@
 * ``closed_form`` — the CSP closed forms in torch, and the flat parameter
   block that ``csrc/closed_form.cuh`` evaluates on the card;
 * ``fused_conv`` — batched 'same' conv with every product through the
-  closed form (``csrc/fused_conv.cu``);
+  closed form or a product table (``csrc/fused_conv.cu``), in a stencil
+  design (per-tap product columns, row strips) and a generic design,
+  picked by ``fused_conv.ops.stencil_design``;
 * ``approx_matmul`` — batched contraction with every product through the
   closed form (``csrc/approx_matmul.cu``);
 * ``lut_matmul`` — the same with every product read from a product table
@@ -18,5 +20,6 @@
 
 A wrapper runs its kernel for a CUDA tensor and its plain version for a CPU
 tensor; ``<wrapper>.launches`` counts kernel launches (per design or kind:
-``.narrow_launches``, ``fused_conv2d.lut_launches``).
+``.narrow_launches``, ``fused_conv2d.lut_launches``,
+``fused_conv2d.stencil_launches``).
 """

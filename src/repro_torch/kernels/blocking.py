@@ -78,16 +78,18 @@ def narrow_matmul_plain(a: torch.Tensor, cols: torch.Tensor,
     return acc.transpose(1, 2).contiguous()
 
 
-def resolve_design(design: "str | None", narrow_ok: bool, kernel: str,
-                   what: str) -> str:
-    """``"narrow"`` or ``"tile"``: ``design`` where given (raising if the
-    narrow design cannot take ``what``), else narrow wherever it can."""
+def resolve_design(design: "str | None", special_ok: bool, kernel: str,
+                   what: str, designs: tuple = ("narrow", "tile")) -> str:
+    """One of ``designs`` (the specialised design first, then the one that
+    takes everything): ``design`` where given (raising if the specialised
+    design cannot take ``what``), else the specialised one wherever it can."""
+    special, general = designs
     if design is None:
-        return "narrow" if narrow_ok else "tile"
-    if design not in ("narrow", "tile"):
+        return special if special_ok else general
+    if design not in designs:
         raise ValueError(f"unknown {kernel} design {design!r}")
-    if design == "narrow" and not narrow_ok:
-        raise ValueError(f"the narrow design does not take {what}")
+    if design == special and not special_ok:
+        raise ValueError(f"the {special} design does not take {what}")
     return design
 
 

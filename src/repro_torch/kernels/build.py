@@ -127,13 +127,16 @@ def check(rc: int, what: str) -> None:
 
 
 def device_constant(key: Hashable, device,
-                    make: Callable[[], np.ndarray]) -> torch.Tensor:
+                    make: Callable[[], "np.ndarray | torch.Tensor"]
+                    ) -> torch.Tensor:
     """The tensor ``make()`` on ``device``, built once per (key, device).
 
-    On the card the upload runs once, then the stream is synchronised: the
-    table is complete before any worker's stream reads it, and no later
-    call copies from the host (a pageable copy per batch would block the
-    worker until its stream drained).
+    ``make`` returns a host array, or a tensor it built on ``device`` itself
+    (a table a kernel writes on the card). On the card the upload or build
+    runs once, then the stream is synchronised: the table is complete before
+    any worker's stream reads it, and no later call copies from the host (a
+    pageable copy per batch would block the worker until its stream
+    drained).
     """
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
@@ -141,7 +144,10 @@ def device_constant(key: Hashable, device,
     with _CONST_LOCK:
         t = _CONSTS.get((key, device))
         if t is None:
-            t = torch.from_numpy(np.array(make(), order="C")).to(device)
+            t = make()
+            if not torch.is_tensor(t):
+                t = torch.from_numpy(np.array(t, order="C"))
+            t = t.to(device).contiguous()
             if device.type == "cuda":
                 torch.cuda.current_stream(device).synchronize()
             _CONSTS[(key, device)] = t

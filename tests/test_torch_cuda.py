@@ -18,7 +18,10 @@ from repro_torch.kernels.approx_matmul.ops import (closed_form_matmul,
                                                    closed_form_matmul_plain)
 from repro_torch.kernels.approx_mul.ops import approx_mul, approx_mul_plain
 from repro_torch.kernels.closed_form import approx_product_i32
-from repro_torch.kernels.fused_conv.ops import fused_conv2d, fused_conv2d_plain
+from repro_torch.kernels.fused_conv import ops as fc
+from repro_torch.kernels.fused_conv.ops import (fused_conv2d, fused_conv2d_plain,
+                                                fused_conv_columns,
+                                                stencil_conv_plain)
 from repro_torch.kernels.lut_matmul import ops as lm
 from repro_torch.kernels.lut_matmul.ops import (device_table, lut_matmul,
                                                 lut_matmul_plain)
@@ -320,3 +323,146 @@ def test_planned_service_launches_only_the_narrow_design(dev):
         c.value - b for c, b in zip(counters, before))
     assert tile_cf == tile_lut == 0
     assert narrow_cf > 0 and narrow_lut > 0
+
+
+# -- the stencil design of the fused conv --------------------------------------
+
+STENCIL_SHAPES = [(1, 1, 1), (1, 13, 17), (2, 33, 64), (3, 70, 129),
+                  (1, 97, 256), (2, 65, 1924)]
+
+
+def _conv_taps(kern) -> tuple:
+    return tuple(tuple(int(c) for c in row) for row in np.asarray(kern))
+
+
+def _stencil_and_plain(x, kern, key, kind):
+    """(stencil launch, its plain twin, the generic plain version) of one
+    conv; the launch is checked on its counters and synchronised."""
+    key = mult.canonical_key(key)
+    taps = _conv_taps(kern)
+    counters = (fused_conv2d.stencil_launches,
+                fused_conv2d.lut_launches if kind == "lut" else fused_conv2d.launches)
+    before = [c.value for c in counters]
+    got = fused_conv2d(x, kern, key, kernel_kind=kind)
+    torch.cuda.synchronize()
+    assert [c.value for c in counters] == [b + 1 for b in before], (key, kind)
+    slots, cols = fused_conv_columns(taps, key, kind, x.device)
+    twin = stencil_conv_plain(x, slots, cols, mult.split_width(key)[1],
+                              len(taps), len(taps[0]))
+    return got, twin, fused_conv2d_plain(x, taps, key, kind)
+
+
+@pytest.mark.parametrize("shape", STENCIL_SHAPES)
+@pytest.mark.parametrize("kh_kw", [(1, 1), (2, 3), (3, 3), (5, 5)])
+def test_stencil_vs_plain_both_kinds(dev, shape, kh_kw):
+    """B = 1, H no multiple of a strip, W % 4 != 0 (scalar path) and W % 8
+    == 4 (a half-empty last chunk), pixels anywhere in int32; both kinds,
+    each against the stencil twin and the generic plain version."""
+    x = torch.from_numpy(RNG.integers(-2**31, 2**31, shape, dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    kern = RNG.integers(-300, 300, kh_kw).astype(np.int32)
+    for key in ("proposed", "csp_axc1@6", "design_strollo2020@4", "exact"):
+        for kind in (("lut",) if key == "exact" else ("closed_form", "lut")):
+            got, twin, plain = _stencil_and_plain(x, kern, key, kind)
+            torch.testing.assert_close(got, twin, rtol=0, atol=0)
+            torch.testing.assert_close(got, plain, rtol=0, atol=0)
+
+
+def test_stencil_takes_an_unaligned_view(dev):
+    """A view with a storage offset of 4 bytes is copied to an aligned
+    buffer before the 16-byte loads; the result equals the aligned one."""
+    b, h, w = 2, 41, 64
+    base = torch.from_numpy(RNG.integers(-128, 128, 1 + b * h * w)
+                            .astype(np.int32)).to(dev)
+    x = base[1:].view(b, h, w)
+    assert x.data_ptr() % 16
+    for key, kind in (("proposed", "closed_form"), ("exact", "lut")):
+        got, twin, plain = _stencil_and_plain(x, conv.LAPLACIAN, key, kind)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+        torch.testing.assert_close(got, twin, rtol=0, atol=0)
+        torch.testing.assert_close(
+            got, fused_conv2d(x.contiguous().clone(), conv.LAPLACIAN, key,
+                              kernel_kind=kind), rtol=0, atol=0)
+
+
+def test_stencil_zero_border_on_the_card(dev):
+    """f(0, c) != 0: a zero batch answers the sum over the taps of f(0, c)
+    everywhere, in both kinds."""
+    x = torch.zeros((2, 9, 20), dtype=torch.int32, device=dev)
+    for kind in ("closed_form", "lut"):
+        got, twin, plain = _stencil_and_plain(x, conv.LAPLACIAN, "proposed", kind)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+        assert (got != 0).all()
+
+
+def test_stencil_columns_on_the_card_equal_the_cpu(dev):
+    """The closed-form kind's columns, evaluated on the card by the column
+    kernel, equal the closed form evaluated on the CPU and the table's
+    columns, for every wiring at widths 4 and 8."""
+    taps = _conv_taps(RNG.integers(-128, 128, (3, 3)))
+    for name in sorted(mult.WIRINGS):
+        for n in (4, 8):
+            key = mult.canonical_key(f"{name}@{n}")
+            s_card, c_card = fused_conv_columns(taps, key, "closed_form", dev)
+            torch.cuda.synchronize()
+            s_cpu, c_cpu = fused_conv_columns(taps, key, "closed_form", "cpu")
+            np.testing.assert_array_equal(s_card, s_cpu)
+            assert torch.equal(c_card.cpu(), c_cpu), key
+            assert torch.equal(c_card, fused_conv_columns(taps, key, "lut", dev)[1])
+
+
+def test_generic_design_at_width_12_and_beyond_the_limit(dev):
+    """The generic design keeps the closed form at width 12 and kernels
+    beyond 5 x 5, in both kinds; the private design= runs either design at
+    one shape, and both agree."""
+    x = torch.from_numpy(RNG.integers(-2048, 2048, (2, 37, 70)).astype(np.int32)).to(dev)
+    big = RNG.integers(-100, 100, (7, 7)).astype(np.int32)
+    cases = (("proposed@12", conv.LAPLACIAN, "closed_form"),
+             ("proposed", big, "closed_form"), ("exact", big, "lut"))
+    for key, kern, kind in cases:
+        key = mult.canonical_key(key)
+        counter = fused_conv2d.lut_launches if kind == "lut" else fused_conv2d.launches
+        before = (fused_conv2d.stencil_launches.value, counter.value)
+        got = fused_conv2d(x, kern, key, kernel_kind=kind)
+        torch.cuda.synchronize()
+        assert (fused_conv2d.stencil_launches.value, counter.value) == (
+            before[0], before[1] + 1), key
+        torch.testing.assert_close(
+            got, fused_conv2d_plain(x, _conv_taps(kern), key, kind), rtol=0, atol=0)
+    for key, kind in (("proposed", "closed_form"), ("exact", "lut")):
+        taps = _conv_taps(conv.LAPLACIAN)
+        stencil = fc._launch(x, taps, key, kind, design="stencil")
+        generic = fc._launch(x, taps, key, kind, design="generic")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(stencil, generic, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="stencil design does not take"):
+        fc._launch(x, _conv_taps(conv.LAPLACIAN), "proposed@12", "closed_form",
+                   design="stencil")
+
+
+@pytest.mark.parametrize("spec", ["approx_cuda", "approx_cuda:exact"])
+def test_uniform_service_launches_only_the_stencil_design(dev, spec):
+    """The uniform paths' fused conv launches (proposed@8's closed-form kind,
+    exact's LUT kind) are all stencil launches, and match the CPU."""
+    imgs = mixed_shape_batch(4, shapes=((16, 16), (33, 47)), seed=6)
+    kind_counter = fused_conv2d.lut_launches if spec.endswith("exact") \
+        else fused_conv2d.launches
+    outs = {}
+    for device in ("cpu", "cuda"):
+        svc = EdgeDetectService(spec, device=device, max_batch_size=2,
+                                bucket_granularity=8, n_workers=2)
+        try:
+            svc.detect(imgs[:1])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            before = (kind_counter.value, fused_conv2d.stencil_launches.value)
+            outs[device] = svc.detect(imgs)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launched = (kind_counter.value - before[0],
+                        fused_conv2d.stencil_launches.value - before[1])
+        finally:
+            svc.close()
+    assert launched[0] > 0 and launched[0] == launched[1]
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        np.testing.assert_array_equal(a, b)

@@ -238,8 +238,8 @@ def test_lut_columns_built_once_per_taps():
     tap value, the same tensor on every call (kept on the device, never
     uploaded per batch), each tap pointing at its own column."""
     taps = tuple(tuple(int(c) for c in row) for row in conv.LAPLACIAN)
-    slots, cols = fc_ops._lut_columns("proposed", taps, torch.device("cpu"))
-    again = fc_ops._lut_columns("proposed", taps, torch.device("cpu"))[1]
+    slots, cols = fc_ops.fused_conv_columns(taps, "proposed", "lut", "cpu")
+    again = fc_ops.fused_conv_columns(taps, "proposed", "lut", "cpu")[1]
     assert again is cols and cols.dtype == torch.int16 and cols.shape == (2, 256)
     table = jlut.build_lut("proposed")
     for t, c in enumerate(c for row in taps for c in row):
