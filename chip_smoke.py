@@ -21,10 +21,25 @@ tile design. The 512×512 set is served once more under uniform
 the uniform paths launch (both product kinds); its generic design runs on
 the paths that take it (the closed form at width 12, a 7×7 kernel). Both
 designs of the fused conv and of the contraction kernels are checked and
-timed at the shapes the served paths give them. Every phase
-prints one JSON line; the line before the last lists the kernels with their
-launches on the path that runs them, their times and least-work bounds, and
-the last line is ``{"ok": true, "device": ...}``.
+timed at the shapes the served paths give them.
+
+Then the LM path: minitron-8b at its published widths. Both tile designs
+are checked exactly against their plain versions (and ``torch._int_mm`` at
+``exact``) and timed at the dense layers' four (K, N) shapes, at M = 8 (a
+decode step at batch 8) and M = 256 (a prefill of 4 × 64 tokens). The
+model, cut to 4 layers, serves 16 requests through ``ServingEngine`` under
+``approx_cuda:proposed@8`` at 2 workers (only tile launches, 7 per
+layer-step; worker 0's first wave equal to a 1-worker run) and under a
+per-site plan (layer 0 on the exact table, the FFNs at csp_axc1@6), whose
+prefill of 4 × 64 tokens through ``bundle.prefill`` (M = 256; the engine
+prefills token by token) must equal the same plan on ``approx_lut``; one
+decode step's logits must equal, bit for bit, those of the plain substrates
+on the card; 4 decode steps are traced (``chiprun_out/
+chip_smoke_lm_trace.json``); and two timed decode steps and one prefill
+of 8 × 32 tokens run at all 32 layers. Every phase prints one JSON line;
+the line before the last lists the kernels with their launches on the path
+that runs them, their times and least-work bounds, and the last line is
+``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Needs CUDA; exits non-zero without it. Imports no JAX.
 """
@@ -45,9 +60,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 at 3.35 TB/s; INT32 at
 # 16.75 TOP/s = the 67 TFLOP/s fp32 rate / 2 (an FMA counts two) / 2 (Hopper
-# SMs have 64 INT32 lanes beside 128 FP32 lanes, Hopper white paper).
+# SMs have 64 INT32 lanes beside 128 FP32 lanes, Hopper white paper); dense
+# INT8 tensor cores at 1979 TOP/s (a multiply-add counts two), which compute
+# the exact wiring's int8 x int8 -> int32 contraction.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2 / 2
+INT8_TC_OPS_PER_S = 1979e12
 SLEEP_CYCLES = 20_000_000  # ~11 ms at 1.755 GHz: time to enqueue 10 calls
 WINDOWS = 5  # timed passes over the served mix, within one run
 PLANNED_WINDOWS = 3  # timed passes of the planned path
@@ -55,6 +73,38 @@ PLANNED_WINDOWS = 3  # timed passes of the planned path
 PLAN = {"version": 1, "default": "approx_cuda:proposed@8",
         "rules": [{"site": "conv.edge.center", "spec": "approx_cuda:exact"},
                   {"site": "conv.edge.ring", "spec": "approx_cuda:csp_axc1@6"}]}
+#: the LM path: minitron-8b at its published widths, depth cut to
+#: LM_LAYERS for the serving phases (the full 32 layers in lm_full_depth_step)
+LM_ARCH = "minitron-8b"
+LM_LAYERS = 4
+LM_BATCH = 8
+LM_MAX_LEN = 64
+LM_PROMPT = 8  # tokens per prompt, and max_tokens per request
+LM_REQUESTS = 16
+LM_PREFILL = (4, 64)  # (batch, tokens) of the kernel shapes' prefill: M = 256
+LM_FULL_PREFILL = (8, 32)  # the full-depth prefill, also M = 256
+INT_MM_MIN_M = 17  # torch._int_mm takes M > 16: M = 8 is zero-padded to 17
+#: the LM plan: layer 0 on the exact product table, every other FFN at
+#: csp_axc1@6, the rest proposed@8 ("layer.0.*" is the more literal match)
+LM_PLAN = {"version": 1, "default": "approx_cuda:proposed@8",
+           "rules": [{"site": "layer.0.*", "spec": "approx_cuda:exact"},
+                     {"site": "*.ffn.*", "spec": "approx_cuda:csp_axc1@6"}]}
+#: the same plan on the plain substrates (the same integers, plain torch)
+LM_PLAN_PLAIN = {"version": 1, "default": "approx_bitexact:proposed@8",
+                 "rules": [{"site": "layer.0.*", "spec": "approx_lut:exact"},
+                           {"site": "*.ffn.*", "spec": "approx_bitexact:csp_axc1@6"}]}
+#: the same plan on the table substrate alone (plain torch gathers into the
+#: exact product tables): fast enough to hold a prefill of 256 rows to
+LM_PLAN_TABLE = {"version": 1, "default": "approx_lut:proposed@8",
+                 "rules": [{"site": "layer.0.*", "spec": "approx_lut:exact"},
+                           {"site": "*.ffn.*", "spec": "approx_lut:csp_axc1@6"}]}
+#: the (K, N) of minitron-8b's dense layers and their launches per layer-step
+LM_SHAPES = {"attn.wq,wo": (4096, 4096, 2), "attn.wk,wv": (4096, 1024, 2),
+             "ffn.wg,wi": (4096, 16384, 2), "ffn.wo": (16384, 4096, 1)}
+#: the port's spans that split a traced decode step on the device
+LM_SPANS = ("kernel.closed_form_matmul", "kernel.lut_matmul",
+            "substrate.dot_general", "lm.attention", "lm.logits",
+            "serve.decode_step")
 
 
 def emit(phase: str, **fields) -> None:
@@ -91,11 +141,13 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+def bound_ms(n_bytes: int, n_ops: int,
+             ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
     """Least time on the card: the larger of the bytes over the HBM rate and
-    the integer operations over the INT32 rate, and which of the two it is."""
+    the integer operations over their peak rate (INT32 unless given), and
+    which of the two it is."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / INT32_OPS_PER_S
+    t_ops = n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -129,6 +181,384 @@ def device_busy(trace_path: Path) -> tuple[float, dict]:
             busy += t1 - max(t0, end)
             end = t1
     return busy, by_name
+
+
+def timed_once(fn):
+    """(result, device ms) of one call, from CUDA events around it (for the
+    plain versions, whose one call takes seconds at the LM shapes)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def contraction_work(m: int, k: int, n: int, table_bytes: int = 0):
+    """(bytes, operations) of the least work of an (m × k) @ (k × n)
+    contraction of int8 codes into int32 where both operands vary: one
+    operation per entry of the 2^16-entry product table, per table read and
+    per add; each int8 input and the table read once, each int32 output
+    written once."""
+    ops = (1 << 16) + m * k * n + m * n * (k - 1)
+    return m * k + k * n + table_bytes + 4 * m * n, ops
+
+
+def exact_contraction_work(m: int, k: int, n: int):
+    """(bytes, operations) of the least work of the exact wiring's (m × k) @
+    (k × n) contraction of int8 codes into int32: an int8 tensor-core
+    product (two operations per multiply-add, at ``INT8_TC_OPS_PER_S``); each
+    input read once, each output written once."""
+    return m * k + k * n + 4 * m * n, 2 * m * k * n
+
+
+def device_ms_by_span(prof, spans) -> dict:
+    """Device ms of a profile's kernels and copies launched by torch ops,
+    split by the innermost of ``spans`` (the port's trace spans, profiler
+    ranges while it records) around the op. The contraction kernels, which
+    ctypes launches outside any op, are left to the by-name totals; what a
+    ``kernel.*`` span holds besides them is ``blocking.as3``'s int32 casts."""
+    out: dict = {}
+    for e in prof.events():
+        for kern in getattr(e, "kernels", ()):
+            if "matmul_kernel" in kern.name:
+                continue
+            label, p = "outside the spans", e
+            while p is not None:
+                if p.name in spans:
+                    label = p.name
+                    break
+                p = p.cpu_parent
+            out[label] = out.get(label, 0.0) + kern.duration / 1e3
+    return out
+
+
+def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
+    """The LM path: minitron-8b through ServingEngine on the tile designs of
+    both contraction kernels. Returns (rows of the kernels line, least work
+    by row name)."""
+    import dataclasses
+
+    from repro_torch.kernels.approx_matmul import ops as am
+    from repro_torch.kernels.approx_matmul.ops import (closed_form_matmul,
+                                                       closed_form_matmul_plain)
+    from repro_torch.kernels.lut_matmul import ops as lm
+    from repro_torch.kernels.lut_matmul.ops import (device_table, lut_matmul,
+                                                    lut_matmul_plain)
+    from repro_torch.models import registry as reg
+    from repro_torch.nn import plan as plan_mod
+    from repro_torch.nn import substrate as sub
+    from repro_torch.obs.trace import Tracer, tracing_scope
+    from repro_torch.serving import Request, ServingEngine
+    from torch.profiler import ProfilerActivity, profile
+
+    counters = (closed_form_matmul.launches, closed_form_matmul.narrow_launches,
+                lut_matmul.launches, lut_matmul.narrow_launches)
+
+    def reset():
+        for c in counters:
+            c.reset()
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return dict(zip(("closed_form_tile", "closed_form_narrow", "lut_tile",
+                         "lut_narrow"), (c.value for c in counters)))
+
+    # -- lm_kernel_shapes: the dense operands of one decode step (M = 8) and
+    # of one prefill of 4 x 64 tokens (M = 256), quantized as dense does
+    cfg = reg.get_config(LM_ARCH)
+    gen = torch.Generator(dev).manual_seed(1)
+    t_exact = device_table("exact", dev)
+    q = sub.QuantPolicy()
+    shape_rows: dict = {}
+    for m in (LM_BATCH, LM_PREFILL[0] * LM_PREFILL[1]):
+        for site, (k, n, per_step) in LM_SHAPES.items():
+            x = torch.randn((1, m, k), generator=gen, device=dev).to(cfg.dtype)
+            w = (torch.randn((1, k, n), generator=gen, device=dev)
+                 / k ** 0.5).to(cfg.dtype)
+            qa, _ = sub._quantize_operand(x, q.x_mode, None, 2, 8, q.eps)
+            qb, _ = sub._quantize_operand(w, q.w_mode, None, 1, 8, q.eps)
+            a32, b32 = qa.to(torch.int32), qb.to(torch.int32)
+            iters = 10 if m == LM_BATCH else 3
+            cf_plain, cf_plain_ms = timed_once(
+                lambda: closed_form_matmul_plain(a32, b32, "proposed@8"))
+            lut_plain, lut_plain_ms = timed_once(
+                lambda: lut_matmul_plain(a32, b32, t_exact))
+            cf_err = max_abs_err(am._launch(a32, b32, "proposed@8",
+                                            design="tile"), cf_plain)
+            lut_tile = lm._launch(a32, b32, t_exact, 8, design="tile")
+            lut_err = max_abs_err(lut_tile, lut_plain)
+            # torch._int_mm: int8 x int8 -> int32, exact (the exact wiring's
+            # product), M zero-padded to its shape rule where below it
+            a2 = qa[0]
+            if m < INT_MM_MIN_M:
+                a2 = F.pad(a2, (0, 0, 0, INT_MM_MIN_M - m))
+            b2 = qb[0].contiguous()
+            lib_err = max_abs_err(torch._int_mm(a2, b2)[:m], lut_tile[0])
+            require(cf_err == 0 and lut_err == 0 and lib_err == 0,
+                    f"tile designs at ({m} x {k}) @ ({k} x {n}): closed form "
+                    f"{cf_err}, lut {lut_err}, _int_mm {lib_err}")
+            ms = {"closed_form_tile": time_ms(lambda: am._launch(
+                      a32, b32, "proposed@8", design="tile"), iters=iters),
+                  "lut_tile": time_ms(lambda: lm._launch(
+                      a32, b32, t_exact, 8, design="tile"), iters=iters),
+                  "int_mm": time_ms(lambda: torch._int_mm(a2, b2), iters=iters),
+                  "closed_form_plain": cf_plain_ms, "lut_plain": lut_plain_ms}
+            cf_work = contraction_work(m, k, n)
+            lut_work = exact_contraction_work(m, k, n)
+            shape_rows[(m, site)] = {"k": k, "n": n, "per_layer_step": per_step,
+                                     "ms": ms, "work": {"closed_form": cf_work,
+                                                        "lut": lut_work},
+                                     "err": {"closed_form": cf_err, "lut": lut_err}}
+            emit("lm_kernel_shapes", m=m, site=site, shape=[1, m, k, n],
+                 max_abs_err={"closed_form_tile": cf_err, "lut_tile": lut_err,
+                              "int_mm": lib_err}, tolerance=0, ms=ms,
+                 int_mm_rows=a2.shape[0],
+                 bound_ms={"closed_form": bound_ms(*cf_work)[0],
+                           "lut": bound_ms(*lut_work, INT8_TC_OPS_PER_S)[0]})
+            del x, w, qa, qb, a32, b32, cf_plain, lut_plain, lut_tile, a2, b2
+    torch.cuda.empty_cache()
+
+    # -- lm_serving_path: minitron-8b at its published widths, depth cut
+    bundle = reg.get_bundle(LM_ARCH, n_layers=LM_LAYERS)
+    params = bundle.init_params(torch.Generator(dev).manual_seed(0), dev)
+    vocab = bundle.cfg.vocab
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, vocab, LM_PROMPT)))
+               for _ in range(LM_REQUESTS)]
+
+    def requests(order):
+        return [Request(prompt=prompts[i], max_tokens=LM_PROMPT,
+                        temperature=0.0 if i % 2 == 0 else 0.8) for i in order]
+
+    def serve(substrate, order, workers: int) -> tuple:
+        """One generate() on a warmed engine, counters reset just before it
+        and read just after: (requests, counts, readings)."""
+        eng = ServingEngine(bundle, params, batch_size=LM_BATCH,
+                            max_len=LM_MAX_LEN, substrate=substrate, device=dev)
+        eng.generate([Request(prompt=[1, 2], max_tokens=1)])  # warm-up
+        torch.cuda.synchronize()
+        eng.metrics.reset()
+        reqs = requests(order)
+        reset()
+        t0 = time.perf_counter()
+        eng.generate(reqs, workers=workers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        st = eng.metrics.snapshot()
+        require(all(r.done and len(r.output) == LM_PROMPT
+                    and all(0 <= t < vocab for t in r.output) for r in reqs)
+                and st["requests_served"] == len(reqs)
+                and st["requests_failed"] == 0, f"served {st}")
+        busy = eng.metrics.worker_busy_seconds
+        batches = eng.metrics.worker_batches
+        tokens = sum(len(r.output) for r in reqs)
+        return reqs, c, {
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "latency_p50_ms": st["latency_p50_ms"],
+            "latency_p99_ms": st["latency_p99_ms"],
+            "decode_steps": eng.metrics.batches_flushed,
+            "decode_step_ms_by_worker": {w: 1e3 * busy[w] / batches[w]
+                                         for w in sorted(batches)}}
+
+    reduced = {"n_layers": [bundle.cfg.n_layers, cfg.n_layers]}
+    reqs2, c2, r2 = serve("approx_cuda:proposed@8", range(LM_REQUESTS), 2)
+    steps = r2["decode_steps"]
+    require(c2 == {"closed_form_tile": 7 * LM_LAYERS * steps,
+                   "closed_form_narrow": 0, "lut_tile": 0, "lut_narrow": 0},
+            f"lm serving launches {c2} over {steps} steps")
+    # workers=1 with the requests of worker 0 first: its first wave seats
+    # the same requests in the same slots as worker 0 did
+    order1 = list(range(0, LM_REQUESTS, 2)) + list(range(1, LM_REQUESTS, 2))
+    reqs1, _, r1 = serve("approx_cuda:proposed@8", order1, 1)
+    first_wave = {i: r.output for i, r in zip(order1[:LM_BATCH], reqs1)}
+    same = all(first_wave[i] == reqs2[i].output for i in first_wave)
+    require(same, "first-wave greedy outputs differ between 1 and 2 workers")
+    emit("lm_serving_path", arch=LM_ARCH, reduced=reduced,
+         widths={"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                 "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+                 "vocab": cfg.vocab},
+         substrate="approx_cuda:proposed@8", batch=LM_BATCH,
+         requests=LM_REQUESTS, prompt_tokens=LM_PROMPT, max_tokens=LM_PROMPT,
+         workers_2=r2, workers_1=r1, launches=c2,
+         launches_expected="7 x layers x decode steps",
+         first_wave_identical=same, card=card)
+
+    # -- lm_planned_path: layer 0 on the exact table, FFNs at csp_axc1@6
+    reqs_p, cp, rp = serve(LM_PLAN, range(LM_REQUESTS), 2)
+    sp = rp["decode_steps"]
+    require(cp == {"closed_form_tile": 7 * (LM_LAYERS - 1) * sp,
+                   "closed_form_narrow": 0, "lut_tile": 7 * sp,
+                   "lut_narrow": 0}, f"lm planned launches {cp} over {sp} steps")
+    # one prefill of 4 x 64 tokens under the plan through the prefill entry
+    # point (ServingEngine prefills through decode_step): M = 256 on both
+    # kernels, the logits bit for bit those of the table substrate's plan
+    def planned(plan):
+        return reg.build_bundle(dataclasses.replace(
+            bundle.cfg, dot_plan=plan_mod.as_plan(plan)))
+
+    pbundle = planned(LM_PLAN)
+    toks = torch.from_numpy(rng.integers(1, vocab, LM_PREFILL)).to(dev)
+    reset()
+    (logits_pf, prefill_ms) = timed_once(
+        lambda: pbundle.prefill(params, {"tokens": toks}))
+    cpf = counts()
+    require(cpf == {"closed_form_tile": 7 * (LM_LAYERS - 1), "closed_form_narrow": 0,
+                    "lut_tile": 7, "lut_narrow": 0}, f"planned prefill {cpf}")
+    table_pf, table_pf_ms = timed_once(
+        lambda: planned(LM_PLAN_TABLE).prefill(params, {"tokens": toks}))
+    pf_same = logits_pf.shape == (LM_PREFILL[0], 1, vocab) \
+        and bool(torch.isfinite(logits_pf).all()) \
+        and torch.equal(logits_pf.view(torch.int32), table_pf.view(torch.int32))
+    require(pf_same, "planned prefill logits differ from the table substrate's")
+    emit("lm_planned_path", plan=LM_PLAN, reduced=reduced, serving=rp,
+         launches=cp, prefill={"entry_point": "bundle.prefill",
+                               "tokens": list(LM_PREFILL), "ms": prefill_ms,
+                               "launches": cpf, "bit_identical_to": LM_PLAN_TABLE,
+                               "bit_identical": pf_same,
+                               "table_substrate_ms": table_pf_ms}, card=card)
+    del table_pf
+
+    # -- lm_bit_identity: one decode step, the kernels against the plain
+    # substrates on the same card: the same integers, the same float ops
+    tok = torch.from_numpy(rng.integers(1, vocab, (LM_BATCH, 1))).to(dev)
+
+    def step_logits(plan) -> torch.Tensor:
+        b = reg.build_bundle(dataclasses.replace(
+            bundle.cfg, dot_plan=plan_mod.as_plan(plan)))
+        caches = b.init_decode_state(LM_BATCH, LM_MAX_LEN, dev)
+        return b.decode_step(params, caches, {"token": tok, "cache_len": 0})[0]
+
+    identity = {}
+    for kern, plain in (("approx_cuda:proposed@8", "approx_bitexact:proposed@8"),
+                        ("approx_cuda:exact", "approx_lut:exact"),
+                        (LM_PLAN, LM_PLAN_PLAIN)):
+        a, (b, plain_ms) = step_logits(kern), timed_once(lambda: step_logits(plain))
+        same = bool(torch.isfinite(a).all()) and torch.equal(
+            a.view(torch.int32), b.view(torch.int32))
+        name = kern if isinstance(kern, str) else "lm_plan"
+        identity[name] = {"against": plain if isinstance(plain, str)
+                          else "lm_plan on approx_bitexact / approx_lut",
+                          "bit_identical": same,
+                          "plain_step_ms": plain_ms}
+        require(same, f"lm logits {name} differ from {identity[name]['against']}")
+    emit("lm_bit_identity", reduced=reduced, decode_steps=1, batch=LM_BATCH,
+         logits_shape=list(a.shape), cases=identity)
+    del a, b, logits_pf
+
+    # -- lm_trace: 4 decode steps of the cut model under torch.profiler
+    eng = ServingEngine(bundle, params, batch_size=LM_BATCH, max_len=LM_MAX_LEN,
+                        substrate="approx_cuda:proposed@8", device=dev)
+    eng.generate([Request(prompt=[1, 2], max_tokens=1)])  # warm-up
+    torch.cuda.synchronize()
+    eng.metrics.reset()
+    tracer = Tracer()
+    treqs = [Request(prompt=prompts[i][:2], max_tokens=3) for i in range(LM_BATCH)]
+    with tracing_scope(tracer), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(treqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trace_path = out_dir / "chip_smoke_lm_trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    n_steps = eng.metrics.batches_flushed
+    emit_trace("lm_trace", trace_path, {"wall_s": wall, "decode_steps": n_steps},
+               tracer)
+    busy_us, by_name = device_busy(trace_path)
+    split = device_ms_by_span(prof, LM_SPANS)
+    split["tile kernels (by name)"] = sum(
+        v for k, v in by_name.items() if "matmul_kernel" in k) / 1e3
+    emit("lm_trace_split", decode_steps=n_steps,
+         device_ms_per_step={k: v / n_steps for k, v in split.items()},
+         device_busy_ms_per_step=busy_us / 1e3 / n_steps,
+         unattributed_ms_per_step=(busy_us / 1e3 - sum(split.values())) / n_steps,
+         wall_ms_per_step=1e3 * wall / n_steps,
+         spans={"kernel.*": "int32 casts (blocking.as3)",
+                "substrate.dot_general": "quantization and rescale",
+                "lm.attention": "attention", "lm.logits": "lm_logits",
+                "serve.decode_step": "the rest: embedding, norms, rope, "
+                                     "silu, cache writes, logits to host"})
+    del eng, params, bundle, pbundle
+    torch.cuda.empty_cache()
+
+    # -- lm_full_depth_step: all 32 layers, one decode step and one prefill
+    full = reg.get_bundle(LM_ARCH, dot_plan="approx_cuda:proposed@8")
+    torch.cuda.reset_peak_memory_stats()
+    params = full.init_params(torch.Generator(dev).manual_seed(0), dev)
+    caches = full.init_decode_state(LM_BATCH, LM_MAX_LEN, dev)
+    full.decode_step(params, caches, {"token": tok, "cache_len": 0})  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    step_ms = []
+    for i in (1, 2):
+        t0 = time.perf_counter()
+        logits, step_dev_ms = timed_once(lambda: full.decode_step(
+            params, caches, {"token": tok, "cache_len": i})[0])
+        step_ms.append({"device_events_ms": step_dev_ms,
+                        "host_ms": 1e3 * (time.perf_counter() - t0)})
+    cdec = counts()
+    toks = torch.from_numpy(rng.integers(1, vocab, LM_FULL_PREFILL)).to(dev)
+    reset()
+    pf_logits, pf_ms = timed_once(lambda: full.prefill(params, {"tokens": toks}))
+    cfull = counts()
+    for what, c, n_calls in (("decode", cdec, 2), ("prefill", cfull, 1)):
+        require(c == {"closed_form_tile": 7 * cfg.n_layers * n_calls,
+                      "closed_form_narrow": 0, "lut_tile": 0, "lut_narrow": 0},
+                f"full-depth {what} launches {c}")
+    require(logits.shape == (LM_BATCH, 1, vocab) and bool(torch.isfinite(logits).all())
+            and pf_logits.shape == (LM_FULL_PREFILL[0], 1, vocab)
+            and bool(torch.isfinite(pf_logits).all()), "full-depth logits")
+    emit("lm_full_depth_step", arch=LM_ARCH, layers=cfg.n_layers,
+         params=cfg.param_count(), batch=LM_BATCH, cache_len=[1, 2],
+         decode_step=step_ms, prefill={"tokens": list(LM_FULL_PREFILL),
+                                       "device_events_ms": pf_ms},
+         launches={"decode": cdec, "prefill": cfull}, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         card=card)
+    del params, caches, logits, pf_logits
+    torch.cuda.empty_cache()
+
+    # rows of the kernels line: each tile design at each LM shape
+    src = {"closed_form": ("approx_matmul", "src/repro_torch/csrc/approx_matmul.cu",
+                           "src/repro/kernels/approx_matmul/kernel.py:59",
+                           "closed_form_matmul", "proposed@8"),
+           "lut": ("lut_matmul", "src/repro_torch/csrc/lut_matmul.cu",
+                   "src/repro/kernels/lut_matmul/kernel.py:74", "lut_matmul",
+                   "exact")}
+    m_pf = LM_PREFILL[0] * LM_PREFILL[1]
+    # M = 8 rows: decode steps served by ServingEngine.generate (the main
+    # path); M = 256 rows: the prefill entry point, which the engine does not
+    # call (it prefills token by token through decode_step)
+    served, prefill = "ServingEngine.generate", "bundle.prefill"
+    launched = {("closed_form", LM_BATCH): (c2["closed_form_tile"],
+                                           "lm_serving_path", served),
+                ("closed_form", m_pf): (cpf["closed_form_tile"],
+                                       "lm_planned_path (prefill)", prefill),
+                ("lut", LM_BATCH): (cp["lut_tile"], "lm_planned_path", served),
+                ("lut", m_pf): (cpf["lut_tile"], "lm_planned_path (prefill)",
+                                prefill)}
+    rows, work = [], {}
+    for (m, site), r in shape_rows.items():
+        for kind, (_, source, tpu, name, key) in src.items():
+            b_ms, by = bound_ms(*r["work"][kind], INT8_TC_OPS_PER_S
+                                if kind == "lut" else INT32_OPS_PER_S)
+            n_launch, where, entry = launched[(kind, m)]
+            row_name = f"{name}[tile,{site},M={m}]"
+            rows.append({"name": row_name, "route": "cuda", "source": source,
+                         "replaces": tpu, "launches": n_launch,
+                         "max_abs_err": r["err"][kind],
+                         "ms": r["ms"][f"{kind}_tile"],
+                         "plain_ms": r["ms"][f"{kind}_plain"],
+                         "bound_ms": b_ms, "bound_by": by,
+                         "library_ms": r["ms"]["int_mm"] if kind == "lut" else None,
+                         "shape": [1, m, r["k"], r["n"]], "mult": key,
+                         "design": "tile", "launches_on": where,
+                         "entry_point": entry,
+                         "launches_per_layer_step_at_shape": r["per_layer_step"]})
+            work[row_name] = r["work"][kind]
+    return rows, work
 
 
 def main() -> int:
@@ -857,6 +1287,8 @@ def main() -> int:
          "plain_ms": am_plain_ms, "bound_ms": am_bound, "bound_by": am_by,
          "library_ms": None, "shape": list(am_a.shape), "mult": "proposed"},
     ]
+    lm_rows, lm_work = lm_phases(dev, card, out_dir, emit_trace)
+    kernels += lm_rows
     require(all(k["max_abs_err"] == 0 and k["launches"] > 0 for k in kernels),
             "every kernel exact and launched on its path")
     work = {"fused_conv2d[stencil]": (fc_bytes, fc_ops),
@@ -868,8 +1300,9 @@ def main() -> int:
             "closed_form_matmul[ring]": (mr_bytes, mr_ops),
             "closed_form_matmul[ring,narrow]": (mr_bytes, mr_ops),
             "lut_matmul": (lm_bytes, lm_ops), "lut_matmul[narrow]": (lm_bytes, lm_ops),
-            "approx_mul": (am_bytes, am_ops)}
+            "approx_mul": (am_bytes, am_ops), **lm_work}
     emit("kernel_times", card=card, int32_peak_ops_per_s=INT32_OPS_PER_S,
+         int8_tensor_core_peak_ops_per_s=INT8_TC_OPS_PER_S,
          hbm_bytes_per_s=HBM_BYTES_PER_S, tf32={
              "cudnn": torch.backends.cudnn.allow_tf32,
              "matmul": torch.backends.cuda.matmul.allow_tf32},

@@ -136,9 +136,9 @@ def closed_form_matmul(a: torch.Tensor, b: torch.Tensor,
         raise ValueError("operands must be tensors on one device")
     key = mult.canonical_key(mult_key)
     squeeze = a.dim() == 2
-    a3, b3 = blocking.as3(a, b)
     with trace_span("kernel.closed_form_matmul", "kernel", mult=key,
-                    m=a3.shape[1], k=a3.shape[2], n=b3.shape[2]):
+                    m=a.shape[-2], k=a.shape[-1], n=b.shape[-1]):
+        a3, b3 = blocking.as3(a, b)
         if a.device.type == "cpu":
             out = closed_form_matmul_plain(a3, b3, key)
         elif a.device.type == "cuda":

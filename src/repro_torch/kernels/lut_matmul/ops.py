@@ -185,9 +185,9 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor,
         raise ValueError("operands must be tensors on one device")
     n_bits = _check_table(table, a.device)
     squeeze = a.dim() == 2
-    a3, b3 = blocking.as3(a, b)
-    with trace_span("kernel.lut_matmul", "kernel", m=a3.shape[1],
-                    k=a3.shape[2], n=b3.shape[2]):
+    with trace_span("kernel.lut_matmul", "kernel", m=a.shape[-2],
+                    k=a.shape[-1], n=b.shape[-1]):
+        a3, b3 = blocking.as3(a, b)
         if a.device.type == "cpu":
             out = lut_matmul_plain(a3, b3, table)
         elif a.device.type == "cuda":

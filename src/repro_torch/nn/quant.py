@@ -57,7 +57,10 @@ def quantize(x: Tensor, axes: Sequence[int] | None = None,
     of shape (in, out), ``axes=(0,)`` gives a per-output-channel scale.
     """
     m = qmax(bits)
-    scale = _absmax(x, axes, eps) / m
+    absmax = _absmax(x, axes, eps)
+    # divide by a tensor: CUDA divides by a host scalar as a multiply by its
+    # reciprocal, up to an ulp off the true quotient that repro's scale is
+    scale = absmax / torch.full_like(absmax, m)
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -m, m)
     return Quantized(q.to(storage_dtype(bits)), scale)
 

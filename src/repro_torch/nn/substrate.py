@@ -60,6 +60,7 @@ from repro_torch.core import lut as lut_lib
 from repro_torch.core import multiplier as mult
 from repro_torch.kernels import build
 from repro_torch.nn import quant
+from repro_torch.obs.trace import trace_span
 
 Tensor = torch.Tensor
 
@@ -413,12 +414,14 @@ class _SubstrateBase:
                 f"QuantPolicy.bits={bits} exceeds the substrate operand "
                 f"width {self.meta.width} ({self.meta.spec}) — wider codes "
                 "would wrap in the narrower multiplier")
-        qa, sa = _quantize_operand(plan.lhs3(x), q.x_mode, q.x_scale,
-                                   contract_axis=2, bits=bits, eps=q.eps)
-        qb, sb = _quantize_operand(plan.rhs3(w), q.w_mode, q.w_scale,
-                                   contract_axis=1, bits=bits, eps=q.eps)
-        out3 = self._contract3(qa, qb).to(torch.float32) * (sa * sb)
-        return plan.unflatten(out3).to(x.dtype)
+        with trace_span("substrate.dot_general", "substrate",
+                        spec=self.meta.spec, site=spec.site):
+            qa, sa = _quantize_operand(plan.lhs3(x), q.x_mode, q.x_scale,
+                                       contract_axis=2, bits=bits, eps=q.eps)
+            qb, sb = _quantize_operand(plan.rhs3(w), q.w_mode, q.w_scale,
+                                       contract_axis=1, bits=bits, eps=q.eps)
+            out3 = self._contract3(qa, qb).to(torch.float32) * (sa * sb)
+            return plan.unflatten(out3).to(x.dtype)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"<{type(self).__name__} {self.meta.spec}>"

@@ -14,12 +14,13 @@ event list. Export surfaces:
   object per line (``tracer.add_sink(sink)``).
 
 A copy of ``repro.obs.trace``, with the same span names on the ported
-paths. Ambient installation: :func:`tracing_scope` installs a
-tracer *process-wide* — deliberately not thread-local, because serving
-work happens on batcher worker threads that never see the installing
-thread's locals — and :func:`trace_span` is the zero-overhead
-instrumentation point: with no tracer installed it returns a shared no-op
-context manager (one global read, no allocation).
+paths; an ambient span is also a ``torch.profiler.record_function`` range,
+which the profiler records when it runs. Ambient installation:
+:func:`tracing_scope` installs a tracer *process-wide* — deliberately not
+thread-local, because serving work happens on batcher worker threads that
+never see the installing thread's locals — and :func:`trace_span` is the
+zero-overhead instrumentation point: with no tracer installed it returns a
+shared no-op context manager (one global read, no allocation).
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ import json
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+import torch
 
 __all__ = ["Tracer", "JsonlSink", "tracing_scope", "current_tracer",
            "trace_span"]
@@ -225,8 +228,19 @@ def tracing_scope(tracer: Optional[Tracer]):
 
 
 def trace_span(name: str, cat: str = "", **attrs):
-    """Span on the ambient tracer; shared no-op when tracing is off."""
+    """Span on the ambient tracer; shared no-op when tracing is off.
+
+    Under a tracer the span is also a ``record_function`` range of the same
+    name, so where ``torch.profiler`` records, the device work launched
+    inside it is attributed to the span in the profiler's event tree.
+    """
     t = _ACTIVE
     if t is None:
         return _NULL_SPAN
-    return t.span(name, cat, **attrs)
+    return _span(t, name, cat, attrs)
+
+
+@contextlib.contextmanager
+def _span(t: Tracer, name: str, cat: str, attrs: dict):
+    with t.span(name, cat, **attrs), torch.profiler.record_function(name):
+        yield

@@ -1,12 +1,17 @@
-"""Dynamic micro-batching for one-shot requests.
+"""Scheduling core shared by LM and vision serving.
 
-A copy of the :class:`MicroBatcher` half of ``repro.serving.batcher`` (the
-LM's ``SlotScheduler`` comes with the LM slice): a thread-safe queue
-bucketed by an arbitrary key (shape buckets for vision), flushed when a
-bucket reaches ``max_batch_size`` or its oldest request has waited
-``max_wait_s``, drained by ``n_workers`` background worker threads. The
-vision :class:`~repro_torch.serving.edge_service.EdgeDetectService` runs on
-this.
+A copy of ``repro.serving.batcher``. Two primitives:
+
+* :class:`SlotScheduler` — fixed-slot continuous batching (a FIFO queue
+  feeding ``n_slots`` concurrent slots, refilled as requests finish). The LM
+  :class:`~repro_torch.serving.engine.ServingEngine` decode loop runs on
+  this.
+* :class:`MicroBatcher` — dynamic micro-batching for one-shot requests: a
+  thread-safe queue bucketed by an arbitrary key (shape buckets for vision),
+  flushed when a bucket reaches ``max_batch_size`` or its oldest request has
+  waited ``max_wait_s``, drained by ``n_workers`` background worker threads.
+  The vision :class:`~repro_torch.serving.edge_service.EdgeDetectService`
+  runs on this.
 
 Multi-worker pipeline: every worker loop pops flushable buckets from the
 shared queue under one condition variable, so with ``n_workers > 1`` batch
@@ -37,10 +42,67 @@ import collections
 import dataclasses
 import threading
 import time
-from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional
+from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, Tuple
 
 from repro_torch.obs.trace import current_tracer, trace_span
 from repro_torch.serving.metrics import ServingMetrics
+
+
+# ---------------------------------------------------------------------------
+# Fixed-slot continuous batching (LM decode)
+# ---------------------------------------------------------------------------
+
+
+class SlotScheduler:
+    """FIFO queue feeding a fixed pool of batch slots.
+
+    The pattern under continuous batching: a decode step advances every
+    occupied slot by one token; finished requests release their slot, which
+    is refilled from the queue on the next step. This class owns only the
+    queue/slot bookkeeping — the engine owns per-slot model state.
+    """
+
+    def __init__(self, n_slots: int):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        self.slots: List[Optional[Any]] = [None] * n_slots
+        self.queue: collections.deque = collections.deque()
+
+    @property
+    def n_slots(self) -> int:
+        return len(self.slots)
+
+    def submit(self, item: Any) -> None:
+        self.queue.append(item)
+
+    def extend(self, items: Iterable[Any]) -> None:
+        self.queue.extend(items)
+
+    def refill(self) -> List[Tuple[int, Any]]:
+        """Fill empty slots from the queue; returns (slot_idx, item) pairs
+        for the newly seated items."""
+        seated = []
+        for i, s in enumerate(self.slots):
+            if s is None and self.queue:
+                item = self.queue.popleft()
+                self.slots[i] = item
+                seated.append((i, item))
+        return seated
+
+    def release(self, idx: int) -> None:
+        self.slots[idx] = None
+
+    def occupied(self) -> List[Tuple[int, Any]]:
+        return [(i, s) for i, s in enumerate(self.slots) if s is not None]
+
+    @property
+    def occupancy(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    @property
+    def busy(self) -> bool:
+        """True while any slot is occupied or requests are still queued."""
+        return bool(self.queue) or any(s is not None for s in self.slots)
 
 
 # ---------------------------------------------------------------------------

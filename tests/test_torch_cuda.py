@@ -466,3 +466,82 @@ def test_uniform_service_launches_only_the_stencil_design(dev, spec):
     assert launched[0] > 0 and launched[0] == launched[1]
     for a, b in zip(outs["cpu"], outs["cuda"]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the LM path: the tile designs at minitron-8b's dense shapes
+# ---------------------------------------------------------------------------
+
+#: (K, N) of minitron-8b's dense layers: attn.wq/wo, attn.wk/wv, ffn.wg/wi,
+#: ffn.wo
+LM_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096)]
+
+
+@pytest.mark.parametrize("kn", LM_SHAPES, ids=[f"{k}x{n}" for k, n in LM_SHAPES])
+def test_tile_designs_at_the_lm_shapes(dev, kn):
+    """A decode step's (8 × K) @ (K × N) at int8 operand codes: both tile
+    kernels against their plain versions, every product and sum exact."""
+    k, n = kn
+    a = torch.from_numpy(RNG.integers(-127, 128, (1, 8, k)).astype(np.int8)).to(dev)
+    w = torch.from_numpy(RNG.integers(-127, 128, (1, k, n)).astype(np.int8)).to(dev)
+    before = (closed_form_matmul.launches.value, lut_matmul.launches.value)
+    got = closed_form_matmul(a, w, "proposed")
+    torch.testing.assert_close(got, closed_form_matmul_plain(
+        a.to(torch.int32), w.to(torch.int32), "proposed"), rtol=0, atol=0)
+    t = device_table("exact", dev)
+    got = lut_matmul(a, w, t)
+    want = lut_matmul_plain(a.to(torch.int32), w.to(torch.int32), t)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, torch.matmul(
+        a.double(), w.double()).to(torch.int32), rtol=0, atol=0)
+    assert (closed_form_matmul.launches.value, lut_matmul.launches.value) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("spec", ["int8", "approx_bitexact:proposed@8",
+                                  "approx_cuda:proposed@8", "approx_cuda:exact",
+                                  "approx_cuda:csp_axc1@6"])
+def test_dense_on_the_card_equals_the_cpu(dev, spec):
+    """The same float32 activations and weights: the same quantization codes
+    on both devices, so the same integers and the same float32 outputs."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry as reg
+
+    cfg = reg.get_config("minitron-8b", dot_plan=spec, dtype=torch.float32)
+    x = torch.from_numpy(RNG.normal(size=(2, 8, 64)).astype(np.float32))
+    w = torch.from_numpy((RNG.normal(size=(64, 128)) / 8).astype(np.float32))
+    want = cm.dense(cfg, x, w, site="wq")
+    got = cm.dense(cfg, x.to(dev), w.to(dev), site="wq")
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_serving_engine_on_the_card(dev):
+    """minitron-8b at a small width on the card, two workers on their own
+    streams: every request served, only tile launches (7 per layer-step),
+    and the first wave of worker 0 identical to a one-worker run."""
+    from repro_torch.models import registry as reg
+    from repro_torch.serving import Request, ServingEngine
+
+    bundle = reg.get_bundle("minitron-8b", n_layers=2, d_model=256, d_ff=512,
+                            vocab=512, n_heads=4, n_kv_heads=2)
+    params = bundle.init_params(torch.Generator(dev).manual_seed(0), dev)
+    prompts = [list(map(int, RNG.integers(1, 512, 4))) for _ in range(8)]
+
+    def serve(order, workers):
+        eng = ServingEngine(bundle, params, batch_size=4, max_len=32,
+                            substrate="approx_cuda:proposed@8")
+        reqs = [Request(prompt=prompts[i], max_tokens=4) for i in order]
+        before = (closed_form_matmul.launches.value,
+                  closed_form_matmul.narrow_launches.value)
+        eng.generate(reqs, workers=workers)
+        torch.cuda.synchronize()
+        steps = eng.metrics.batches_flushed
+        assert eng.metrics.requests_served == 8
+        assert eng.metrics.requests_failed == 0
+        assert closed_form_matmul.launches.value - before[0] == 7 * 2 * steps
+        assert closed_form_matmul.narrow_launches.value == before[1]
+        return {i: r.output for i, r in zip(order, reqs)}
+
+    two = serve(range(8), 2)
+    one = serve([0, 2, 4, 6, 1, 3, 5, 7], 1)
+    assert all(one[i] == two[i] for i in (0, 2, 4, 6))

@@ -1,8 +1,9 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or ``repro``; importing the port loads no
-JAX; and with no CUDA device the entry points raise instead of quietly
-running on the CPU (a tensor's device decides, an explicit ``device="cpu"``
-is the only way to the plain versions)."""
+"""The port stands alone: no file of ``src/repro_torch/`` (the model stack,
+configs, LM engine and launcher included) and not ``chip_smoke.py`` imports
+``jax`` or ``repro``; importing the port loads no JAX; and with no CUDA
+device the entry points raise instead of quietly running on the CPU (a
+tensor's device decides, an explicit ``device="cpu"`` is the only way to the
+plain versions)."""
 import ast
 import subprocess
 import sys
@@ -12,7 +13,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.serving import EdgeDetectService
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import registry as reg
+from repro_torch.serving import EdgeDetectService, ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -73,3 +76,32 @@ def test_build_without_nvcc_raises_and_leaves_no_library(tmp_path, monkeypatch):
         build.build(("fused_conv",))
     assert not list(tmp_path.glob("*.so"))
     assert build.library_path("fused_conv").name.startswith("libfused_conv_")
+
+
+LM_MODULES = ["configs", "models/common.py", "models/lm.py",
+              "models/registry.py", "models/convert.py", "serving/engine.py",
+              "obs/export.py", "launch/serve.py"]
+
+
+@pytest.mark.parametrize("rel", LM_MODULES)
+def test_lm_slice_modules_are_checked(rel):
+    """The LM slice's modules are among the files checked above."""
+    path = ROOT / "src" / "repro_torch" / rel
+    files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
+    assert files and all(f in PORT_FILES for f in files)
+    assert all(not (_imported_roots(f) & FORBIDDEN) for f in files)
+
+
+def test_serving_engine_and_launcher_default_to_cuda():
+    bundle = reg.get_bundle("minitron-8b", n_layers=1, d_model=32, d_ff=64,
+                            vocab=64, n_heads=2, n_kv_heads=2)
+    if torch.cuda.is_available():
+        params = bundle.init_params(torch.Generator("cuda").manual_seed(0),
+                                    "cuda")
+        assert ServingEngine(bundle, params).device.type == "cuda"
+        return
+    params = bundle.init_params(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(bundle, params)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launch_serve.main(["--arch", "minitron-8b", "--n-layers", "1"])
