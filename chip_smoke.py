@@ -23,15 +23,22 @@ the paths that take it (the closed form at width 12, a 7×7 kernel). Both
 designs of the fused conv and of the contraction kernels are checked and
 timed at the shapes the served paths give them.
 
-Then the LM path: minitron-8b at its published widths. Both tile designs
-are checked exactly against their plain versions (and ``torch._int_mm`` at
-``exact``) and timed at the dense layers' four (K, N) shapes, at M = 8 (a
-decode step at batch 8) and M = 256 (a prefill of 4 × 64 tokens). The
-model, cut to 4 layers, serves 16 requests through ``ServingEngine`` under
-``approx_cuda:proposed@8`` at 2 workers (only tile launches, 7 per
-layer-step; worker 0's first wave equal to a 1-worker run) and under a
-per-site plan (layer 0 on the exact table, the FFNs at csp_axc1@6), whose
-prefill of 4 × 64 tokens through ``bundle.prefill`` (M = 256; the engine
+Then the LM path: minitron-8b at its published widths. At the dense
+layers' four (K, N) shapes and M = 8 (a decode step at batch 8) the decode
+design of both contraction kernels (the whole int16 product table in shared
+memory) and the tensor design of ``lut_matmul`` (the ``exact`` product on
+the INT8 tensor cores) are checked exactly against their plain twins, the
+tile designs' plain versions and ``torch._int_mm``, and timed beside the
+tile designs and ``torch._int_mm``; at M = 256 (a prefill of 4 × 64
+tokens) the tile designs are, and the few-row designs must refuse the
+shape. The ``kernel="lut"`` substrate runs one decode layer-step's dense
+calls (``lut_matmul``'s decode design), bit for bit those of the closed
+form. The model, cut to 4 layers, serves 16 requests through
+``ServingEngine`` under ``approx_cuda:proposed@8`` at 2 workers (only
+decode launches, 7 per layer-step, no tile launch; worker 0's first wave
+equal to a 1-worker run) and under a per-site plan (layer 0 on the exact
+table: tensor launches; the FFNs at csp_axc1@6), whose prefill of 4 × 64
+tokens through ``bundle.prefill`` (M = 256: tile launches only; the engine
 prefills token by token) must equal the same plan on ``approx_lut``; one
 decode step's logits must equal, bit for bit, those of the plain substrates
 on the card; 4 decode steps are traced (``chiprun_out/
@@ -105,6 +112,13 @@ LM_SHAPES = {"attn.wq,wo": (4096, 4096, 2), "attn.wk,wv": (4096, 1024, 2),
 LM_SPANS = ("kernel.closed_form_matmul", "kernel.lut_matmul",
             "substrate.dot_general", "lm.attention", "lm.logits",
             "serve.decode_step")
+#: the contraction kernels and their output zeroing (ctypes launches, outside
+#: any torch op), attributed in a traced decode step by name
+LM_KERNELS_BY_NAME = {"decode design kernels (by name)": ("decode_matmul_kernel",),
+                      "tensor design kernel (by name)": ("exact_matmul_kernel",),
+                      "tile design kernels (by name)": ("approx_matmul_kernel",
+                                                        "lut_matmul_kernel"),
+                      "output memsets (by name)": ("Memset",)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -235,17 +249,20 @@ def device_ms_by_span(prof, spans) -> dict:
 
 
 def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
-    """The LM path: minitron-8b through ServingEngine on the tile designs of
-    both contraction kernels. Returns (rows of the kernels line, least work
-    by row name)."""
+    """The LM path: minitron-8b through ServingEngine, every M = 8 dense on
+    the decode design of ``approx_matmul`` (closed forms) or the tensor
+    design of ``lut_matmul`` (``exact``), the M = 256 prefill on the tile
+    designs. Returns (rows of the kernels line, least work by row name)."""
     import dataclasses
 
+    from repro_torch.kernels import blocking
     from repro_torch.kernels.approx_matmul import ops as am
     from repro_torch.kernels.approx_matmul.ops import (closed_form_matmul,
                                                        closed_form_matmul_plain)
     from repro_torch.kernels.lut_matmul import ops as lm
     from repro_torch.kernels.lut_matmul.ops import (device_table, lut_matmul,
                                                     lut_matmul_plain)
+    from repro_torch.models import common as mcommon
     from repro_torch.models import registry as reg
     from repro_torch.nn import plan as plan_mod
     from repro_torch.nn import substrate as sub
@@ -253,26 +270,39 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     from repro_torch.serving import Request, ServingEngine
     from torch.profiler import ProfilerActivity, profile
 
-    counters = (closed_form_matmul.launches, closed_form_matmul.narrow_launches,
-                lut_matmul.launches, lut_matmul.narrow_launches)
+    counters = {"closed_form_tile": closed_form_matmul.launches,
+                "closed_form_narrow": closed_form_matmul.narrow_launches,
+                "closed_form_decode": closed_form_matmul.decode_launches,
+                "lut_tile": lut_matmul.launches,
+                "lut_narrow": lut_matmul.narrow_launches,
+                "lut_decode": lut_matmul.decode_launches,
+                "lut_tensor": lut_matmul.tensor_launches}
 
     def reset():
-        for c in counters:
+        for c in counters.values():
             c.reset()
 
     def counts() -> dict:
         torch.cuda.synchronize()
-        return dict(zip(("closed_form_tile", "closed_form_narrow", "lut_tile",
-                         "lut_narrow"), (c.value for c in counters)))
+        return {name: c.value for name, c in counters.items()}
+
+    def only(**launched) -> dict:
+        """The counts a run must show: ``launched``, every other design 0."""
+        return {name: launched.get(name, 0) for name in counters}
 
     # -- lm_kernel_shapes: the dense operands of one decode step (M = 8) and
     # of one prefill of 4 x 64 tokens (M = 256), quantized as dense does
     cfg = reg.get_config(LM_ARCH)
     gen = torch.Generator(dev).manual_seed(1)
     t_exact = device_table("exact", dev)
+    t_prop = device_table("proposed@8", dev)  # kernel="lut" under proposed@8
+    require(torch.equal(am.closed_form_table16("proposed@8", dev).cpu(),
+                        am.closed_form_table16("proposed@8", "cpu")),
+            "the decode table built on the card differs from the closed form")
     q = sub.QuantPolicy()
     shape_rows: dict = {}
     for m in (LM_BATCH, LM_PREFILL[0] * LM_PREFILL[1]):
+        decode = m <= blocking.DECODE_MAX_M
         for site, (k, n, per_step) in LM_SHAPES.items():
             x = torch.randn((1, m, k), generator=gen, device=dev).to(cfg.dtype)
             w = (torch.randn((1, k, n), generator=gen, device=dev)
@@ -280,45 +310,112 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
             qa, _ = sub._quantize_operand(x, q.x_mode, None, 2, 8, q.eps)
             qb, _ = sub._quantize_operand(w, q.w_mode, None, 1, 8, q.eps)
             a32, b32 = qa.to(torch.int32), qb.to(torch.int32)
-            iters = 10 if m == LM_BATCH else 3
+            iters = 10 if decode else 3
             cf_plain, cf_plain_ms = timed_once(
                 lambda: closed_form_matmul_plain(a32, b32, "proposed@8"))
             lut_plain, lut_plain_ms = timed_once(
                 lambda: lut_matmul_plain(a32, b32, t_exact))
-            cf_err = max_abs_err(am._launch(a32, b32, "proposed@8",
-                                            design="tile"), cf_plain)
-            lut_tile = lm._launch(a32, b32, t_exact, 8, design="tile")
-            lut_err = max_abs_err(lut_tile, lut_plain)
+            err = {"closed_form_tile": max_abs_err(am._launch(
+                       qa, qb, "proposed@8", design="tile"), cf_plain),
+                   "lut_tile": max_abs_err(lm._launch(
+                       qa, qb, t_exact, 8, design="tile"), lut_plain)}
             # torch._int_mm: int8 x int8 -> int32, exact (the exact wiring's
             # product), M zero-padded to its shape rule where below it
             a2 = qa[0]
             if m < INT_MM_MIN_M:
                 a2 = F.pad(a2, (0, 0, 0, INT_MM_MIN_M - m))
             b2 = qb[0].contiguous()
-            lib_err = max_abs_err(torch._int_mm(a2, b2)[:m], lut_tile[0])
-            require(cf_err == 0 and lut_err == 0 and lib_err == 0,
-                    f"tile designs at ({m} x {k}) @ ({k} x {n}): closed form "
-                    f"{cf_err}, lut {lut_err}, _int_mm {lib_err}")
+            err["int_mm"] = max_abs_err(torch._int_mm(a2, b2)[:m], lut_plain[0])
             ms = {"closed_form_tile": time_ms(lambda: am._launch(
-                      a32, b32, "proposed@8", design="tile"), iters=iters),
+                      qa, qb, "proposed@8", design="tile"), iters=iters),
                   "lut_tile": time_ms(lambda: lm._launch(
-                      a32, b32, t_exact, 8, design="tile"), iters=iters),
+                      qa, qb, t_exact, 8, design="tile"), iters=iters),
                   "int_mm": time_ms(lambda: torch._int_mm(a2, b2), iters=iters),
-                  "closed_form_plain": cf_plain_ms, "lut_plain": lut_plain_ms}
-            cf_work = contraction_work(m, k, n)
-            lut_work = exact_contraction_work(m, k, n)
+                  "closed_form_tile_plain": cf_plain_ms,
+                  "lut_tile_plain": lut_plain_ms}
+            if decode:
+                # the served designs, through the public entry points that
+                # dense calls, on the int8 codes as dense hands them over;
+                # each against its plain twin, the tile design's plain
+                # version and (tensor) torch._int_mm
+                t16 = am.closed_form_table16("proposed@8", dev)
+                dec_plain, ms["closed_form_decode_plain"] = timed_once(
+                    lambda: blocking.decode_matmul_plain(qa, qb, t16, 8))
+                ten_plain, ms["lut_tensor_plain"] = timed_once(
+                    lambda: blocking.tensor_matmul_plain(qa, qb))
+                ldec_plain, ms["lut_decode_plain"] = timed_once(
+                    lambda: blocking.decode_matmul_plain(qa, qb, lm.table16(t_prop), 8))
+                reset()
+                got = {"closed_form_decode": closed_form_matmul(qa, qb, "proposed@8"),
+                       "lut_tensor": lut_matmul(qa, qb, t_exact),
+                       "lut_decode": lm._launch(qa, qb, t_prop, 8, design="decode")}
+                require(counts() == only(closed_form_decode=1, lut_tensor=1,
+                                         lut_decode=1),
+                        f"M = {m} at {site}: designs launched {counts()}")
+                err["closed_form_decode"] = max(
+                    max_abs_err(got["closed_form_decode"], dec_plain),
+                    max_abs_err(got["closed_form_decode"], cf_plain))
+                err["lut_tensor"] = max(max_abs_err(got["lut_tensor"], ten_plain),
+                                        max_abs_err(got["lut_tensor"], lut_plain),
+                                        max_abs_err(got["lut_tensor"][0],
+                                                    torch._int_mm(a2, b2)[:m]))
+                err["lut_decode"] = max(max_abs_err(got["lut_decode"], ldec_plain),
+                                        max_abs_err(got["lut_decode"], cf_plain))
+                ms["closed_form_decode"] = time_ms(
+                    lambda: closed_form_matmul(qa, qb, "proposed@8"), iters=iters)
+                ms["lut_tensor"] = time_ms(lambda: lut_matmul(qa, qb, t_exact),
+                                           iters=iters)
+                ms["lut_decode"] = time_ms(lambda: lm._launch(
+                    qa, qb, t_prop, 8, design="decode"), iters=iters)
+                del got, dec_plain, ten_plain, ldec_plain
+            else:  # no fallback: the few-row designs refuse the prefill's M
+                for fn in (lambda: am._launch(qa, qb, "proposed@8", design="decode"),
+                           lambda: lm._launch(qa, qb, t_exact, 8, design="tensor"),
+                           lambda: lm._launch(qa, qb, t_prop, 8, design="decode")):
+                    try:
+                        fn()
+                    except ValueError:
+                        continue
+                    require(False, f"a few-row design took M = {m}")
+            require(set(err.values()) == {0},
+                    f"designs at ({m} x {k}) @ ({k} x {n}): {err}")
+            work = {"closed_form": contraction_work(m, k, n),
+                    "lut": exact_contraction_work(m, k, n)}
             shape_rows[(m, site)] = {"k": k, "n": n, "per_layer_step": per_step,
-                                     "ms": ms, "work": {"closed_form": cf_work,
-                                                        "lut": lut_work},
-                                     "err": {"closed_form": cf_err, "lut": lut_err}}
+                                     "ms": ms, "work": work, "err": err}
             emit("lm_kernel_shapes", m=m, site=site, shape=[1, m, k, n],
-                 max_abs_err={"closed_form_tile": cf_err, "lut_tile": lut_err,
-                              "int_mm": lib_err}, tolerance=0, ms=ms,
+                 operands="int8 codes", max_abs_err=err, tolerance=0, ms=ms,
                  int_mm_rows=a2.shape[0],
-                 bound_ms={"closed_form": bound_ms(*cf_work)[0],
-                           "lut": bound_ms(*lut_work, INT8_TC_OPS_PER_S)[0]})
-            del x, w, qa, qb, a32, b32, cf_plain, lut_plain, lut_tile, a2, b2
+                 bound_ms={"closed_form": bound_ms(*work["closed_form"])[0],
+                           "lut": bound_ms(*work["lut"], INT8_TC_OPS_PER_S)[0]})
+            del x, w, qa, qb, a32, b32, cf_plain, lut_plain, a2, b2
     torch.cuda.empty_cache()
+
+    # -- lm_lut_kernel_path: the kernel="lut" substrate (the product table
+    # instead of the closed form; not reachable from a spec string, so not
+    # from ServingEngine) at the dense shapes of one decode layer-step, its
+    # outputs bit for bit those of the closed-form substrate
+    lut_sub = sub.CudaSubstrate("proposed@8", kernel="lut")
+    cf_sub = sub.get_substrate("approx_cuda:proposed@8")
+    cspec = sub.ContractionSpec.matmul(quant=mcommon._DENSE_QUANT)
+    lut_same = True
+    reset()
+    for site, (k, n, per_step) in LM_SHAPES.items():
+        x = torch.randn((LM_BATCH, 1, k), generator=gen, device=dev).to(cfg.dtype)
+        w = (torch.randn((k, n), generator=gen, device=dev) / k ** 0.5).to(cfg.dtype)
+        for _ in range(per_step):
+            got = lut_sub.dot_general(x, w, cspec)
+            lut_same &= torch.equal(got.view(torch.int16),
+                                    cf_sub.dot_general(x, w, cspec).view(torch.int16))
+    c_lut = counts()
+    require(c_lut == only(lut_decode=7, closed_form_decode=7),
+            f"kernel='lut' layer-step launches {c_lut}")
+    require(lut_same, "the kernel='lut' substrate differs from the closed form")
+    emit("lm_lut_kernel_path", substrate="CudaSubstrate('proposed@8', kernel='lut')",
+         entry_point="CudaSubstrate.dot_general", batch=LM_BATCH, dense_calls=7,
+         launches=c_lut, bit_identical_to="approx_cuda:proposed@8",
+         bit_identical=lut_same)
+    del x, w, got
 
     # -- lm_serving_path: minitron-8b at its published widths, depth cut
     bundle = reg.get_bundle(LM_ARCH, n_layers=LM_LAYERS)
@@ -366,8 +463,8 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     reduced = {"n_layers": [bundle.cfg.n_layers, cfg.n_layers]}
     reqs2, c2, r2 = serve("approx_cuda:proposed@8", range(LM_REQUESTS), 2)
     steps = r2["decode_steps"]
-    require(c2 == {"closed_form_tile": 7 * LM_LAYERS * steps,
-                   "closed_form_narrow": 0, "lut_tile": 0, "lut_narrow": 0},
+    # M = 8 steps: only decode launches, 7 per layer-step, no tile launch
+    require(c2 == only(closed_form_decode=7 * LM_LAYERS * steps),
             f"lm serving launches {c2} over {steps} steps")
     # workers=1 with the requests of worker 0 first: its first wave seats
     # the same requests in the same slots as worker 0 did
@@ -383,18 +480,18 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
          substrate="approx_cuda:proposed@8", batch=LM_BATCH,
          requests=LM_REQUESTS, prompt_tokens=LM_PROMPT, max_tokens=LM_PROMPT,
          workers_2=r2, workers_1=r1, launches=c2,
-         launches_expected="7 x layers x decode steps",
+         launches_expected="7 decode launches x layers x decode steps",
          first_wave_identical=same, card=card)
 
     # -- lm_planned_path: layer 0 on the exact table, FFNs at csp_axc1@6
     reqs_p, cp, rp = serve(LM_PLAN, range(LM_REQUESTS), 2)
     sp = rp["decode_steps"]
-    require(cp == {"closed_form_tile": 7 * (LM_LAYERS - 1) * sp,
-                   "closed_form_narrow": 0, "lut_tile": 7 * sp,
-                   "lut_narrow": 0}, f"lm planned launches {cp} over {sp} steps")
+    require(cp == only(closed_form_decode=7 * (LM_LAYERS - 1) * sp,
+                       lut_tensor=7 * sp),
+            f"lm planned launches {cp} over {sp} steps")
     # one prefill of 4 x 64 tokens under the plan through the prefill entry
     # point (ServingEngine prefills through decode_step): M = 256 on both
-    # kernels, the logits bit for bit those of the table substrate's plan
+    # tile designs, the logits bit for bit those of the table substrate's plan
     def planned(plan):
         return reg.build_bundle(dataclasses.replace(
             bundle.cfg, dot_plan=plan_mod.as_plan(plan)))
@@ -405,8 +502,8 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     (logits_pf, prefill_ms) = timed_once(
         lambda: pbundle.prefill(params, {"tokens": toks}))
     cpf = counts()
-    require(cpf == {"closed_form_tile": 7 * (LM_LAYERS - 1), "closed_form_narrow": 0,
-                    "lut_tile": 7, "lut_narrow": 0}, f"planned prefill {cpf}")
+    require(cpf == only(closed_form_tile=7 * (LM_LAYERS - 1), lut_tile=7),
+            f"planned prefill {cpf}")
     table_pf, table_pf_ms = timed_once(
         lambda: planned(LM_PLAN_TABLE).prefill(params, {"tokens": toks}))
     pf_same = logits_pf.shape == (LM_PREFILL[0], 1, vocab) \
@@ -435,15 +532,21 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     for kern, plain in (("approx_cuda:proposed@8", "approx_bitexact:proposed@8"),
                         ("approx_cuda:exact", "approx_lut:exact"),
                         (LM_PLAN, LM_PLAN_PLAIN)):
-        a, (b, plain_ms) = step_logits(kern), timed_once(lambda: step_logits(plain))
+        reset()
+        a = step_logits(kern)
+        c_step = counts()
+        b, plain_ms = timed_once(lambda: step_logits(plain))
         same = bool(torch.isfinite(a).all()) and torch.equal(
             a.view(torch.int32), b.view(torch.int32))
         name = kern if isinstance(kern, str) else "lm_plan"
         identity[name] = {"against": plain if isinstance(plain, str)
                           else "lm_plan on approx_bitexact / approx_lut",
-                          "bit_identical": same,
+                          "bit_identical": same, "launches": c_step,
                           "plain_step_ms": plain_ms}
         require(same, f"lm logits {name} differ from {identity[name]['against']}")
+        require(c_step["closed_form_tile"] == c_step["lut_tile"] == 0
+                and c_step["closed_form_decode"] + c_step["lut_tensor"]
+                == 7 * LM_LAYERS, f"lm_bit_identity {name} launches {c_step}")
     emit("lm_bit_identity", reduced=reduced, decode_steps=1, batch=LM_BATCH,
          logits_shape=list(a.shape), cases=identity)
     del a, b, logits_pf
@@ -456,27 +559,40 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     eng.metrics.reset()
     tracer = Tracer()
     treqs = [Request(prompt=prompts[i][:2], max_tokens=3) for i in range(LM_BATCH)]
+    reset()
     with tracing_scope(tracer), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.generate(treqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    n_steps = eng.metrics.batches_flushed
+    c_trace = counts()
+    require(c_trace == only(closed_form_decode=7 * LM_LAYERS * n_steps),
+            f"lm trace launches {c_trace} over {n_steps} steps")
     trace_path = out_dir / "chip_smoke_lm_trace.json"
     prof.export_chrome_trace(str(trace_path))
-    n_steps = eng.metrics.batches_flushed
-    emit_trace("lm_trace", trace_path, {"wall_s": wall, "decode_steps": n_steps},
-               tracer)
+    emit_trace("lm_trace", trace_path, {"wall_s": wall, "decode_steps": n_steps,
+                                        "launches": c_trace}, tracer)
     busy_us, by_name = device_busy(trace_path)
+    # the host's kernel launches in the traced steps (runtime API calls)
+    host_launches = sum(
+        1 for e in json.loads(trace_path.read_text()).get("traceEvents", [])
+        if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+        and e.get("name", "").startswith("cudaLaunchKernel"))
     split = device_ms_by_span(prof, LM_SPANS)
-    split["tile kernels (by name)"] = sum(
-        v for k, v in by_name.items() if "matmul_kernel" in k) / 1e3
+    for label, markers in LM_KERNELS_BY_NAME.items():
+        split[label] = sum(v for name, v in by_name.items()
+                           if any(mk in name for mk in markers)) / 1e3
     emit("lm_trace_split", decode_steps=n_steps,
          device_ms_per_step={k: v / n_steps for k, v in split.items()},
          device_busy_ms_per_step=busy_us / 1e3 / n_steps,
          unattributed_ms_per_step=(busy_us / 1e3 - sum(split.values())) / n_steps,
          wall_ms_per_step=1e3 * wall / n_steps,
-         spans={"kernel.*": "int32 casts (blocking.as3)",
+         kernel_launches_per_step=host_launches / n_steps,
+         dense_calls_per_step=7 * LM_LAYERS,
+         spans={"kernel.*": "the contraction wrappers' own torch ops (the "
+                            "int32 casts of the designs that take int32)",
                 "substrate.dot_general": "quantization and rescale",
                 "lm.attention": "attention", "lm.logits": "lm_logits",
                 "serve.decode_step": "the rest: embedding, norms, rope, "
@@ -504,10 +620,10 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     reset()
     pf_logits, pf_ms = timed_once(lambda: full.prefill(params, {"tokens": toks}))
     cfull = counts()
-    for what, c, n_calls in (("decode", cdec, 2), ("prefill", cfull, 1)):
-        require(c == {"closed_form_tile": 7 * cfg.n_layers * n_calls,
-                      "closed_form_narrow": 0, "lut_tile": 0, "lut_narrow": 0},
-                f"full-depth {what} launches {c}")
+    require(cdec == only(closed_form_decode=7 * cfg.n_layers * 2),
+            f"full-depth decode launches {cdec}")
+    require(cfull == only(closed_form_tile=7 * cfg.n_layers),
+            f"full-depth prefill launches {cfull}")
     require(logits.shape == (LM_BATCH, 1, vocab) and bool(torch.isfinite(logits).all())
             and pf_logits.shape == (LM_FULL_PREFILL[0], 1, vocab)
             and bool(torch.isfinite(pf_logits).all()), "full-depth logits")
@@ -520,44 +636,60 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     del params, caches, logits, pf_logits
     torch.cuda.empty_cache()
 
-    # rows of the kernels line: each tile design at each LM shape
-    src = {"closed_form": ("approx_matmul", "src/repro_torch/csrc/approx_matmul.cu",
-                           "src/repro/kernels/approx_matmul/kernel.py:59",
-                           "closed_form_matmul", "proposed@8"),
-           "lut": ("lut_matmul", "src/repro_torch/csrc/lut_matmul.cu",
-                   "src/repro/kernels/lut_matmul/kernel.py:74", "lut_matmul",
-                   "exact")}
+    # rows of the kernels line: each design of each kernel at each LM shape
+    # it runs. M = 8 rows count ServingEngine's launches (the main path;
+    # kernel="lut" rows CudaSubstrate.dot_general's), where the tile
+    # designs must show 0; M = 256 rows count the prefill entry point's,
+    # which the engine does not call (it prefills token by token)
+    kinds = {"closed_form": ("closed_form_matmul", "src/repro_torch/csrc/approx_matmul.cu",
+                             "src/repro/kernels/approx_matmul/kernel.py:59",
+                             "proposed@8", "closed_form"),
+             "lut": ("lut_matmul", "src/repro_torch/csrc/lut_matmul.cu",
+                     "src/repro/kernels/lut_matmul/kernel.py:74", "exact", "lut"),
+             "lut_kernel": ("lut_matmul", "src/repro_torch/csrc/lut_matmul.cu",
+                            "src/repro/kernels/lut_matmul/kernel.py:74",
+                            "proposed@8", "closed_form")}
     m_pf = LM_PREFILL[0] * LM_PREFILL[1]
-    # M = 8 rows: decode steps served by ServingEngine.generate (the main
-    # path); M = 256 rows: the prefill entry point, which the engine does not
-    # call (it prefills token by token through decode_step)
-    served, prefill = "ServingEngine.generate", "bundle.prefill"
-    launched = {("closed_form", LM_BATCH): (c2["closed_form_tile"],
-                                           "lm_serving_path", served),
-                ("closed_form", m_pf): (cpf["closed_form_tile"],
-                                       "lm_planned_path (prefill)", prefill),
-                ("lut", LM_BATCH): (cp["lut_tile"], "lm_planned_path", served),
-                ("lut", m_pf): (cpf["lut_tile"], "lm_planned_path (prefill)",
-                                prefill)}
+    served, prefill, lut_entry = ("ServingEngine.generate", "bundle.prefill",
+                                  "CudaSubstrate.dot_general")
+    # (kind, design, M) -> (key of ms/err, launches, phase, entry point)
+    designs = {
+        ("closed_form", "decode", LM_BATCH): ("closed_form_decode",
+            c2["closed_form_decode"], "lm_serving_path", served),
+        ("closed_form", "tile", LM_BATCH): ("closed_form_tile",
+            c2["closed_form_tile"], "lm_serving_path (must be 0)", served),
+        ("closed_form", "tile", m_pf): ("closed_form_tile",
+            cpf["closed_form_tile"], "lm_planned_path (prefill)", prefill),
+        ("lut", "tensor", LM_BATCH): ("lut_tensor", cp["lut_tensor"],
+                                      "lm_planned_path", served),
+        ("lut", "tile", LM_BATCH): ("lut_tile", cp["lut_tile"],
+                                    "lm_planned_path (must be 0)", served),
+        ("lut", "tile", m_pf): ("lut_tile", cpf["lut_tile"],
+                                "lm_planned_path (prefill)", prefill),
+        ("lut_kernel", "decode", LM_BATCH): ("lut_decode", c_lut["lut_decode"],
+                                             "lm_lut_kernel_path", lut_entry)}
     rows, work = [], {}
     for (m, site), r in shape_rows.items():
-        for kind, (_, source, tpu, name, key) in src.items():
-            b_ms, by = bound_ms(*r["work"][kind], INT8_TC_OPS_PER_S
-                                if kind == "lut" else INT32_OPS_PER_S)
-            n_launch, where, entry = launched[(kind, m)]
-            row_name = f"{name}[tile,{site},M={m}]"
+        for (kind, design, dm), (key_, n_launch, where, entry) in designs.items():
+            if dm != m:
+                continue
+            name, source, tpu, mult_key, work_kind = kinds[kind]
+            ops_rate = INT8_TC_OPS_PER_S if work_kind == "lut" else INT32_OPS_PER_S
+            b_ms, by = bound_ms(*r["work"][work_kind], ops_rate)
+            row_name = f"{name}[{design},{site},M={m}]"
+            if kind == "lut_kernel":
+                row_name = f"{name}[{design},{site},M={m},proposed@8]"
             rows.append({"name": row_name, "route": "cuda", "source": source,
                          "replaces": tpu, "launches": n_launch,
-                         "max_abs_err": r["err"][kind],
-                         "ms": r["ms"][f"{kind}_tile"],
-                         "plain_ms": r["ms"][f"{kind}_plain"],
+                         "max_abs_err": r["err"][key_], "ms": r["ms"][key_],
+                         "plain_ms": r["ms"][f"{key_}_plain"],
                          "bound_ms": b_ms, "bound_by": by,
                          "library_ms": r["ms"]["int_mm"] if kind == "lut" else None,
-                         "shape": [1, m, r["k"], r["n"]], "mult": key,
-                         "design": "tile", "launches_on": where,
-                         "entry_point": entry,
+                         "shape": [1, m, r["k"], r["n"]], "mult": mult_key,
+                         "design": design, "launches_on": where,
+                         "entry_point": entry, "off_path": "must be 0" in where,
                          "launches_per_layer_step_at_shape": r["per_layer_step"]})
-            work[row_name] = r["work"][kind]
+            work[row_name] = r["work"][work_kind]
     return rows, work
 
 
@@ -1289,7 +1421,10 @@ def main() -> int:
     ]
     lm_rows, lm_work = lm_phases(dev, card, out_dir, emit_trace)
     kernels += lm_rows
-    require(all(k["max_abs_err"] == 0 and k["launches"] > 0 for k in kernels),
+    # every row exact; launched on its path, except the tile designs at the
+    # decode step's M = 8, which the served path must not launch at all
+    require(all(k["max_abs_err"] == 0 and (k["launches"] == 0 if k.get("off_path")
+                                           else k["launches"] > 0) for k in kernels),
             "every kernel exact and launched on its path")
     work = {"fused_conv2d[stencil]": (fc_bytes, fc_ops),
             "fused_conv2d": (fc_bytes, fc_ops),

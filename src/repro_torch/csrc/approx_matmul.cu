@@ -1,4 +1,4 @@
-// Batched contraction under the CSP approximate multiplier, two designs.
+// Batched contraction under the CSP approximate multiplier, three designs.
 //
 // Replaces the TPU kernel src/repro/kernels/approx_matmul/kernel.py,
 // approx_matmul_pallas (body _matmul_kernel): (B,M,K) @ (B,K,N) int32 where
@@ -10,31 +10,39 @@
 // values per launch, as the conv path's (K x 1) tap column, the least work is
 // a table read per product, and the bytes of A and C bound it. The wrapper
 // (kernels/approx_matmul/ops.py) picks the design from the shape and width
-// alone (kernels/blocking.py, narrow_design):
+// alone (kernels/blocking.py, narrow_design, decode_design), in this order:
 //
-// * narrow (N <= 8, K <= 16, width <= 8; every shape the served paths give
+// * narrow (N <= 8, K <= 16, width <= 8; every shape the edge paths give
 //   it): cf_columns_kernel evaluates the closed form once per (coefficient,
 //   operand) pair, B*K*N*2^n products, into int16 columns, and
 //   narrow_contract.cuh streams the rows against them: one shared-memory
 //   gather per product, so the bytes of A and C bound it.
-// * tile (wider N, longer K, widths 9..16): 16x16 output tiles, one thread
-//   per output, A/B k-slabs of 16 staged in shared memory, grid (M-tiles,
-//   N-tiles, B) -- M on grid x, beyond the 65535 limit of grid y. It
-//   evaluates the generic closed form for each of the M*N*K products (on the
-//   order of a hundred integer operations each), so INT32 ALU throughput
-//   bounds it. Ragged M/N/K are bounds-checked.
+// * decode (M <= 16, width <= 8, any other K and N; every dense layer of an
+//   LM decode step): cf_table_kernel (closed_form.cuh) evaluates the closed
+//   form once for each of the 2^(2n) operand pairs into an int16 table, once
+//   per (wiring, device), and decode_contract.cuh gathers every product from
+//   that table in shared memory, reading each int8 weight code once for all
+//   M rows. INT32 operations (a gather and an add per product) bound it.
+// * tile (M > 16 at wider N or longer K, widths 9..16): 16x16 output
+//   tiles, one thread per output, A/B k-slabs of 16 staged in shared
+//   memory, grid (M-tiles, N-tiles, B) -- M on grid x, beyond the 65535
+//   limit of grid y. It evaluates the generic closed form for each of the
+//   M*N*K products (on the order of a hundred integer operations each), so
+//   INT32 ALU throughput bounds it. Ragged M/N/K are bounds-checked.
 //
 // K tail of the tile design: the *product* is masked, not the operand. A
 // zero operand gives f(0,0), which is 192 for proposed@8, so zero-filled
 // slab entries must never be multiplied into the sum; the JAX wrapper
 // instead pads and subtracts f00 * pad_k (blocking.pad_crop_correct). Both
-// give the same integers. The narrow design has no K slab and no K tail.
+// give the same integers. The narrow and decode designs have no K slab and
+// no K tail.
 
 #include <cuda_runtime.h>
 
 #include <cstring>
 
 #include "closed_form.cuh"
+#include "decode_contract.cuh"
 #include "narrow_contract.cuh"
 
 #define MM_TILE 16
@@ -113,4 +121,34 @@ extern "C" int approx_matmul_narrow_launch(const void* a, const void* b,
   return static_cast<int>(narrow_contract(
       static_cast<const int32_t*>(a), static_cast<const int16_t*>(cols),
       static_cast<int32_t*>(c), B, M, K, N, n, s));
+}
+
+// The decode design's product table: table, 2^(2n) int16 on the card, is
+// written with f(xa - 2^(n-1), xb - 2^(n-1)) at xa << n | xb. params:
+// CF_PARAM_LEN host int32, its width n <= 8. Returns cudaGetLastError().
+extern "C" int approx_matmul_table_launch(void* table, const void* params,
+                                          void* stream) {
+  CFParams cf;
+  std::memcpy(cf.p, params, sizeof(cf.p));
+  const int n = cf.p[0];
+  if (n < 1 || n > DC_MAX_BITS) return static_cast<int>(cudaErrorInvalidValue);
+  const int entries = 1 << (2 * n);
+  cf_table_kernel<<<(entries + 255) / 256, 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int16_t*>(table), cf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The decode design. a: contiguous (B, M, K) int8 codes, b: (B, K, N) int8
+// codes, c: (B, M, N) int32, table: the 2^(2n) int16 table that
+// approx_matmul_table_launch wrote, all on the card. Contract in
+// decode_contract.cuh. Returns cudaGetLastError() or the contract's error.
+extern "C" int approx_matmul_decode_launch(const void* a, const void* b,
+                                           const void* table, void* c, int B,
+                                           int M, int K, int N, int n_bits,
+                                           void* stream) {
+  return static_cast<int>(decode_contract(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+      static_cast<const int16_t*>(table), static_cast<int32_t*>(c), B, M, K, N,
+      n_bits, static_cast<cudaStream_t>(stream)));
 }

@@ -15,7 +15,9 @@
 // below writes 2^n products per coefficient into an int16 column, and the
 // served designs read one column entry per product from shared memory
 // (approx_matmul.cu's narrow design through narrow_contract.cuh,
-// fused_conv.cu's stencil design). Only the generic designs (approx_matmul's
+// fused_conv.cu's stencil design), and cf_table_kernel writes the whole
+// 2^(2n)-entry product table once per wiring for approx_matmul.cu's decode
+// design (decode_contract.cuh). Only the generic designs (approx_matmul's
 // tile design, fused_conv's generic kernel: widths 9..16, wide shapes, large
 // conv kernels) still evaluate it once per product. All
 // arithmetic is on uint32 so that the int32 ring's wraparound is defined in
@@ -99,6 +101,19 @@ __global__ void cf_columns_kernel(const int32_t* __restrict__ b,
   const int n = cf.p[0];
   const int32_t x = static_cast<int32_t>(e & ((1 << n) - 1)) - (1 << (n - 1));
   cols[e] = static_cast<int16_t>(cf_product(x, b[e >> n], cf));
+}
+
+// table[e] = f(xa - 2^(n-1), xb - 2^(n-1)) with xa = e >> n, xb = e & (2^n - 1):
+// the decode design's int16 product table (n <= 8), row-major in the first
+// operand as core.lut.flat_lut lays it out.
+__global__ void cf_table_kernel(int16_t* __restrict__ table,
+                                const CFParams cf) {
+  const int n = cf.p[0];
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (1 << (2 * n))) return;
+  const int off = 1 << (n - 1);
+  table[e] = static_cast<int16_t>(
+      cf_product((e >> n) - off, (e & ((1 << n) - 1)) - off, cf));
 }
 
 }  // namespace

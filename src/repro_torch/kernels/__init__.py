@@ -10,16 +10,19 @@
   closed form (``csrc/approx_matmul.cu``);
 * ``lut_matmul`` — the same with every product read from a product table
   (``csrc/lut_matmul.cu``); both contractions have a narrow design
-  (``csrc/narrow_contract.cuh``) and a tile design, picked by
-  ``blocking.narrow_design``;
+  (``csrc/narrow_contract.cuh``), a decode design for few rows
+  (``csrc/decode_contract.cuh``) and a tile design, and ``lut_matmul`` a
+  tensor design for the exact product (INT8 tensor cores), picked by
+  ``blocking.narrow_design``, ``tensor_design`` and ``decode_design``;
 * ``approx_mul`` — the elementwise proposed@8 product
   (``csrc/approx_mul.cu``);
 * ``build`` — nvcc build, ctypes loading and launch counters;
-* ``blocking`` — the pad / crop / f(0,0) contract, the narrow design's
-  dispatch rule and its plain twin.
+* ``blocking`` — the pad / crop / f(0,0) contract, the contraction
+  designs' dispatch rules and their plain twins.
 
 A wrapper runs its kernel for a CUDA tensor and its plain version for a CPU
 tensor; ``<wrapper>.launches`` counts kernel launches (per design or kind:
-``.narrow_launches``, ``fused_conv2d.lut_launches``,
+``.narrow_launches``, ``.decode_launches``, ``lut_matmul.tensor_launches``,
+``fused_conv2d.lut_launches``,
 ``fused_conv2d.stencil_launches``).
 """

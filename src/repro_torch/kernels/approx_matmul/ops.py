@@ -8,12 +8,16 @@ and an exact int32-ring sum:
 * a CUDA tensor launches a hand-written kernel (they replace the TPU kernel
   ``repro/kernels/approx_matmul/kernel.py``, ``approx_matmul_pallas``;
   designs and bounds in the source's header) or raises — there is no
-  fallback. :func:`~repro_torch.kernels.blocking.narrow_design` picks the
-  design from the shape and width: the *narrow* design (N ≤ 8, K ≤ 16,
-  width ≤ 8: every shape the served paths give it) tabulates the closed
-  form per coefficient (:func:`closed_form_columns`) and streams the rows
-  against those columns; the *tile* design (16×16 output tiles, the batch
-  as grid z) takes every other shape. The narrow design needs 16-byte
+  fallback. The shape and width pick the design, in this order
+  (``kernels.blocking``): the *narrow* design (N ≤ 8, K ≤ 16, width ≤ 8:
+  every shape the edge paths give it) tabulates the closed form per
+  coefficient (:func:`closed_form_columns`) and streams the rows against
+  those columns; the *decode* design (M ≤ 16, width ≤ 8: every dense layer
+  of an LM decode step) gathers every product from the whole int16 product
+  table (:func:`closed_form_table16`, built on the card once per key and
+  device) in shared memory, taking the int8 codes ``dense`` hands over
+  without a copy; the *tile* design (16×16 output tiles, the batch as grid
+  z) takes every other shape. The narrow design needs 16-byte
   aligned batches: an A whose base is not 16-byte aligned (a view with a
   storage offset), or a batched A with M % 4 ≠ 0, is first copied into a
   fresh buffer, its rows zero-padded to a multiple of 4, and the result
@@ -21,10 +25,13 @@ and an exact int32-ring sum:
 * a CPU tensor runs :func:`closed_form_matmul_plain`: k walked in slabs
   under the pad / crop / f(0,0) contract of ``kernels.blocking``.
 
-``closed_form_matmul.launches`` counts tile launches and
-``closed_form_matmul.narrow_launches`` narrow ones. The narrow design's
+``closed_form_matmul.launches`` counts tile launches,
+``closed_form_matmul.narrow_launches`` narrow ones and
+``closed_form_matmul.decode_launches`` decode ones. The narrow design's
 plain twin is :func:`closed_form_columns` with
-:func:`~repro_torch.kernels.blocking.narrow_matmul_plain`.
+:func:`~repro_torch.kernels.blocking.narrow_matmul_plain`; the decode
+design's is :func:`closed_form_table16` with
+:func:`~repro_torch.kernels.blocking.decode_matmul_plain`.
 
 :func:`approx_matmul` is the historical proposed@8 entry point.
 """
@@ -36,7 +43,8 @@ import torch
 
 from repro_torch.core import multiplier as mult
 from repro_torch.kernels import blocking, build
-from repro_torch.kernels.blocking import narrow_matmul_plain  # noqa: F401
+from repro_torch.kernels.blocking import (decode_matmul_plain,  # noqa: F401
+                                          narrow_matmul_plain)
 from repro_torch.kernels.closed_form import (closed_form_f00, closed_form_params,
                                              make_closed_form)
 from repro_torch.obs.trace import trace_span
@@ -47,6 +55,10 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
 _NARROW_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
+_DECODE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_TABLE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
 
 
 def closed_form_matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -82,23 +94,74 @@ def closed_form_columns(b: torch.Tensor, key: str) -> torch.Tensor:
     return make_closed_form(key)(x, b.to(torch.int32)[..., None])
 
 
+def closed_form_table16(key: str, device) -> torch.Tensor:
+    """The decode design's product table of ``key`` (width n ≤ 8) on
+    ``device``: flat (2^(2n),) int16, ``[xa << n | xb] = f(xa − 2^(n−1),
+    xb − 2^(n−1))``, laid out as ``core.lut.flat_lut``. Built once per (key,
+    device): by the table kernel on the card (``approx_matmul_table_
+    launch``), never from the host table; by the closed form in torch on
+    the CPU. Raises for widths above 8 (products beyond int16)."""
+    key = mult.canonical_key(key)
+    n = mult.split_width(key)[1]
+    if not 1 <= n <= blocking.DECODE_MAX_BITS:
+        raise ValueError(f"{key}: the product table needs a width <= "
+                         f"{blocking.DECODE_MAX_BITS}, got {n}")
+    device = torch.device(device)
+
+    def make():
+        if device.type == "cpu":
+            x = torch.arange(1 << n, dtype=torch.int32) - (1 << (n - 1))
+            return make_closed_form(key)(x[:, None], x[None, :]).to(
+                torch.int16).reshape(-1)
+        params = closed_form_params(key)
+        table = torch.empty(1 << (2 * n), dtype=torch.int16, device=device)
+        fn = build.load_function("approx_matmul", "approx_matmul_table_launch",
+                                 _TABLE_ARGTYPES)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = fn(table.data_ptr(), params.ctypes.data, stream)
+        build.check(rc, "approx_matmul_table_launch")
+        return table
+
+    return build.device_constant(("cf_table16", key), device, make)
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, key: str,
             design: "str | None" = None) -> torch.Tensor:
-    """Launch the kernel of ``design`` (``"narrow"`` or ``"tile"``; None:
-    :func:`~repro_torch.kernels.blocking.narrow_design` decides) on CUDA
-    (B,M,K)@(B,K,N) int32."""
+    """Launch the kernel of ``design`` (``"narrow"``, ``"decode"`` or
+    ``"tile"``; None: the first of them that takes the shape, by
+    :func:`~repro_torch.kernels.blocking.narrow_design` and
+    :func:`~repro_torch.kernels.blocking.decode_design`) on CUDA
+    (B,M,K)@(B,K,N) integer operands."""
     bsz, m, k = a.shape
     n = b.shape[2]
     n_bits = mult.split_width(key)[1]
     design = blocking.resolve_design(
-        design, blocking.narrow_design(k, n, n_bits), "approx_matmul",
-        f"K={k}, N={n} at width {n_bits}")
+        design, {"narrow": blocking.narrow_design(k, n, n_bits),
+                 "decode": blocking.decode_design(m, k, n, n_bits),
+                 "tile": True},
+        "approx_matmul", f"M={m}, K={k}, N={n} at width {n_bits}")
     if not (bsz <= 65535 and (n + 15) // 16 <= 65535 and max(m, k) < 2**31):
         raise ValueError(f"approx_matmul grid limit exceeded by "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     if bsz * m * n == 0 or k == 0:
         return torch.zeros((bsz, m, n), dtype=torch.int32, device=a.device)
+    if design == "decode":
+        a8 = blocking.codes8(a).contiguous()
+        b8 = blocking.codes8(b).contiguous()
+        table = closed_form_table16(key, a.device)
+        out = torch.empty((bsz, m, n), dtype=torch.int32, device=a.device)
+        fn = build.load_function("approx_matmul", "approx_matmul_decode_launch",
+                                 _DECODE_ARGTYPES)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(a8.data_ptr(), b8.data_ptr(), table.data_ptr(),
+                    out.data_ptr(), bsz, m, k, n, n_bits, stream)
+        build.check(rc, "approx_matmul_decode_launch")
+        closed_form_matmul.decode_launches.add()
+        return out
     params = closed_form_params(key)
+    a, b = a.to(torch.int32), b.to(torch.int32)
     if design == "narrow":
         a, b, out, cols, crop = blocking.narrow_operands(a, b, n_bits)
         fn = build.load_function("approx_matmul", "approx_matmul_narrow_launch",
@@ -130,7 +193,8 @@ def closed_form_matmul(a: torch.Tensor, b: torch.Tensor,
     ``mult_key``: ``"name[@N]"`` (aliases resolve). Returns int32 of shape
     (M,N) or (B,M,N). The operands' device decides: CUDA launches the
     kernel of the design the shape takes (or raises), CPU runs
-    :func:`closed_form_matmul_plain`.
+    :func:`closed_form_matmul_plain`. Integer operands of any dtype give the
+    same integers; the decode design reads int8 codes without a copy.
     """
     if not (torch.is_tensor(a) and torch.is_tensor(b)) or a.device != b.device:
         raise ValueError("operands must be tensors on one device")
@@ -140,7 +204,8 @@ def closed_form_matmul(a: torch.Tensor, b: torch.Tensor,
                     m=a.shape[-2], k=a.shape[-1], n=b.shape[-1]):
         a3, b3 = blocking.as3(a, b)
         if a.device.type == "cpu":
-            out = closed_form_matmul_plain(a3, b3, key)
+            out = closed_form_matmul_plain(a3.to(torch.int32),
+                                           b3.to(torch.int32), key)
         elif a.device.type == "cuda":
             out = _launch(a3, b3, key)
         else:
@@ -151,6 +216,7 @@ def closed_form_matmul(a: torch.Tensor, b: torch.Tensor,
 
 closed_form_matmul.launches = build.LaunchCounter()         # tile design
 closed_form_matmul.narrow_launches = build.LaunchCounter()  # narrow design
+closed_form_matmul.decode_launches = build.LaunchCounter()  # decode design
 
 
 def approx_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

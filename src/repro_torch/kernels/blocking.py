@@ -11,12 +11,19 @@ fixed-size slabs: zero-padding k injects f(0,0) per padded element
 subtracted back here. :func:`as3` and :func:`plain_k_chunk` are the shape
 half the contraction wrappers share.
 
-Both contraction kernels have two designs on the card, chosen by
-:func:`narrow_design` from the shape and the operand width alone: the
-*narrow* design (``csrc/narrow_contract.cuh``) contracts the rows against
-one 2^n-entry product column per coefficient, and the *tile* design (16×16
-output tiles) takes every other shape. :func:`narrow_matmul_plain` is the
-narrow design's plain twin.
+Both contraction kernels have several designs on the card, chosen from the
+shape and the operand width alone, in this order: the *narrow* design
+(:func:`narrow_design`, ``csrc/narrow_contract.cuh``) contracts the rows
+against one 2^n-entry product column per coefficient; the *decode* design
+(:func:`decode_design`, ``csrc/decode_contract.cuh``) contracts few rows
+against the whole int16 product table in shared memory; ``lut_matmul`` has
+a *tensor* design for the exact product (:func:`tensor_design`, INT8 tensor
+cores) before it; and the *tile* design (16×16 output tiles) takes every
+other shape. :func:`narrow_matmul_plain`, :func:`decode_matmul_plain` and
+:func:`tensor_matmul_plain` are the plain twins of the first three.
+
+The decode and tensor designs take the int8 codes that ``dense`` hands
+over as they are (:func:`codes8`); the narrow and tile designs take int32.
 """
 from __future__ import annotations
 
@@ -38,11 +45,28 @@ _MAX_K_CHUNK = 16
 NARROW_MAX_N = 8
 NARROW_MAX_K = 16
 NARROW_MAX_BITS = 8
+#: Thresholds of the decode design (``DC_MAX_*`` in decode_contract.cuh): a
+#: thread keeps 4 sums per row, 64 registers at 16 rows; the int16 table of
+#: 2^(2n) entries is 128 KiB of shared memory at width 8.
+DECODE_MAX_M = 16
+DECODE_MAX_BITS = 8
+#: Thresholds of the tensor design (``TC_MAX_*`` in lut_matmul.cu): two n8
+#: groups of rows per mma; at K ≤ 131071 no int32 sum of products of
+#: signed 8-bit codes (|a·b| ≤ 2^14) can overflow.
+TENSOR_MAX_M = 16
+TENSOR_MAX_K = 131071
+
+
+def _is_int(t: torch.Tensor) -> bool:
+    return not (t.dtype.is_floating_point or t.dtype.is_complex
+                or t.dtype == torch.bool)
 
 
 def as3(a: torch.Tensor, b: torch.Tensor):
-    """(M,K)@(K,N) or (B,M,K)@(B,K,N) operands → int32 (B,M,K), (B,K,N);
-    raises on any other rank or a shape mismatch."""
+    """(M,K)@(K,N) or (B,M,K)@(B,K,N) operands → (B,M,K), (B,K,N); raises
+    on any other rank or a shape mismatch. Integer operands keep their
+    dtype and are not copied (int8 codes stay int8: each design casts what
+    it needs); any other dtype is cast to int32."""
     if a.dim() != b.dim() or a.dim() not in (2, 3):
         raise ValueError(f"expected (M,K)@(K,N) or (B,M,K)@(B,K,N), got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
@@ -50,7 +74,18 @@ def as3(a: torch.Tensor, b: torch.Tensor):
         a, b = a[None], b[None]
     if a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
         raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    return a.to(torch.int32), b.to(torch.int32)
+    return tuple(x if _is_int(x) else x.to(torch.int32) for x in (a, b))
+
+
+def codes8(x: torch.Tensor) -> torch.Tensor:
+    """Integer operands as int8 codes: their low 8 bits, reinterpreted as
+    signed. An int8 tensor is returned as it is (no copy). At widths ≤ 8 the
+    product depends on the low n bits alone (the closed form and the table
+    index both wrap an operand first), so the codes give the same integers
+    as the operands."""
+    if x.dtype == torch.int8:
+        return x
+    return (x & 0xFF).to(torch.uint8).view(torch.int8)
 
 
 def narrow_design(k: int, n: int, n_bits: int) -> bool:
@@ -60,6 +95,57 @@ def narrow_design(k: int, n: int, n_bits: int) -> bool:
     contraction kernels (n = 1, k ≤ 9, width ≤ 8) is narrow."""
     return (1 <= n <= NARROW_MAX_N and 1 <= k <= NARROW_MAX_K
             and 1 <= n_bits <= NARROW_MAX_BITS)
+
+
+def decode_design(m: int, k: int, n: int, n_bits: int) -> bool:
+    """Whether a (B,m,k)@(B,k,n) contraction at operand width ``n_bits``
+    runs the decode design on the card: few rows (an LM decode step's M =
+    8), width ≤ 8, and a shape the narrow design does not take. A pure
+    function of shape and width."""
+    return (1 <= m <= DECODE_MAX_M and 1 <= n_bits <= DECODE_MAX_BITS
+            and k >= 1 and n >= 1 and not narrow_design(k, n, n_bits))
+
+
+def tensor_design(m: int, k: int, n: int, n_bits: int) -> bool:
+    """Whether a (B,m,k)@(B,k,n) contraction at width ``n_bits`` can run
+    ``lut_matmul``'s tensor design, given a table that is the exact product
+    of signed 8-bit codes (the caller checks the table): width 8, few rows,
+    K ≤ 131071, and a shape the narrow design does not take."""
+    return (1 <= m <= TENSOR_MAX_M and n_bits == 8 and 1 <= k <= TENSOR_MAX_K
+            and n >= 1 and not narrow_design(k, n, n_bits))
+
+
+def decode_matmul_plain(a: torch.Tensor, b: torch.Tensor,
+                        table16: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Plain twin of the decode design on any device: (B,M,K) rows against
+    (B,K,N) coefficients through the flat (2^(2n),) int16 product table (or
+    a table of any integer dtype: ``lut_matmul_plain``),
+    ``out[z,m,j] = Σ_k table16[xa << n | xb]`` with ``xa = (a[z,m,k] +
+    2^(n-1)) & (2^n − 1)`` and ``xb`` likewise, summed in the int32 ring, k
+    walked in slabs."""
+    off, mask = 1 << (n_bits - 1), (1 << n_bits) - 1
+    ai = ((a.to(torch.int32) + off) & mask) << n_bits
+    bi = (b.to(torch.int32) + off) & mask
+    t = table16.to(torch.int32)
+    bsz, m, k = a.shape
+    nn = b.shape[2]
+    k_chunk = plain_k_chunk(bsz, m, nn)
+    acc = torch.zeros((bsz, m, nn), dtype=torch.int32, device=a.device)
+    for k0 in range(0, k, k_chunk):
+        idx = ai[:, :, k0:k0 + k_chunk, None] | bi[:, None, k0:k0 + k_chunk, :]
+        acc += t[idx.long()].sum(dim=2, dtype=torch.int32)
+    return acc
+
+
+def tensor_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the tensor design: the exact product of the operands'
+    int8 codes (:func:`codes8`), an int64 matmul cast through int64 to
+    int32 (which wraps as the int32 ring does). The card has no int64
+    matmul: there it is a float64 one, exact while every sum stays below
+    2^53 (|a·b| ≤ 2^14, so for K < 2^39)."""
+    dt = torch.int64 if a.device.type == "cpu" else torch.float64
+    return torch.matmul(codes8(a).to(dt), codes8(b).to(dt)).to(
+        torch.int64).to(torch.int32)
 
 
 def narrow_matmul_plain(a: torch.Tensor, cols: torch.Tensor,
@@ -78,18 +164,17 @@ def narrow_matmul_plain(a: torch.Tensor, cols: torch.Tensor,
     return acc.transpose(1, 2).contiguous()
 
 
-def resolve_design(design: "str | None", special_ok: bool, kernel: str,
-                   what: str, designs: tuple = ("narrow", "tile")) -> str:
-    """One of ``designs`` (the specialised design first, then the one that
-    takes everything): ``design`` where given (raising if the specialised
-    design cannot take ``what``), else the specialised one wherever it can."""
-    special, general = designs
+def resolve_design(design: "str | None", eligible: dict, kernel: str,
+                   what: str) -> str:
+    """One of the designs in ``eligible`` (name → whether it takes the call,
+    in dispatch order, the last one taking everything): ``design`` where
+    given (raising if it cannot take ``what``), else the first that can."""
     if design is None:
-        return special if special_ok else general
-    if design not in designs:
+        return next(name for name, ok in eligible.items() if ok)
+    if design not in eligible:
         raise ValueError(f"unknown {kernel} design {design!r}")
-    if design == special and not special_ok:
-        raise ValueError(f"the {special} design does not take {what}")
+    if not eligible[design]:
+        raise ValueError(f"the {design} design does not take {what}")
     return design
 
 

@@ -261,8 +261,8 @@ def _launch(imgs: torch.Tensor, taps: tuple, key: str, kind: str,
                          f"got {kh}x{kw}")
     n_bits = mult.split_width(key)[1]
     design = blocking.resolve_design(
-        design, conv_design(taps, key) == "stencil", "fused_conv",
-        f"a {kh}x{kw} kernel at width {n_bits}", designs=("stencil", "generic"))
+        design, {"stencil": conv_design(taps, key) == "stencil", "generic": True},
+        "fused_conv", f"a {kh}x{kw} kernel at width {n_bits}")
     if not (b <= 65535 and (h + 7) // 8 <= 65535):
         raise ValueError(f"fused conv grid limit exceeded by {tuple(x.shape)}")
     counter = fused_conv2d.lut_launches if kind == "lut" else fused_conv2d.launches

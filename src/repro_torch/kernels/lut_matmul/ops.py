@@ -13,21 +13,31 @@ out-of-range ints to their low N bits; the sum is exact in the int32 ring.
 * a CUDA tensor launches a hand-written kernel (they replace the TPU kernel
   ``repro/kernels/lut_matmul/kernel.py``, ``lut_matmul_pallas``; designs
   and bounds in the source's header) or raises — there is no fallback.
-  :func:`~repro_torch.kernels.blocking.narrow_design` picks the design from
-  the shape and width: the *narrow* design (N ≤ 8, K ≤ 16: every shape the
-  served plans give it) copies each coefficient's table column
+  The shape, the width and the table pick the design, in this order
+  (``kernels.blocking``): the *narrow* design (N ≤ 8, K ≤ 16: every shape
+  the edge plans give it) copies each coefficient's table column
   (:func:`table_columns`) into int16 and streams the rows against it; the
-  *tile* design (16×16 output tiles, the batch as grid z) takes every
-  other shape, and any table with an entry beyond int16 (no product table
-  of a width ≤ 8 has one; a table not from :func:`device_table` is checked
-  once per tensor version, which synchronises). A batch that is not
-  16-byte aligned is copied first, as in ``kernels.approx_matmul``;
+  *tensor* design (the table is the exact product at width 8, M ≤ 16, K ≤
+  131071: the ``exact`` dense layers of an LM decode step) computes the
+  int8 product on the INT8 tensor cores and reads no table; the *decode*
+  design (M ≤ 16) gathers every product from an int16 twin of the table
+  (:func:`table16`) in shared memory; the *tile* design (16×16 output
+  tiles, the batch as grid z) takes every other shape, and any table with
+  an entry beyond int16 (no product table of a width ≤ 8 has one). A table
+  not from :func:`device_table` is checked once per tensor version (int16
+  range, exact product), which synchronises. The tensor and decode designs
+  take the int8 codes ``dense`` hands over without a copy. A narrow batch
+  that is not 16-byte aligned is copied first, as in
+  ``kernels.approx_matmul``;
 * a CPU tensor runs :func:`lut_matmul_plain`, k walked in slabs.
 
-``lut_matmul.launches`` counts tile launches and
-``lut_matmul.narrow_launches`` narrow ones. The narrow design's plain twin
-is :func:`table_columns` with
-:func:`~repro_torch.kernels.blocking.narrow_matmul_plain`.
+``lut_matmul.launches`` counts tile launches, ``.narrow_launches``,
+``.tensor_launches`` and ``.decode_launches`` those of the other designs.
+Plain twins: :func:`table_columns` with
+:func:`~repro_torch.kernels.blocking.narrow_matmul_plain` (narrow),
+:func:`~repro_torch.kernels.blocking.tensor_matmul_plain` (tensor),
+:func:`table16` with :func:`~repro_torch.kernels.blocking.decode_matmul_plain`
+(decode).
 
 The table must lie on the operands' device: :func:`device_table` keeps one
 per (wiring, device), uploaded once, so no call copies a table.
@@ -36,12 +46,15 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core import lut as lut_lib
 from repro_torch.core import multiplier as mult
 from repro_torch.kernels import blocking, build
-from repro_torch.kernels.blocking import narrow_matmul_plain  # noqa: F401
+from repro_torch.kernels.blocking import (decode_matmul_plain,  # noqa: F401
+                                          narrow_matmul_plain,
+                                          tensor_matmul_plain)
 from repro_torch.obs.trace import trace_span
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -51,7 +64,21 @@ _NARROW_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p)
+_DECODE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_TENSOR_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p)
 _INT16 = (-(1 << 15), (1 << 15) - 1)
+
+
+def _exact_product8() -> np.ndarray:
+    """The flat table of the exact product of signed 8-bit codes,
+    ``[xa << 8 | xb] = (xa − 128)·(xb − 128)``: what the tensor design
+    computes."""
+    x = np.arange(256, dtype=np.int32) - 128
+    return (x[:, None] * x[None, :]).reshape(-1)
 
 
 def table_width(size: int) -> int:
@@ -72,8 +99,12 @@ def device_table(mult_key: str, device) -> torch.Tensor:
                               lambda: lut_lib.flat_lut(key))
     if not hasattr(t, "_int16_at"):  # checked on the host copy, no sync
         host = lut_lib.flat_lut(key)
-        t._int16_at = (t._version, bool(host.min() >= _INT16[0]
-                                        and host.max() <= _INT16[1]))
+        fits = bool(host.min() >= _INT16[0] and host.max() <= _INT16[1])
+        if fits:  # the decode design's twin, complete before any stream reads it
+            t._table16 = (t._version, build.device_constant(
+                ("flat_lut16", key), device, lambda: host.astype(np.int16)))
+        t._exact_at = (t._version, bool(np.array_equal(host, _exact_product8())))
+        t._int16_at = (t._version, fits)
     return t
 
 
@@ -85,6 +116,31 @@ def _fits_int16(table: torch.Tensor) -> bool:
         ok = bool(((table >= _INT16[0]) & (table <= _INT16[1])).all())
         table._int16_at = (table._version, ok)
     return ok
+
+
+def _is_exact(table: torch.Tensor) -> bool:
+    """Whether ``table`` is the exact product of signed 8-bit codes, which
+    the tensor design computes; marked by :func:`device_table`, else
+    computed once per tensor version."""
+    version, ok = getattr(table, "_exact_at", (None, False))
+    if version != table._version:
+        ok = table.numel() == 1 << 16 and bool(torch.equal(
+            table, torch.from_numpy(_exact_product8()).to(table.device)))
+        table._exact_at = (table._version, ok)
+    return ok
+
+
+def table16(table: torch.Tensor) -> torch.Tensor:
+    """The decode design's int16 twin of a flat table whose entries all fit
+    int16 (:func:`_fits_int16`): the same (2^(2n),) layout. Kept once per
+    tensor version; one from :func:`device_table` is built with the table."""
+    version, t16 = getattr(table, "_table16", (None, None))
+    if version != table._version:
+        t16 = table.to(torch.int16)
+        if t16.is_cuda:  # complete before another stream reads it
+            torch.cuda.current_stream(t16.device).synchronize()
+        table._table16 = (table._version, t16)
+    return t16
 
 
 def table_columns(b: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -116,37 +172,58 @@ def _check_table(table: torch.Tensor, device) -> int:
 def lut_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                      table: torch.Tensor) -> torch.Tensor:
     """Plain torch version of the kernel on (B,M,K)@(B,K,N), any device: k
-    walked in slabs, each a batched gather. The last slab is just shorter
-    (no zero padding, so no f(0,0) to subtract)."""
-    n = table_width(table.shape[0])
-    off, mask = 1 << (n - 1), (1 << n) - 1
-    bsz, m, k = a.shape
-    nn = b.shape[2]
-    ai = ((a + off) & mask) << n
-    bi = (b + off) & mask
-    k_chunk = blocking.plain_k_chunk(bsz, m, nn)
-    acc = torch.zeros((bsz, m, nn), dtype=torch.int32, device=a.device)
-    for k0 in range(0, k, k_chunk):
-        idx = ai[:, :, k0:k0 + k_chunk, None] | bi[:, None, k0:k0 + k_chunk, :]
-        acc += table[idx.long()].sum(dim=2, dtype=torch.int32)
-    return acc
+    walked in slabs, each a batched gather
+    (:func:`~repro_torch.kernels.blocking.decode_matmul_plain`, which takes
+    a table of any integer dtype). The last slab is just shorter (no zero
+    padding, so no f(0,0) to subtract)."""
+    return blocking.decode_matmul_plain(a, b, table, table_width(table.shape[0]))
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
             n_bits: int, design: "str | None" = None) -> torch.Tensor:
-    """Launch the kernel of ``design`` (``"narrow"`` or ``"tile"``; None:
-    :func:`~repro_torch.kernels.blocking.narrow_design` and the table's
-    range decide) on CUDA (B,M,K)@(B,K,N) int32."""
+    """Launch the kernel of ``design`` (``"narrow"``, ``"tensor"``,
+    ``"decode"`` or ``"tile"``; None: the first of them that takes the
+    shape, width and table) on CUDA (B,M,K)@(B,K,N) integer operands."""
     bsz, m, k = a.shape
     n = b.shape[2]
     design = blocking.resolve_design(
-        design, blocking.narrow_design(k, n, n_bits) and _fits_int16(table),
-        "lut_matmul", f"K={k}, N={n} at width {n_bits}, or a table beyond int16")
+        design, {"narrow": blocking.narrow_design(k, n, n_bits)
+                 and _fits_int16(table),
+                 "tensor": blocking.tensor_design(m, k, n, n_bits)
+                 and _is_exact(table),
+                 "decode": blocking.decode_design(m, k, n, n_bits)
+                 and _fits_int16(table),
+                 "tile": True},
+        "lut_matmul", f"M={m}, K={k}, N={n} at width {n_bits}, or a table "
+        "beyond int16 (the tensor design: a table that is not the exact "
+        "product)")
     if not (bsz <= 65535 and (n + 15) // 16 <= 65535 and max(m, k) < 2**31):
         raise ValueError(f"lut_matmul grid limit exceeded by "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     if bsz * m * n == 0 or k == 0:
         return torch.zeros((bsz, m, n), dtype=torch.int32, device=a.device)
+    if design in ("tensor", "decode"):
+        a8 = blocking.codes8(a).contiguous()
+        b8 = blocking.codes8(b).contiguous()
+        out = torch.empty((bsz, m, n), dtype=torch.int32, device=a.device)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            if design == "tensor":
+                fn = build.load_function("lut_matmul", "lut_matmul_tensor_launch",
+                                         _TENSOR_ARGTYPES)
+                rc = fn(a8.data_ptr(), b8.data_ptr(), out.data_ptr(), bsz, m, k,
+                        n, stream)
+            else:
+                fn = build.load_function("lut_matmul", "lut_matmul_decode_launch",
+                                         _DECODE_ARGTYPES)
+                rc = fn(a8.data_ptr(), b8.data_ptr(), table16(table).data_ptr(),
+                        out.data_ptr(), bsz, m, k, n, n_bits, stream)
+        build.check(rc, f"lut_matmul_{design}_launch")
+        counter = (lut_matmul.tensor_launches if design == "tensor"
+                   else lut_matmul.decode_launches)
+        counter.add()
+        return out
+    a, b = a.to(torch.int32), b.to(torch.int32)
     if design == "narrow":
         a, b, out, cols, crop = blocking.narrow_operands(a, b, n_bits)
         fn = build.load_function("lut_matmul", "lut_matmul_narrow_launch",
@@ -179,7 +256,8 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor,
     ``table``: flat (2^{2N},) int32 tensor on the operands' device (raises
     otherwise). Returns int32 of shape (M,N) or (B,M,N). The operands'
     device decides: CUDA launches the kernel of the design the shape takes
-    (or raises), CPU runs :func:`lut_matmul_plain`.
+    (or raises), CPU runs :func:`lut_matmul_plain`. Integer operands of any
+    dtype give the same integers.
     """
     if not (torch.is_tensor(a) and torch.is_tensor(b)) or a.device != b.device:
         raise ValueError("operands must be tensors on one device")
@@ -189,7 +267,8 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor,
                     k=a.shape[-1], n=b.shape[-1]):
         a3, b3 = blocking.as3(a, b)
         if a.device.type == "cpu":
-            out = lut_matmul_plain(a3, b3, table)
+            out = lut_matmul_plain(a3.to(torch.int32), b3.to(torch.int32),
+                                   table)
         elif a.device.type == "cuda":
             out = _launch(a3, b3, table, n_bits)
         else:
@@ -200,3 +279,5 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor,
 
 lut_matmul.launches = build.LaunchCounter()         # tile design
 lut_matmul.narrow_launches = build.LaunchCounter()  # narrow design
+lut_matmul.tensor_launches = build.LaunchCounter()  # tensor design
+lut_matmul.decode_launches = build.LaunchCounter()  # decode design

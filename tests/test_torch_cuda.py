@@ -46,11 +46,19 @@ def dev():
 
 @pytest.mark.parametrize("name", sorted(mult.WIRINGS))
 def test_closed_form_device_function_exhaustive_n4(dev, name):
+    """Every operand pair at width 4: (16 x 1) @ (1 x 16) takes the decode
+    design (its table from the table kernel) and, forced, the tile design
+    (the closed form per product)."""
     v = torch.arange(-8, 8, dtype=torch.int32, device=dev)
-    before = closed_form_matmul.launches.value
+    before = (closed_form_matmul.decode_launches.value,
+              closed_form_matmul.launches.value)
     got = closed_form_matmul(v[:, None], v[None, :], f"{name}@4").cpu().numpy()
-    assert closed_form_matmul.launches.value == before + 1
+    tile = am._launch(v[None, :, None], v[None, None, :], mult.canonical_key(
+        f"{name}@4"), design="tile")[0].cpu().numpy()
+    assert (closed_form_matmul.decode_launches.value,
+            closed_form_matmul.launches.value) == (before[0] + 1, before[1] + 1)
     np.testing.assert_array_equal(got, lut_lib.build_lut(f"{name}@4"))
+    np.testing.assert_array_equal(tile, lut_lib.build_lut(f"{name}@4"))
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1, 1), (1, 17, 33, 9), (3, 65, 9, 3),
@@ -97,12 +105,18 @@ def test_service_on_the_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("name", sorted(mult.WIRINGS) + ["exact"])
 def test_lut_matmul_exhaustive_n4(dev, name):
+    """Every operand pair at width 4 through the decode design (the public
+    call) and the tile design (forced)."""
     key = f"{name}@4"
     v = torch.arange(-8, 8, dtype=torch.int32, device=dev)
-    before = lut_matmul.launches.value
-    got = lut_matmul(v[:, None], v[None, :], device_table(key, dev))
-    assert lut_matmul.launches.value == before + 1
+    t = device_table(key, dev)
+    before = (lut_matmul.decode_launches.value, lut_matmul.launches.value)
+    got = lut_matmul(v[:, None], v[None, :], t)
+    tile = lm._launch(v[None, :, None], v[None, None, :], t, 4, design="tile")[0]
+    assert (lut_matmul.decode_launches.value, lut_matmul.launches.value) == (
+        before[0] + 1, before[1] + 1)
     np.testing.assert_array_equal(got.cpu().numpy(), lut_lib.build_lut(key))
+    np.testing.assert_array_equal(tile.cpu().numpy(), lut_lib.build_lut(key))
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1, 1), (1, 17, 33, 9), (3, 65, 9, 3),
@@ -125,9 +139,12 @@ def test_lut_matmul_k_tail_masks_the_product(dev):
     w = RNG.integers(-128, 128, (17, 3)).astype(np.int32)
     table = lut_lib.build_lut("proposed").astype(np.int64)
     want = table[a[:, :, None] + 128, w[None, :, :] + 128].sum(axis=1)
-    got = lut_matmul(torch.from_numpy(a).to(dev), torch.from_numpy(w).to(dev),
-                     device_table("proposed", dev))
+    a_d, w_d = torch.from_numpy(a).to(dev), torch.from_numpy(w).to(dev)
+    got = lut_matmul(a_d, w_d, device_table("proposed", dev))  # decode design
     np.testing.assert_array_equal(got.cpu().numpy(), want.astype(np.int32))
+    tile = lm._launch(a_d[None], w_d[None], device_table("proposed", dev), 8,
+                      design="tile")[0]
+    np.testing.assert_array_equal(tile.cpu().numpy(), want.astype(np.int32))
     with pytest.raises(ValueError, match="lies on"):
         lut_matmul(torch.from_numpy(a).to(dev), torch.from_numpy(w).to(dev),
                    device_table("proposed", "cpu"))
@@ -480,16 +497,17 @@ LM_SHAPES = [(4096, 4096), (4096, 1024), (4096, 16384), (16384, 4096)]
 @pytest.mark.parametrize("kn", LM_SHAPES, ids=[f"{k}x{n}" for k, n in LM_SHAPES])
 def test_tile_designs_at_the_lm_shapes(dev, kn):
     """A decode step's (8 × K) @ (K × N) at int8 operand codes: both tile
-    kernels against their plain versions, every product and sum exact."""
+    kernels (forced: the shape takes the decode and tensor designs) against
+    their plain versions, every product and sum exact."""
     k, n = kn
     a = torch.from_numpy(RNG.integers(-127, 128, (1, 8, k)).astype(np.int8)).to(dev)
     w = torch.from_numpy(RNG.integers(-127, 128, (1, k, n)).astype(np.int8)).to(dev)
     before = (closed_form_matmul.launches.value, lut_matmul.launches.value)
-    got = closed_form_matmul(a, w, "proposed")
+    got = am._launch(a, w, "proposed@8", design="tile")
     torch.testing.assert_close(got, closed_form_matmul_plain(
-        a.to(torch.int32), w.to(torch.int32), "proposed"), rtol=0, atol=0)
+        a.to(torch.int32), w.to(torch.int32), "proposed@8"), rtol=0, atol=0)
     t = device_table("exact", dev)
-    got = lut_matmul(a, w, t)
+    got = lm._launch(a, w, t, 8, design="tile")
     want = lut_matmul_plain(a.to(torch.int32), w.to(torch.int32), t)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(got, torch.matmul(
@@ -517,7 +535,7 @@ def test_dense_on_the_card_equals_the_cpu(dev, spec):
 
 def test_serving_engine_on_the_card(dev):
     """minitron-8b at a small width on the card, two workers on their own
-    streams: every request served, only tile launches (7 per layer-step),
+    streams: every request served, only decode launches (7 per layer-step),
     and the first wave of worker 0 identical to a one-worker run."""
     from repro_torch.models import registry as reg
     from repro_torch.serving import Request, ServingEngine
@@ -531,17 +549,199 @@ def test_serving_engine_on_the_card(dev):
         eng = ServingEngine(bundle, params, batch_size=4, max_len=32,
                             substrate="approx_cuda:proposed@8")
         reqs = [Request(prompt=prompts[i], max_tokens=4) for i in order]
-        before = (closed_form_matmul.launches.value,
-                  closed_form_matmul.narrow_launches.value)
+        counters = (closed_form_matmul.decode_launches, closed_form_matmul.launches,
+                    closed_form_matmul.narrow_launches)
+        before = [c.value for c in counters]
         eng.generate(reqs, workers=workers)
         torch.cuda.synchronize()
         steps = eng.metrics.batches_flushed
         assert eng.metrics.requests_served == 8
         assert eng.metrics.requests_failed == 0
-        assert closed_form_matmul.launches.value - before[0] == 7 * 2 * steps
-        assert closed_form_matmul.narrow_launches.value == before[1]
+        assert [c.value - b for c, b in zip(counters, before)] == [
+            7 * 2 * steps, 0, 0]
         return {i: r.output for i, r in zip(order, reqs)}
 
     two = serve(range(8), 2)
     one = serve([0, 2, 4, 6, 1, 3, 5, 7], 1)
     assert all(one[i] == two[i] for i in (0, 2, 4, 6))
+
+
+# ---------------------------------------------------------------------------
+# the decode and tensor designs: few rows against the whole product table,
+# and the exact product on the INT8 tensor cores
+# ---------------------------------------------------------------------------
+
+def _codes(shape, lo=-128, hi=128):
+    return torch.from_numpy(RNG.integers(lo, hi, shape).astype(np.int8))
+
+
+def _launched(counter, fn):
+    """fn(), checking that it launched ``counter``'s design exactly once."""
+    before = counter.value
+    out = fn()
+    assert counter.value == before + 1
+    return out
+
+
+@pytest.mark.parametrize("m", range(1, 17))
+def test_decode_and_tensor_designs_vs_plain_and_tile(dev, m):
+    """M = 1..16 at ragged K and N (not multiples of the kernels' 128-column
+    groups or 32-row steps), batched with a distinct b per batch: the decode
+    design of both kernels and the tensor design against their plain twins
+    and the tile design, every integer equal."""
+    bsz, k, n = 1 + m % 2, 250 + 7 * m, 130 + 13 * m
+    a, w = _codes((bsz, m, k)).to(dev), _codes((bsz, k, n)).to(dev)
+    for key in ("proposed@8", "csp_axc1@6", "design_strollo2020@4"):
+        n_bits = mult.split_width(key)[1]
+        dec = _launched(closed_form_matmul.decode_launches,
+                        lambda: closed_form_matmul(a, w, key))
+        plain = blocking.decode_matmul_plain(
+            a, w, am.closed_form_table16(key, dev), n_bits)
+        tile = am._launch(a, w, key, design="tile")
+        torch.testing.assert_close(dec, plain, rtol=0, atol=0)
+        torch.testing.assert_close(dec, tile, rtol=0, atol=0)
+    for key in ("proposed", "csp_axc5@5", "exact@6"):
+        t = device_table(key, dev)
+        n_bits = lm.table_width(t.shape[0])
+        dec = _launched(lut_matmul.decode_launches, lambda: lut_matmul(a, w, t))
+        torch.testing.assert_close(
+            dec, blocking.decode_matmul_plain(a, w, lm.table16(t), n_bits),
+            rtol=0, atol=0)
+        torch.testing.assert_close(
+            dec, lm._launch(a, w, t, n_bits, design="tile"), rtol=0, atol=0)
+    t = device_table("exact", dev)
+    ten = _launched(lut_matmul.tensor_launches, lambda: lut_matmul(a, w, t))
+    torch.testing.assert_close(ten, blocking.tensor_matmul_plain(a.cpu(), w.cpu()).to(dev),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ten, lm._launch(a, w, t, 8, design="tile"),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ten, lm._launch(a, w, t, 8, design="decode"),
+                               rtol=0, atol=0)
+
+
+def test_decode_and_tensor_take_int32_operands_that_wrap(dev):
+    """int32 operands anywhere in int32 are narrowed to their low 8 bits,
+    the same wrap as the table index: the same integers as the tile design
+    and as the plain versions on the CPU."""
+    a = torch.from_numpy(RNG.integers(-2**31, 2**31, (1, 8, 300), dtype=np.int64)
+                         .astype(np.int32))
+    w = torch.from_numpy(RNG.integers(-2**31, 2**31, (1, 300, 200), dtype=np.int64)
+                         .astype(np.int32))
+    for key in ("proposed@8", "csp_axc1@6"):
+        got = _launched(closed_form_matmul.decode_launches,
+                        lambda: closed_form_matmul(a.to(dev), w.to(dev), key))
+        torch.testing.assert_close(got.cpu(), closed_form_matmul(a, w, key),
+                                   rtol=0, atol=0)
+    for key, counter in (("exact", lut_matmul.tensor_launches),
+                         ("proposed", lut_matmul.decode_launches)):
+        got = _launched(counter, lambda: lut_matmul(a.to(dev), w.to(dev),
+                                                    device_table(key, dev)))
+        torch.testing.assert_close(
+            got.cpu(), lut_matmul(a, w, device_table(key, "cpu")), rtol=0, atol=0)
+
+
+def test_decode_and_tensor_take_an_unaligned_view(dev):
+    """Views with a storage offset of 1 byte (no 16- or 4-byte loads) and N,
+    K that are no multiples of 16 or 4: the kernels read byte by byte and
+    give the same integers."""
+    m, k, n = 8, 1029, 301
+    abase = _codes(1 + m * k).to(dev)
+    wbase = _codes(1 + k * n).to(dev)
+    a, w = abase[1:].view(1, m, k), wbase[1:].view(1, k, n)
+    assert a.data_ptr() % 4 and w.data_ptr() % 4
+    want = blocking.tensor_matmul_plain(a.cpu(), w.cpu()).to(dev)
+    t = device_table("exact", dev)
+    for design in ("tensor", "decode", "tile"):
+        torch.testing.assert_close(lm._launch(a, w, t, 8, design=design), want,
+                                   rtol=0, atol=0)
+    dec = am._launch(a, w, "proposed@8", design="decode")
+    torch.testing.assert_close(dec, am._launch(a, w, "proposed@8", design="tile"),
+                               rtol=0, atol=0)
+    n16 = _codes(1 + k * 320).to(dev)[1:].view(1, k, 320)  # N % 16 == 0, unaligned
+    torch.testing.assert_close(lm._launch(a, n16, t, 8, design="tensor"),
+                               blocking.tensor_matmul_plain(a.cpu(), n16.cpu()).to(dev),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", sorted(mult.WIRINGS) + ["exact"])
+def test_decode_exhaustive_n4_per_coefficient(dev, name):
+    """Every operand pair at width 4 through the decode design, one
+    (16 x 17) @ (17 x 16) contraction per coefficient c (K = 17 is not
+    narrow): row x of A is x at column 0 and 0 elsewhere, and B is c at row
+    0 and 0 elsewhere, so out[x, j] = f(x, c) + 16 f(0, 0) for every j."""
+    key = f"{name}@4"
+    lut = lut_lib.build_lut(key).astype(np.int64)
+    t = device_table(key, dev)
+    v = torch.arange(-8, 8, dtype=torch.int32, device=dev)
+    a = torch.zeros((16, 17), dtype=torch.int32, device=dev)
+    a[:, 0] = v
+    for j, c in enumerate(range(-8, 8)):
+        w = torch.zeros((17, 16), dtype=torch.int32, device=dev)
+        w[0] = c
+        want = np.repeat((lut[:, j] + 16 * lut[8, 8])[:, None], 16, axis=1)
+        got = _launched(lut_matmul.decode_launches, lambda: lut_matmul(a, w, t))
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        if name != "exact":
+            got = _launched(closed_form_matmul.decode_launches,
+                            lambda: closed_form_matmul(a, w, key))
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("kn", LM_SHAPES, ids=[f"{k}x{n}" for k, n in LM_SHAPES])
+def test_decode_and_tensor_at_the_lm_shapes_scaled_down(dev, kn):
+    """minitron-8b's dense shapes with K and N cut by 8, M = 8: the decode
+    design against the tile design and its plain twin, the tensor design
+    against the tile design and torch._int_mm (M zero-padded to 17)."""
+    k, n = kn[0] // 8, kn[1] // 8
+    a, w = _codes((1, 8, k), -127).to(dev), _codes((1, k, n), -127).to(dev)
+    dec = _launched(closed_form_matmul.decode_launches,
+                    lambda: closed_form_matmul(a, w, "proposed@8"))
+    torch.testing.assert_close(dec, am._launch(a, w, "proposed@8", design="tile"),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(dec, blocking.decode_matmul_plain(
+        a, w, am.closed_form_table16("proposed@8", dev), 8), rtol=0, atol=0)
+    t = device_table("exact", dev)
+    ten = _launched(lut_matmul.tensor_launches, lambda: lut_matmul(a, w, t))
+    torch.testing.assert_close(ten, lm._launch(a, w, t, 8, design="tile"),
+                               rtol=0, atol=0)
+    a17 = torch.nn.functional.pad(a[0], (0, 0, 0, 9))
+    torch.testing.assert_close(ten[0], torch._int_mm(a17, w[0])[:8], rtol=0, atol=0)
+
+
+def test_closed_form_table_on_the_card_equals_the_cpu(dev):
+    for key in ("proposed@8", "csp_axc1@6", "design_strollo2020@4"):
+        torch.testing.assert_close(am.closed_form_table16(key, dev).cpu(),
+                                   am.closed_form_table16(key, "cpu"), rtol=0, atol=0)
+
+
+def test_forced_design_on_a_shape_it_cannot_take_raises(dev):
+    """No fallback: the wrappers refuse a forced design the shape or table
+    does not fit before any launch, and the C entry points refuse such a
+    launch themselves (cudaErrorInvalidValue, 1)."""
+    from repro_torch.kernels import build
+
+    a17, w = _codes((1, 17, 64)).to(dev), _codes((1, 64, 64)).to(dev)
+    with pytest.raises(ValueError, match="decode design does not take"):
+        am._launch(a17, w, "proposed@8", design="decode")
+    with pytest.raises(ValueError, match="tensor design does not take"):
+        lm._launch(a17, w, device_table("exact", dev), 8, design="tensor")
+    a8 = _codes((1, 8, 64)).to(dev)
+    with pytest.raises(ValueError, match="tensor design does not take"):
+        lm._launch(a8, w, device_table("proposed", dev), 8, design="tensor")
+    with pytest.raises(ValueError, match="decode design does not take"):
+        am._launch(a8, w, "proposed@12", design="decode")
+    out = torch.empty((1, 17, 64), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = build.load_function("lut_matmul", "lut_matmul_tensor_launch",
+                             lm._TENSOR_ARGTYPES)
+    assert fn(a17.data_ptr(), w.data_ptr(), out.data_ptr(), 1, 17, 64, 64, stream) == 1
+    assert fn(a8.data_ptr(), w.data_ptr(), out.data_ptr(), 1, 8, 131072, 64,
+              stream) == 1
+    table = am.closed_form_table16("proposed@8", dev)
+    fn = build.load_function("approx_matmul", "approx_matmul_decode_launch",
+                             am._DECODE_ARGTYPES)
+    assert fn(a17.data_ptr(), w.data_ptr(), table.data_ptr(), out.data_ptr(),
+              1, 17, 64, 64, 8, stream) == 1
+    assert fn(a8.data_ptr(), w.data_ptr(), table.data_ptr() + 2, out.data_ptr(),
+              1, 8, 64, 64, 8, stream) != 0  # a misaligned table
+    torch.cuda.synchronize()

@@ -288,6 +288,42 @@ def test_logits_match_repro(arch):
                                    atol=LOGIT_ATOL, rtol=0)
 
 
+def _with_qkv_biases(cfg, jparams, rng):
+    """Random nonzero QKV biases in ``repro``'s parameters, carried across
+    (the smoke configs draw zero biases)."""
+    for unit in jparams["unit"]:
+        for name in ("wq", "wk", "wv"):
+            b = unit["attn"][name]["b"]
+            unit["attn"][name]["b"] = jnp.asarray(
+                rng.normal(size=b.shape).astype(np.float32) / 4)
+    return jparams, lm_params_from_jax(cfg, jax.tree.map(np.asarray, jparams))
+
+
+@pytest.mark.parametrize("arch,spec,biases", [
+    ("qwen1.5-32b", "exact", True), ("qwen1.5-32b", "int8", True),
+    ("internlm2-20b", "int8", False),
+    ("minitron-8b", "approx_bitexact", False),
+])
+def test_prefill_logits_match_repro(arch, spec, biases):
+    """prefill at S = 24 through the dense path whose integer operands the
+    contraction kernels take (int8 codes), per substrate; qwen1.5 with
+    random nonzero QKV biases. Its own generator, so that the tokens do not
+    depend on which tests ran before (a quantizing substrate can flip a
+    code where XLA and torch round an input a few ulps apart across a
+    rounding boundary: the header's caveat)."""
+    rng = np.random.default_rng(16)
+    jcfg, jparams, cfg, params = pair(arch, dot_plan=spec)
+    if biases:
+        assert cfg.qkv_bias
+        jparams, params = _with_qkv_biases(cfg, jparams, rng)
+        assert all(float(layer.attn.wq.b.abs().sum()) > 0 for layer in params.layers)
+    toks = rng.integers(0, cfg.vocab, (2, 24))
+    want = np.asarray(jlm.prefill(jcfg, jparams, jnp.asarray(toks, jnp.int32)))
+    got = lm.prefill(cfg, params, torch.from_numpy(toks))
+    assert got.shape == (2, 1, cfg.vocab) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, atol=LOGIT_ATOL, rtol=0)
+
+
 def test_int8_prefill_matches_repro():
     """Under a quantizing substrate: the same codes wherever the float32
     inputs of a ``dense`` agree to the rounding boundary, so the logits
