@@ -21,7 +21,11 @@ tile design. The 512×512 set is served once more under uniform
 the uniform paths launch (both product kinds); its generic design runs on
 the paths that take it (the closed form at width 12, a 7×7 kernel). Both
 designs of the fused conv and of the contraction kernels are checked and
-timed at the shapes the served paths give them.
+timed at the shapes the served paths give them. The edge model of QAT
+(``train.qat.finetune_edge``) fine-tunes 120 steps on the 512×512 set under
+the same plan: its maps at init equal the served planned maps byte for
+byte, its forward launches only the narrow designs, and its PSNR after is
+no worse than before (phase ``edge_qat_path``).
 
 Then the LM path: minitron-8b at its published widths. At the dense
 layers' four (K, N) shapes and M = 8 (a decode step at batch 8) the decode
@@ -43,7 +47,21 @@ prefills token by token) must equal the same plan on ``approx_lut``; one
 decode step's logits must equal, bit for bit, those of the plain substrates
 on the card; 4 decode steps are traced (``chiprun_out/
 chip_smoke_lm_trace.json``); and two timed decode steps and one prefill
-of 8 × 32 tokens run at all 32 layers. Every phase prints one JSON line;
+of 8 × 32 tokens run at all 32 layers.
+
+Then training (phase ``lm_train_path``): the 4-layer model at its published
+widths takes 3 QAT steps of ``TrainLoop`` (AdamW, batch 8 × 32 tokens, so
+M = 256 on every dense) under ``approx_cuda:proposed@8`` and 3 under the
+LM plan, on the tile designs alone (7 launches per layer in the forward, 7
+in the recompute of the backward), each held bit for bit, losses and every
+updated parameter, to the same steps on the table substrate; one more step
+runs under ``torch.profiler`` (``chiprun_out/chip_smoke_train_trace.json``,
+phase ``lm_train_trace``). At a reduced width (``RESTART_SIZE``) a run
+crashed after its step-8 checkpoint and restarted with neither plan nor
+policy configured (both adopted from the manifest) ends bit for bit where
+an uninterrupted run does, a conflicting plan is refused, and the
+launchers' ``--qat-out`` bundle serves through ``launch/serve.py --plan``
+(phase ``lm_train_restart``). Every phase prints one JSON line;
 the line before the last lists the kernels with their launches on the path
 that runs them, their times and least-work bounds, and the last line is
 ``{"ok": true, "device": ...}``.
@@ -91,6 +109,21 @@ LM_REQUESTS = 16
 LM_PREFILL = (4, 64)  # (batch, tokens) of the kernel shapes' prefill: M = 256
 LM_FULL_PREFILL = (8, 32)  # the full-depth prefill, also M = 256
 INT_MM_MIN_M = 17  # torch._int_mm takes M > 16: M = 8 is zero-padded to 17
+#: the training phases: TrainLoop steps of (batch, seq) tokens, M = 256 rows
+#: per dense layer (the M = 256 tile rows), AdamW at a constant rate
+TRAIN_BATCH = (8, 32)
+TRAIN_STEPS = 3
+TRAIN_LR = 3e-4
+#: the crash/restart phase's cut of minitron-8b (a full-width checkpoint
+#: would write about 20 GB)
+RESTART_SIZE = {"n_layers": 2, "d_model": 512, "n_heads": 8, "n_kv_heads": 2,
+                "d_ff": 2048, "vocab": 4096}
+EDGE_QAT_STEPS = 120
+#: uncalibrated steps held card against CPU in edge_qat_path (a few: Adam
+#: moves each coefficient by about lr a step, and 5 steps of 0.1 would bring
+#: a coefficient to a rounding tie of its integer code)
+EDGE_QAT_CHECK_STEPS = 3
+EDGE_QAT_PARAM_ATOL = 1e-4
 #: the LM plan: layer 0 on the exact product table, every other FFN at
 #: csp_axc1@6, the rest proposed@8 ("layer.0.*" is the more literal match)
 LM_PLAN = {"version": 1, "default": "approx_cuda:proposed@8",
@@ -636,11 +669,14 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     del params, caches, logits, pf_logits
     torch.cuda.empty_cache()
 
+    train = lm_train_phases(dev, card, out_dir, counters, reset, counts, only)
+
     # rows of the kernels line: each design of each kernel at each LM shape
     # it runs. M = 8 rows count ServingEngine's launches (the main path;
     # kernel="lut" rows CudaSubstrate.dot_general's), where the tile
-    # designs must show 0; M = 256 rows count the prefill entry point's,
-    # which the engine does not call (it prefills token by token)
+    # designs must show 0; M = 256 rows count lm_train_path's (TrainLoop),
+    # beside the prefill entry point's, which the engine does not call (it
+    # prefills token by token)
     kinds = {"closed_form": ("closed_form_matmul", "src/repro_torch/csrc/approx_matmul.cu",
                              "src/repro/kernels/approx_matmul/kernel.py:59",
                              "proposed@8", "closed_form"),
@@ -650,7 +686,7 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
                             "src/repro/kernels/lut_matmul/kernel.py:74",
                             "proposed@8", "closed_form")}
     m_pf = LM_PREFILL[0] * LM_PREFILL[1]
-    served, prefill, lut_entry = ("ServingEngine.generate", "bundle.prefill",
+    served, trained, lut_entry = ("ServingEngine.generate", "TrainLoop.run",
                                   "CudaSubstrate.dot_general")
     # (kind, design, M) -> (key of ms/err, launches, phase, entry point)
     designs = {
@@ -659,13 +695,13 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
         ("closed_form", "tile", LM_BATCH): ("closed_form_tile",
             c2["closed_form_tile"], "lm_serving_path (must be 0)", served),
         ("closed_form", "tile", m_pf): ("closed_form_tile",
-            cpf["closed_form_tile"], "lm_planned_path (prefill)", prefill),
+            train["closed_form_tile"], "lm_train_path", trained),
         ("lut", "tensor", LM_BATCH): ("lut_tensor", cp["lut_tensor"],
                                       "lm_planned_path", served),
         ("lut", "tile", LM_BATCH): ("lut_tile", cp["lut_tile"],
                                     "lm_planned_path (must be 0)", served),
-        ("lut", "tile", m_pf): ("lut_tile", cpf["lut_tile"],
-                                "lm_planned_path (prefill)", prefill),
+        ("lut", "tile", m_pf): ("lut_tile", train["lut_tile"],
+                                "lm_train_path", trained),
         ("lut_kernel", "decode", LM_BATCH): ("lut_decode", c_lut["lut_decode"],
                                              "lm_lut_kernel_path", lut_entry)}
     rows, work = [], {}
@@ -689,8 +725,290 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
                          "design": design, "launches_on": where,
                          "entry_point": entry, "off_path": "must be 0" in where,
                          "launches_per_layer_step_at_shape": r["per_layer_step"]})
+            if m == m_pf:  # the same shape on bundle.prefill
+                rows[-1]["launches_bundle_prefill"] = cpf[key_]
             work[row_name] = r["work"][work_kind]
     return rows, work
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shape, dtype and bytes."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                            b.reshape(-1).contiguous().view(torch.uint8)))
+
+
+def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, reset, counts,
+                    only) -> dict:
+    """The training path: minitron-8b at its published widths, depth cut to
+    LM_LAYERS, through TrainLoop on the card (phase lm_train_path), then a
+    crash and restart at a reduced size with the launchers (phase
+    lm_train_restart). Returns the launches of lm_train_path by design."""
+    import shutil
+
+    from repro_torch.checkpoint import load_plan_bundle, unflatten_into
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import convert
+    from repro_torch.models import registry as reg
+    from repro_torch.nn import plan as plan_mod
+    from repro_torch.optim import adamw
+    from repro_torch.train import QATPolicy, TrainLoop, TrainLoopConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    work_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    full = reg.get_config(LM_ARCH)
+    bundle = reg.get_bundle(LM_ARCH, n_layers=LM_LAYERS)
+    batch, seq = TRAIN_BATCH
+
+    def train(plan, steps: int) -> tuple:
+        """``steps`` TrainLoop steps of QAT under ``plan`` from the seeded
+        init: (params, readings). Per step: CUDA events around it (the loss
+        is read on the host at its end, which synchronises) and the kernel
+        launches by design, counted from 0 before the run."""
+        loop = TrainLoop(bundle.loss_fn, adamw(), TrainLoopConfig(
+            total_steps=steps, ckpt_every=steps + 1, lr=TRAIN_LR,
+            ckpt_dir=str(work_dir / "unused"), qat=QATPolicy(),
+            plan=plan_mod.as_plan(plan)), layout=bundle.layout)
+        params, opt_state, start = loop.init_or_restore(
+            lambda: bundle.init_params(torch.Generator(dev).manual_seed(0), dev))
+        stream = SyntheticLMStream(vocab=bundle.cfg.vocab, batch=batch,
+                                   seq_len=seq, seed=0)
+        events, per_step = [torch.cuda.Event(enable_timing=True)], []
+
+        def on_step(_step, _loss):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            per_step.append(counts())
+            reset()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        events[0].record()
+        loop.run(params, opt_state, stream, start, on_step=on_step)
+        torch.cuda.synchronize()
+        losses = loop.metrics["losses"]
+        require(len(losses) == steps and all(np.isfinite(losses)),
+                f"training losses {losses}")
+        del opt_state
+        return params, {
+            "loss_per_step": losses,
+            "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": per_step}
+
+    # -- lm_train_path: each plan on the kernels, then on the table
+    # substrate (plain torch gathers, the same integers): the losses and
+    # every updated parameter bit for bit
+    reduced = {"n_layers": [LM_LAYERS, full.n_layers]}
+    cases = {}
+    launches = {name: 0 for name in counters}
+    for name, kern, plain, expect in (
+            ("approx_cuda:proposed@8", "approx_cuda:proposed@8",
+             "approx_lut:proposed@8", only(closed_form_tile=2 * 7 * LM_LAYERS)),
+            ("lm_plan", LM_PLAN, LM_PLAN_TABLE,
+             only(closed_form_tile=2 * 7 * (LM_LAYERS - 1), lut_tile=2 * 7))):
+        p_kern, r_kern = train(kern, TRAIN_STEPS)
+        require(all(c == expect for c in r_kern["launches_per_step"]),
+                f"lm_train_path {name}: launches per step "
+                f"{r_kern['launches_per_step']}, expected {expect}")
+        for c in r_kern["launches_per_step"]:
+            for k, v in c.items():
+                launches[k] += v
+        kern_params = {k: t.detach().cpu() for k, t in
+                       convert.named_leaves(p_kern).items()}
+        del p_kern
+        torch.cuda.empty_cache()
+        p_plain, r_plain = train(plain, TRAIN_STEPS)
+        require(all(c == only() for c in r_plain["launches_per_step"]),
+                f"the table substrate launched {r_plain['launches_per_step']}")
+        plain_params = convert.named_leaves(p_plain)
+        same_loss = r_kern["loss_per_step"] == r_plain["loss_per_step"]
+        differ = [k for k, t in kern_params.items()
+                  if not same_bits(t, plain_params[k].cpu())]
+        del p_plain, plain_params, kern_params
+        torch.cuda.empty_cache()
+        require(same_loss and not differ,
+                f"lm_train_path {name}: losses {r_kern['loss_per_step']} vs "
+                f"{r_plain['loss_per_step']}, params that differ: {differ[:8]}")
+        cases[name] = {"plan": kern, "kernels": r_kern, "against": plain,
+                       "plain": {k: r_plain[k] for k in
+                                 ("loss_per_step", "step_ms", "peak_memory_gb")},
+                       "losses_bit_identical": same_loss,
+                       "params_bit_identical": not differ}
+    emit("lm_train_path", arch=LM_ARCH, reduced=reduced, params=bundle.cfg.param_count(),
+         widths={"d_model": full.d_model, "n_heads": full.n_heads,
+                 "n_kv_heads": full.n_kv_heads, "d_ff": full.d_ff,
+                 "vocab": full.vocab},
+         entry_point="TrainLoop.run", batch=batch, seq_len=seq, rows_m=batch * seq,
+         steps=TRAIN_STEPS, optimizer="adamw", lr=TRAIN_LR, qat="bitexact",
+         remat=bundle.cfg.remat,
+         launches_expected="per step: 7 per layer in the forward + 7 in the "
+                           "recompute of the backward (remat); tile designs only",
+         cases=cases, launches=launches, card=card)
+
+    # one more step under torch.profiler: where a training step's device
+    # time goes (its launches are not counted in `launches`)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p_tr, r_tr = train("approx_cuda:proposed@8", 1)
+        wall = time.perf_counter() - t0
+    del p_tr
+    torch.cuda.empty_cache()
+    trace_path = out_dir / "chip_smoke_train_trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    busy_us, by_name = device_busy(trace_path)
+    step_ms = r_tr["step_ms"][0]
+    tile_ms = sum(v for k, v in by_name.items() if "matmul_kernel" in k) / 1e3
+    emit("lm_train_trace", trace=str(trace_path.relative_to(out_dir.parent)),
+         plan="approx_cuda:proposed@8", steps=1,
+         wall_s_with_init=wall, step_ms=step_ms,
+         device_busy_ms=busy_us / 1e3,
+         device_ms_by_name={k: v / 1e3 for k, v in sorted(
+             by_name.items(), key=lambda kv: -kv[1])[:12]},
+         tile_kernels_ms=tile_ms, launches=r_tr["launches_per_step"][0], card=card)
+
+    # -- lm_train_restart: crash -> restart bitwise at a reduced size
+    rcfg = reg.get_config(LM_ARCH, **RESTART_SIZE)
+    rbundle = reg.build_bundle(rcfg)
+    rsteps, every, fail = 12, 4, 10
+
+    def restart_loop(name: str, fail_at=None, plan=LM_PLAN, qat=True):
+        loop = TrainLoop(rbundle.loss_fn, adamw(), TrainLoopConfig(
+            total_steps=rsteps, ckpt_every=every, ckpt_dir=str(work_dir / name),
+            lr=1e-3, fail_at_step=fail_at, qat=QATPolicy() if qat else None,
+            plan=None if plan is None else plan_mod.as_plan(plan)),
+            layout=rbundle.layout)
+        params, opt_state, start = loop.init_or_restore(
+            lambda: rbundle.init_params(torch.Generator(dev).manual_seed(0), dev))
+        stream = SyntheticLMStream(vocab=rcfg.vocab, batch=batch, seq_len=seq, seed=0)
+        return loop, params, opt_state, start, stream
+
+    loop_a, pa, oa, sa, stream_a = restart_loop("a")
+    loop_a.run(pa, oa, stream_a, sa)
+    loop_b, pb, ob, sb, stream_b = restart_loop("b", fail_at=fail)
+    try:
+        loop_b.run(pb, ob, stream_b, sb)
+        crashed = None
+    except RuntimeError as e:
+        crashed = str(e)
+    require(crashed == f"injected failure at step {fail}", f"crash: {crashed}")
+    # the restart configures neither plan nor policy: both are adopted
+    loop_c, pc, oc, sc, stream_c = restart_loop("b", plan=None, qat=False)
+    adopted = (loop_c.cfg.plan == plan_mod.as_plan(LM_PLAN)
+               and loop_c.cfg.qat == QATPolicy())
+    require(sc == 8 and loop_c.metrics["resumed_from"] == 8 and adopted,
+            f"restart from {sc}, adopted plan {loop_c.cfg.plan}")
+    loop_c.run(pc, oc, stream_c, sc)
+    la, lc = convert.named_leaves(pa), convert.named_leaves(pc)
+    restart_same = (all(same_bits(la[k], lc[k]) for k in la)
+                    and same_bits(oa["step"], oc["step"])
+                    and all(same_bits(oa["mv"][k][s], oc["mv"][k][s])
+                            for k in oa["mv"] for s in ("m", "v")))
+    require(restart_same, "restarted run differs from the uninterrupted one")
+    try:
+        restart_loop("b", plan="approx_cuda:proposed@8")
+        conflict = None
+    except ValueError as e:
+        conflict = str(e)
+    require(conflict is not None and "plan" in conflict,
+            "a conflicting plan was not refused")
+    # the launchers: --qat-out writes a bundle, serve --plan DIR serves it
+    flags = ["--arch", LM_ARCH, "--device", "cuda"] + [
+        a for k, v in RESTART_SIZE.items() for a in (f"--{k.replace('_', '-')}", str(v))]
+    bundle_dir = work_dir / "bundle"
+    _, trained = launch_train.main(flags + [
+        "--steps", "4", "--batch", str(batch), "--seq-len", str(seq),
+        "--ckpt-dir", str(work_dir / "launcher"), "--ckpt-every", "2",
+        "--qat", "--dot-plan", json.dumps(LM_PLAN), "--qat-out", str(bundle_dir)])
+    plan_b, flat_b, _ = load_plan_bundle(str(bundle_dir))
+    shipped = rbundle.layout.from_tree(unflatten_into(rbundle.layout.to_tree(
+        {k: t.to("meta") for k, t in convert.named_leaves(trained).items()}),
+        flat_b, "cpu"))
+    bundle_same = plan_b == plan_mod.as_plan(LM_PLAN) and all(
+        same_bits(t.cpu(), shipped[k]) for k, t in convert.named_leaves(trained).items())
+    require(bundle_same, "the bundle differs from the trained params")
+    served = launch_serve.main(flags + ["--plan", str(bundle_dir), "--requests", "4",
+                                        "--batch", "4", "--max-tokens", "4"])
+    require(len(served) == 4 and all(r.done and len(r.output) == 4 for r in served),
+            "serving from the bundle")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    emit("lm_train_restart", arch=LM_ARCH,
+         reduced={k: [v, getattr(full, k)] for k, v in RESTART_SIZE.items()},
+         steps=rsteps, ckpt_every=every, fail_at_step=fail, crashed=crashed,
+         resumed_from=loop_c.metrics["resumed_from"], adopted_plan_and_policy=adopted,
+         params_and_optimizer_state_bit_identical=restart_same,
+         conflicting_plan_refused=conflict,
+         bundle={"arrays": len(flat_b), "plan": plan_b.to_dict(),
+                 "params_bit_identical": bundle_same,
+                 "served_requests": len(served)},
+         losses_uninterrupted=loop_a.metrics["losses"],
+         losses_restarted=loop_c.metrics["losses"], card=card)
+    del pa, oa, pb, ob, pc, oc, trained
+    torch.cuda.empty_cache()
+    return launches
+
+
+def edge_qat_phase(dev, tiles: list, planned_maps: list, counters: dict) -> dict:
+    """finetune_edge on the 512x512 test images under the edge plan: at init
+    the QAT model's maps equal the served planned maps byte for byte, and
+    the forward runs only the narrow designs of the contraction kernels.
+    Returns the launches by counter name."""
+    from repro_torch.train import qat
+
+    imgs = torch.from_numpy(np.stack(tiles)).to(dev)
+    for c in counters.values():
+        c.reset()
+    init_maps = qat.edge_maps(qat.init_edge_params(dev), imgs, PLAN).cpu().numpy()
+    require(np.array_equal(init_maps, np.stack(planned_maps)),
+            "edge QAT maps at init differ from the served planned maps")
+    t0 = time.perf_counter()
+    res = qat.finetune_edge(imgs, PLAN, steps=EDGE_QAT_STEPS, lr=0.1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.value for k, c in counters.items()}
+    narrow = ("closed_form_matmul_narrow", "lut_matmul_narrow")
+    require(all(launches[k] > 0 for k in narrow)
+            and all(v == 0 for k, v in launches.items() if k not in narrow),
+            f"edge QAT launches {launches}")
+    require(all(np.isfinite(res["losses"])) and res["psnr_post"] >= res["psnr_pre"],
+            f"edge QAT: psnr {res['psnr_pre']} -> {res['psnr_post']}")
+    # the card trains: the calibration alone can meet the PSNR check above,
+    # so a few uncalibrated steps (from the Laplacian, far from the optimum)
+    # run on the card and on the CPU must agree and lower the loss. The
+    # forward's integer sums are exact on both; each gradient is a float32
+    # mean over 4.2 M products with cancellation, summed in another order
+    # on the card, and Adam's later steps follow the gradients' ratios, so
+    # the params agree to EDGE_QAT_PARAM_ATOL, not to the 1e-6 that 1152
+    # pixels give in tests/test_torch_qat.py. A wrong backward moves them
+    # by a step (lr = 0.1) or more.
+    steps = EDGE_QAT_CHECK_STEPS
+    on_card = qat.finetune_edge(imgs, PLAN, steps=steps, lr=0.1, calibrate=False)
+    on_cpu = qat.finetune_edge(imgs.cpu(), PLAN, steps=steps, lr=0.1, calibrate=False)
+    param_err = {k: float((on_card["params"][k].cpu() - v).abs().max())
+                 for k, v in on_cpu["params"].items()}
+    require(np.allclose(on_card["losses"], on_cpu["losses"], rtol=1e-6, atol=0)
+            and max(param_err.values()) <= EDGE_QAT_PARAM_ATOL
+            and on_card["losses"][-1] < on_card["losses"][0],
+            f"uncalibrated edge QAT: card losses {on_card['losses']}, CPU losses "
+            f"{on_cpu['losses']}, params differ by {param_err}")
+    emit("edge_qat_path", plan=PLAN, images=len(tiles), shape=list(imgs.shape),
+         steps=EDGE_QAT_STEPS, lr=0.1, init_maps_byte_identical_to_served=True,
+         psnr_pre_db=res["psnr_pre"], psnr_post_db=res["psnr_post"],
+         loss_first=res["losses"][0], loss_min=min(res["losses"]),
+         loss_last=res["losses"][-1], wall_s=wall,
+         params={k: v.cpu().reshape(-1).tolist() for k, v in res["params"].items()},
+         launches=launches,
+         uncalibrated_card_vs_cpu={"steps": steps, "losses_card": on_card["losses"],
+                                   "losses_cpu": on_cpu["losses"],
+                                   "max_abs_param_diff": param_err,
+                                   "tolerance": {"loss_rtol": 1e-6,
+                                                 "param_atol": EDGE_QAT_PARAM_ATOL}})
+    return launches
 
 
 def main() -> int:
@@ -1117,6 +1435,18 @@ def main() -> int:
          byte_identical=True)
     emit_trace("planned_path_trace", p_trace_path, p_traced, p_tracer)
 
+    # -- 5c. edge QAT: finetune_edge under the same plan -------------------
+    qat_launches = edge_qat_phase(dev, tiles, p_served[32:48], {
+        "closed_form_matmul": closed_form_matmul.launches,
+        "closed_form_matmul_narrow": closed_form_matmul.narrow_launches,
+        "closed_form_matmul_decode": closed_form_matmul.decode_launches,
+        "lut_matmul": lut_matmul.launches,
+        "lut_matmul_narrow": lut_matmul.narrow_launches,
+        "lut_matmul_decode": lut_matmul.decode_launches,
+        "lut_matmul_tensor": lut_matmul.tensor_launches,
+        "fused_conv2d": fused_conv2d.launches,
+        "fused_conv2d_lut": fused_conv2d.lut_launches})
+
     # uniform approx_cuda:exact: the fused conv's LUT kind on every batch
     svc = EdgeDetectService("approx_cuda:exact", max_batch_size=8,
                             bucket_granularity=16, n_workers=2)
@@ -1402,15 +1732,18 @@ def main() -> int:
         contraction_row("closed_form_matmul[ring]", "tile",
                         w_launches["closed_form_matmul"], "wide_contraction_path",
                         mr_err, mr_ms, mr_bound, mr_by, None, mr_shape, rk),
-        contraction_row("closed_form_matmul[ring,narrow]", "narrow",
-                        p_launches["closed_form_matmul_narrow"], "planned_path",
-                        mr_err, mr_ms, mr_bound, mr_by, None, mr_shape, rk),
+        dict(contraction_row("closed_form_matmul[ring,narrow]", "narrow",
+                             p_launches["closed_form_matmul_narrow"], "planned_path",
+                             mr_err, mr_ms, mr_bound, mr_by, None, mr_shape, rk),
+             launches_edge_qat_path=qat_launches["closed_form_matmul_narrow"]),
         contraction_row("lut_matmul", "tile", w_launches["lut_matmul"],
                         "wide_contraction_path", lm_err, lm_ms, lm_bound, lm_by,
                         lm_lib_ms, lm_shape, "exact"),
-        contraction_row("lut_matmul[narrow]", "narrow",
-                        p_launches["lut_matmul_narrow"], "planned_path",
-                        lm_err, lm_ms, lm_bound, lm_by, lm_lib_ms, lm_shape, "exact"),
+        dict(contraction_row("lut_matmul[narrow]", "narrow",
+                             p_launches["lut_matmul_narrow"], "planned_path",
+                             lm_err, lm_ms, lm_bound, lm_by, lm_lib_ms, lm_shape,
+                             "exact"),
+             launches_edge_qat_path=qat_launches["lut_matmul_narrow"]),
         {"name": "approx_mul", "route": "cuda",
          "source": "src/repro_torch/csrc/approx_mul.cu",
          "replaces": "src/repro/kernels/approx_mul/kernel.py:19",

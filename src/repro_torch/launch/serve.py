@@ -12,8 +12,9 @@ is given; no card raises), and serves synthetic requests through
         --n-layers 2 --d-model 32 --d-ff 64 --vocab 64 --n-heads 2 \\
         --n-kv-heads 2 --requests 3 --plan plan.json
 
-``--plan`` takes a plan JSON file (a plan-bundle directory raises until the
-checkpoint module is ported, ROADMAP.md queue 1 item 8). ``--metrics-out``
+``--plan`` takes a plan JSON file or a plan-bundle directory (as
+``repro_torch.launch.train --qat-out`` writes it); a bundle that carries
+params restores them into the model. ``--metrics-out``
 dumps the engine's metrics registry (Prometheus text for ``.prom``/``.txt``
 paths, JSON otherwise) and ``--trace-out`` writes a Chrome/Perfetto trace of
 the serving spans.
@@ -27,53 +28,14 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import load_plan_bundle, unflatten_into
+from repro_torch.launch.train import (add_reduced_overrides, overrides_from,
+                                      resolve_device)
+from repro_torch.models import convert
 from repro_torch.models import registry as reg
 from repro_torch.nn import plan as plan_mod
 from repro_torch.obs import Tracer, tracing_scope, write_chrome_trace, write_metrics
 from repro_torch.serving import Request, ServingEngine
-
-
-# Private copies of repro.launch.train's parse_plan_arg, add_reduced_overrides
-# and overrides_from, until the training launcher is ported (queue 1 item 10).
-def _parse_plan_arg(arg: str) -> plan_mod.SubstratePlan:
-    """CLI plan argument: a spec string, inline plan JSON, or a JSON path."""
-    arg = arg.strip()
-    if arg.startswith("{"):
-        return plan_mod.SubstratePlan.from_json(arg)
-    if arg.endswith(".json"):
-        return plan_mod.load_plan(arg)
-    return plan_mod.as_plan(arg)
-
-
-def _add_reduced_overrides(ap: argparse.ArgumentParser):
-    ap.add_argument("--n-layers", type=int, default=None)
-    ap.add_argument("--d-model", type=int, default=None)
-    ap.add_argument("--d-ff", type=int, default=None)
-    ap.add_argument("--vocab", type=int, default=None)
-    ap.add_argument("--n-heads", type=int, default=None)
-    ap.add_argument("--n-kv-heads", type=int, default=None)
-    ap.add_argument("--dot-mode", default=None,
-                    help="uniform substrate spec, e.g. 'exact', 'int8', or "
-                         "'approx_cuda:proposed@6' (any registered "
-                         "backend:mult@width)")
-    ap.add_argument("--dot-plan", default=None,
-                    help="site-addressed substrate plan: a spec string, "
-                         "inline plan JSON, or path to a plan .json")
-
-
-def _overrides_from(args) -> dict:
-    keys = {"n_layers": args.n_layers, "d_model": args.d_model,
-            "d_ff": args.d_ff, "vocab": args.vocab, "n_heads": args.n_heads,
-            "n_kv_heads": args.n_kv_heads}
-    out = {k: v for k, v in keys.items() if v is not None}
-    # --dot-plan (site-addressed) wins over --dot-mode (uniform shorthand);
-    # both land in cfg.dot_plan
-    if args.dot_plan:
-        out["dot_plan"] = _parse_plan_arg(args.dot_plan)
-    elif args.dot_mode:
-        out["dot_plan"] = plan_mod.SubstratePlan.uniform(
-            plan_mod._check_spec(args.dot_mode))
-    return out
 
 
 def main(argv=None):
@@ -87,8 +49,10 @@ def main(argv=None):
                     help="concurrent decode loops (each with its own KV "
                          "caches and CUDA stream; requests split round-robin)")
     ap.add_argument("--plan", default=None, metavar="PATH",
-                    help="substrate plan JSON file (see docs/plans.md); "
-                         "serves the model with per-site mixed substrates")
+                    help="substrate plan: a plan JSON file or a plan-bundle "
+                         "directory (see docs/plans.md). Serves the model "
+                         "with per-site mixed substrates; a bundle that "
+                         "carries params restores them too.")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu (the "
                          "kernels' plain versions)")
@@ -98,25 +62,27 @@ def main(argv=None):
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome/Perfetto trace-event JSON of the "
                          "serving spans")
-    _add_reduced_overrides(ap)
+    add_reduced_overrides(ap)
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu "
-                           "to run the plain versions")
-    plan = None
-    if args.plan:
-        if os.path.isdir(args.plan):
-            raise NotImplementedError(
-                "plan bundles (directories) need the checkpoint module, not "
-                "ported yet (ROADMAP.md, queue 1 item 8); pass a plan JSON")
-        plan = plan_mod.load_plan(args.plan)
-        print(f"[serve] substrate plan: {plan.label}")
-    cfg = reg.get_config(args.arch, **_overrides_from(args))
+    device = resolve_device(args.device)
+    cfg = reg.get_config(args.arch, **overrides_from(args))
     bundle = reg.build_bundle(cfg)
     params = bundle.init_params(
         torch.Generator(device=device).manual_seed(0), device)
+    plan = None
+    if args.plan:
+        if os.path.isdir(args.plan):
+            plan, flat, _ = load_plan_bundle(args.plan, device=device)
+            if flat is not None:  # the bundle ships params: restore them
+                template = bundle.layout.to_tree(
+                    {k: t.to("meta") for k, t in
+                     convert.named_leaves(params).items()})
+                convert.assign_(params, bundle.layout.from_tree(
+                    unflatten_into(template, flat, device)))
+        else:
+            plan = plan_mod.load_plan(args.plan)
+        print(f"[serve] substrate plan: {plan.label}")
     engine = ServingEngine(bundle, params, batch_size=args.batch,
                            max_len=args.max_len, substrate=plan, device=device)
 

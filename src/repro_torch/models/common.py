@@ -13,21 +13,31 @@ parameters are ``nn.Module``s (:class:`Dense`, :class:`Attn`, :class:`FFN`,
   torch ops, float32 throughout (no (Sq, Skv) score tensor beyond one
   chunk);
 * the LM head is a float32 matmul against the embedding, outside the
-  substrate, as ``repro``'s einsum is.
+  substrate, as ``repro``'s einsum is; :func:`lm_loss_chunked` is the
+  training loss, one vocabulary chunk of logits at a time.
 
-Not ported: ``lm_loss_chunked`` (with training, ROADMAP.md queue 1 item 9),
-MoE (``init_moe``, ``moe_block``, its local and expert-parallel dispatch;
-item 7) and ``sharding.constrain``, which has no meaning without a mesh
-(item 11).
+The parameters are built with ``requires_grad=False``, so serving records
+no autograd graph. Training turns them on with the module's own switch,
+``module.requires_grad_(True)``, around the loss, and off again after the
+step (``repro_torch.train.loop``): the parameters stay the same
+``nn.Parameter`` objects of the same module, and the optimizer updates them in
+place.
+
+Not ported: MoE (``init_moe``, ``moe_block``, its local and expert-parallel
+dispatch; ROADMAP.md queue 1 item 7) and ``sharding.constrain``, which has
+no meaning without a mesh (item 11).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
+import weakref
 from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import plan as splan
 from repro_torch.nn import substrate as psub
@@ -68,7 +78,11 @@ class ModelConfig:
     dot_plan: Any = "exact"        # site-addressed substrate assignment: a
                                    # repro_torch.nn.plan.SubstratePlan, a spec
                                    # string or a plan dict (substrate_plan())
+    remat: bool = True             # recompute each layer in the backward
+                                   # (torch.utils.checkpoint; training only)
     attn_chunk: int = 512
+    loss_chunk: int = 512          # sequence positions per logits chunk of
+                                   # lm_loss_chunked
 
     def __post_init__(self):
         if self.n_experts:
@@ -93,7 +107,8 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Parameters: frozen tensors in nn.Modules
+# Parameters: tensors in nn.Modules, frozen until a training step unfreezes
+# them (module.requires_grad_)
 # ---------------------------------------------------------------------------
 
 
@@ -132,18 +147,44 @@ class Embed(nn.Module):
     """The (vocab, d_model) embedding, shared with the LM head, and the
     final norm's scale ``ln_f``.
 
-    ``emb_f32`` is the embedding in float32, taken once at construction:
-    ``repro``'s ``lm_logits`` casts it on every call, which gives the same
-    numbers (4.2 GB written per decode step at minitron-8b). The module is
-    immutable after construction.
+    :attr:`emb_f32` is the embedding in float32 for ``lm_logits``: ``repro``
+    casts it on every call, which gives the same numbers (4.2 GB written per
+    decode step at minitron-8b), so the cast is kept and taken again only
+    when ``emb`` has changed since: another tensor (a weak reference to the
+    source tells), a new storage (its address), or an in-place update (its
+    version counter). The cast is taken on first use, so a model that only
+    trains never holds it, and under a lock, so serving workers that start
+    together cast once. The training loss casts ``emb`` itself, inside the
+    autograd graph.
     """
 
     def __init__(self, emb: Tensor, ln_f: Tensor):
         super().__init__()
         self.emb = _frozen(emb)
         self.ln_f = _frozen(ln_f)
-        self.register_buffer("emb_f32", emb.detach().to(torch.float32),
-                             persistent=False)
+        self._f32 = (None, None)  # (key of the emb it was cast from, cast)
+
+    def _stale(self, key) -> bool:
+        return (key is None or key[0]() is not self.emb
+                or key[1:] != (self.emb.data_ptr(), self.emb._version))
+
+    @property
+    def emb_f32(self) -> Tensor:
+        key, cast = self._f32
+        if self._stale(key):
+            with _EMB_CAST_LOCK:
+                key, cast = self._f32
+                if self._stale(key):
+                    cast = self.emb.detach().to(torch.float32)
+                    # one assignment: readers on other threads see the old
+                    # pair or the new one, never a mix
+                    self._f32 = ((weakref.ref(self.emb), self.emb.data_ptr(),
+                                  self.emb._version), cast)
+        return cast
+
+
+#: one recast of an embedding at a time (see Embed.emb_f32)
+_EMB_CAST_LOCK = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
@@ -177,12 +218,19 @@ def dense(cfg: ModelConfig, x: Tensor, w: Tensor, b: Optional[Tensor] = None,
     layer loop opens ``site_scope(f"layer.{i}")`` per layer, which gives each
     layer its own assignment where ``repro`` dispatches through
     ``scan_site_scope`` and ``lax.switch``. The contraction runs through
-    ``dot_general`` with the default quantization policy.
+    ``dot_general`` with the default quantization policy, or through the
+    ambient :func:`repro_torch.nn.substrate.dot_override_scope` hook where
+    one is installed (QAT's straight-through contraction).
     """
     plan = substrate_plan(cfg)
     _, (name,) = splan.current_sites(site)
+    spec_str = plan.resolve(name)
     cspec = psub.ContractionSpec.matmul(quant=_DENSE_QUANT, site=name or None)
-    out = psub.get_substrate(plan.resolve(name)).dot_general(x, w, cspec)
+    override = psub.current_dot_override()
+    if override is not None:
+        out = override(spec_str, x, w, cspec)
+    else:
+        out = psub.get_substrate(spec_str).dot_general(x, w, cspec)
     if b is not None:
         out = out + b.to(out.dtype)
     return out
@@ -350,7 +398,7 @@ def ffn_block(cfg: ModelConfig, p: FFN, x: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Embedding / LM head
+# Embedding / LM head / chunked loss
 # ---------------------------------------------------------------------------
 
 
@@ -370,3 +418,39 @@ def lm_logits(cfg: ModelConfig, p: Embed, x: Tensor) -> Tensor:
     x = rms_norm(x, p.ln_f)
     with trace_span("lm.logits", "model"):
         return torch.matmul(x.to(torch.float32), p.emb_f32.t())
+
+
+def _xent_sum(xs: Tensor, labels: Tensor, emb_t: Tensor) -> Tensor:
+    """Σ (logsumexp − gold logit) over one chunk of positions, float32."""
+    logits = torch.matmul(xs.to(torch.float32), emb_t)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def lm_loss_chunked(cfg: ModelConfig, p: Embed, x: Tensor,
+                    labels: Tensor) -> Tensor:
+    """Mean softmax cross-entropy of hidden states ``x`` (B, S, d) against
+    ``labels`` (B, S), never holding more than one chunk of ``loss_chunk``
+    positions' (B, chunk, V) logits: each chunk is recomputed in the
+    backward (``repro``'s ``jax.checkpoint`` of its scan body), the
+    remainder chunk last. The embedding is cast to float32 on every call,
+    inside the graph, so its gradient flows."""
+    b, s, _ = x.shape
+    x = rms_norm(x, p.ln_f)
+    chunk = min(cfg.loss_chunk, s)
+    n = s // chunk
+    emb_t = p.emb.to(torch.float32).t()  # (d, V)
+    labels = labels.to(torch.int64)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        if torch.is_grad_enabled():
+            part = checkpoint(_xent_sum, x[:, sl], labels[:, sl], emb_t,
+                              use_reentrant=False)
+        else:
+            part = _xent_sum(x[:, sl], labels[:, sl], emb_t)
+        total = total + part
+    if s - n * chunk:
+        total = total + _xent_sum(x[:, n * chunk:], labels[:, n * chunk:], emb_t)
+    return total / (b * s)

@@ -1,4 +1,4 @@
-"""Parameters from ``repro``'s layout into the port's modules.
+"""Parameters and optimizer state between ``repro``'s layout and the port's.
 
 ``repro.models.lm.init_params`` returns a pytree: ``{"embed": {"emb",
 "ln_f"}, "unit": [per in-unit position u: that layer's dict stacked over
@@ -9,14 +9,28 @@ params)``; this module imports neither ``jax`` nor ``repro``) and builds the
 of position ``u`` becomes layer ``r * unit_period + u``, then the tail
 follows. Dtypes are kept (numpy's ``bfloat16`` from ``ml_dtypes`` is read
 bit for bit).
+
+The other direction goes through a :class:`TreeLayout`: it maps the port's
+flat parameter names (``module.named_parameters()``: ``embed.emb``,
+``layers.5.attn.wq.w``) to ``repro``'s tree paths and back, stacking and
+unstacking the unit repeats. A name may carry extra segments after the
+parameter's own (``layers.5.attn.wq.w.m``), which land below it in the tree:
+that is how an optimizer's per-parameter statistics ``{"m", "v"}`` (AdamW)
+take ``repro``'s layout ``{"step", "mv": tree of {"m", "v"}}``. Checkpoints
+and plan bundles of the port store these trees, so files written by either
+package restore in the other. :func:`lm_params_to_jax` and
+:func:`adamw_state_to_jax` give the same trees as numpy arrays (a bfloat16
+leaf as ``ml_dtypes.bfloat16``, which every ``repro`` installation has).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from repro_torch.checkpoint.ckpt import tree_leaves, tree_map
 from repro_torch.models import common as cm
 from repro_torch.models import lm
 
@@ -67,3 +81,163 @@ def lm_params_from_jax(cfg: cm.ModelConfig, tree: Dict[str, Any],
     e = tree["embed"]
     return lm.LM(cm.Embed(_tensor(e["emb"], device), _tensor(e["ln_f"], device)),
                  layers)
+
+
+# ---------------------------------------------------------------------------
+# the port's flat names <-> repro's trees
+# ---------------------------------------------------------------------------
+
+
+def _put(tree, path: Tuple, value) -> None:
+    node = tree
+    for seg in path[:-1]:
+        node = node[seg] if isinstance(node, list) else node.setdefault(seg, {})
+    node[path[-1]] = value
+
+
+class TreeLayout:
+    """Flat names ↔ tree paths, one ``.``-separated segment per level: the
+    layout of a plain dict of tensors (the edge model's ``{"kernel",
+    "gain", "bias"}``). :func:`lm_layout` adds the LM's unit stacking."""
+
+    def _split(self, name: str) -> Tuple[Tuple, Optional[int]]:
+        """(tree path, repeat index where the leaf is stacked, else None)."""
+        return tuple(name.split(".")), None
+
+    def _join(self, path: Tuple, leaf) -> Iterator[Tuple[str, Any]]:
+        yield ".".join(str(p) for p in path), leaf
+
+    def _skeleton(self) -> dict:
+        return {}
+
+    def to_tree(self, flat: Dict[str, Any]) -> dict:
+        """Flat ``{name: tensor}`` → the tree (stacked leaves: ``torch.stack``
+        of the repeats, so meta tensors give a template without copies)."""
+        tree, stacks = self._skeleton(), {}
+        for name, t in flat.items():
+            path, r = self._split(name)
+            if r is None:
+                _put(tree, path, t)
+            else:
+                stacks.setdefault(path, {})[r] = t
+        for path, parts in stacks.items():
+            _put(tree, path, torch.stack([parts[r] for r in sorted(parts)]))
+        return tree
+
+    def from_tree(self, tree) -> Dict[str, Any]:
+        """The tree → flat ``{name: leaf}`` (a stacked leaf's repeats are
+        views of it)."""
+        return {name: leaf for path, t in tree_leaves(tree)
+                for name, leaf in self._join(path, t)}
+
+    def state_to_tree(self, state: Dict[str, Any]) -> dict:
+        """Optimizer state ``{"step", "mv": {name: {stat: tensor}}}`` → the
+        same with ``mv`` in the tree layout, a ``{stat: ...}`` dict at each
+        parameter's place."""
+        return {"step": state["step"], "mv": self.to_tree(
+            {f"{n}.{k}": t for n, d in state["mv"].items() for k, t in d.items()})}
+
+    def state_from_tree(self, tree) -> Dict[str, Any]:
+        mv: Dict[str, Dict[str, Any]] = {}
+        for name, t in self.from_tree(tree["mv"]).items():
+            param, _, stat = name.rpartition(".")
+            mv.setdefault(param, {})[stat] = t
+        return {"step": tree["step"], "mv": mv}
+
+
+class _LMLayout(TreeLayout):
+    """``layers.{i}.*`` → ``unit[i % period]`` stacked at ``i // period``
+    for the layers of whole units, ``tail[...]`` for the rest."""
+
+    def __init__(self, cfg: cm.ModelConfig):
+        self.period = lm.unit_period(cfg)
+        self.n_units = cfg.n_layers // self.period
+        self.n_layers = cfg.n_layers
+
+    def _skeleton(self) -> dict:
+        return {"unit": [{} for _ in range(self.period if self.n_units else 0)],
+                "tail": [{} for _ in range(self.n_layers
+                                           - self.n_units * self.period)]}
+
+    def _split(self, name):
+        head, _, rest = name.partition(".")
+        if head != "layers":
+            return super()._split(name)
+        idx, _, rest = rest.partition(".")
+        i, tail = int(idx), tuple(rest.split("."))
+        if not 0 <= i < self.n_layers:
+            raise ValueError(f"{name}: layer {i} of {self.n_layers}")
+        if i < self.n_units * self.period:
+            return ("unit", i % self.period) + tail, i // self.period
+        return ("tail", i - self.n_units * self.period) + tail, None
+
+    def _join(self, path, leaf):
+        rest = ".".join(str(p) for p in path[2:])
+        if path[0] == "unit":
+            if leaf.shape[0] != self.n_units:
+                raise ValueError(f"{'/'.join(map(str, path))}: {leaf.shape[0]} "
+                                 f"repeats, the config has {self.n_units}")
+            for r in range(self.n_units):
+                yield f"layers.{r * self.period + path[1]}.{rest}", leaf[r]
+        elif path[0] == "tail":
+            yield f"layers.{self.n_units * self.period + path[1]}.{rest}", leaf
+        else:
+            yield from super()._join(path, leaf)
+
+
+def lm_layout(cfg: cm.ModelConfig) -> TreeLayout:
+    """The layout of ``repro``'s ``lm.init_params(cfg, key)`` tree."""
+    return _LMLayout(cfg)
+
+
+def named_leaves(params) -> Dict[str, torch.Tensor]:
+    """A module's parameters by name (``named_parameters``), or a flat dict
+    of tensors as it is: the leaves an optimizer updates."""
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+@torch.no_grad()
+def assign_(params, flat: Dict[str, Any]) -> None:
+    """Copy ``flat`` into ``params``' leaves in place, name by name; every
+    leaf must be there with its shape and dtype."""
+    own = named_leaves(params)
+    if set(own) != set(flat):
+        raise KeyError(f"leaves differ: missing {sorted(set(own) - set(flat))}, "
+                       f"unknown {sorted(set(flat) - set(own))}")
+    for name, t in own.items():
+        src = flat[name]
+        if tuple(src.shape) != tuple(t.shape) or src.dtype != t.dtype:
+            raise ValueError(f"{name}: {tuple(src.shape)} {src.dtype} does not "
+                             f"fit {tuple(t.shape)} {t.dtype}")
+        t.copy_(src)
+
+
+def _numpy(t) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's own dtypes have no bfloat16
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def lm_params_to_jax(cfg: cm.ModelConfig, params: lm.LM) -> Dict[str, Any]:
+    """The inverse of :func:`lm_params_from_jax`: ``params`` as ``repro``'s
+    ``lm.init_params(cfg, key)`` tree of numpy arrays."""
+    return tree_map(lm_layout(cfg).to_tree(named_leaves(params)), _numpy)
+
+
+def adamw_state_to_jax(cfg: cm.ModelConfig, state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's AdamW state of an LM (``repro_torch.optim.adamw``) as
+    ``repro``'s ``{"step", "mv": tree of {"m", "v"}}`` of numpy arrays."""
+    return tree_map(lm_layout(cfg).state_to_tree(state), _numpy)
+
+
+def adamw_state_from_jax(cfg: cm.ModelConfig, tree: Dict[str, Any],
+                         device="cpu") -> Dict[str, Any]:
+    """``repro``'s AdamW state of an LM (numpy arrays) → the port's, on
+    ``device``, keyed by the LM's parameter names."""
+    return tree_map(lm_layout(cfg).state_from_tree(tree),
+                lambda a: _tensor(a, device))

@@ -11,9 +11,14 @@ bias) and gemma3 (5:1 local:global attention). The parameters are an
 KV caches are a list of per-layer ``(K, V)`` tensors ``(B, S_max, Hkv,
 dh)`` on the model's device, written in place by :func:`decode_step`.
 
-MoE layers, the vlm patch projection and the loss are not ported
-(ROADMAP.md queue 1 items 7 and 9): a config with ``n_experts > 0`` raises
-at construction.
+:func:`loss_fn` is the training loss. Under ``cfg.remat`` (and only while
+autograd records) each layer is a ``torch.utils.checkpoint`` region that
+the backward recomputes, as ``repro``'s ``jax.checkpoint`` per layer: the
+recompute runs the layer's contractions again, so a training step launches
+each dense kernel twice.
+
+MoE layers and the vlm patch projection are not ported (ROADMAP.md queue 1
+item 7): a config with ``n_experts > 0`` raises at construction.
 """
 from __future__ import annotations
 
@@ -21,9 +26,11 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
 from repro_torch.nn import plan as splan
+from repro_torch.nn import substrate as psub
 
 Tensor = torch.Tensor
 Caches = List[Tuple[Tensor, Tensor]]
@@ -111,6 +118,32 @@ def _check(cfg: cm.ModelConfig, params: LM) -> None:
                          f"layers, the config {cfg.n_layers}")
 
 
+def _maybe_remat(cfg: cm.ModelConfig, fn):
+    """``fn`` as a checkpointed region under ``cfg.remat`` while autograd
+    records, else ``fn`` itself.
+
+    The layer reads thread-local ambients: the site stack, the plan
+    override and the contraction override (QAT's STE). On the card,
+    autograd runs the backward, and so the recompute, on its own device
+    thread, where none of them is set; they are captured here and entered
+    again around every run of ``fn``, so the recompute contracts on the
+    same substrates as the forward did.
+    """
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    sites = splan.current_site_stack()
+    plan = splan.current_plan_override()
+    override = psub.current_dot_override()
+
+    def replay(*args):
+        with splan.site_stack_scope(sites), splan.plan_override_scope(plan), \
+                psub.dot_override_scope(override):
+            return fn(*args)
+
+    return lambda *args: checkpoint(replay, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
 def forward(cfg: cm.ModelConfig, params: LM, tokens: Tensor) -> Tensor:
     """Full-sequence forward: tokens (B, S) → final hidden states (B, S, d)."""
     _check(cfg, params)
@@ -119,8 +152,16 @@ def forward(cfg: cm.ModelConfig, params: LM, tokens: Tensor) -> Tensor:
     positions = torch.arange(s, device=x.device).expand(b, s)
     for i, layer in enumerate(params.layers):
         with splan.site_scope(f"layer.{i}"):
-            x, _ = _apply_layer(cfg, layer, x, positions)
+            x = _maybe_remat(cfg, lambda xx, layer=layer: _apply_layer(
+                cfg, layer, xx, positions)[0])(x)
     return x
+
+
+def loss_fn(cfg: cm.ModelConfig, params: LM, batch: Dict[str, Tensor]) -> Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S) against
+    ``batch["labels"]`` (B, S): a float32 scalar."""
+    x = forward(cfg, params, batch["tokens"])
+    return cm.lm_loss_chunked(cfg, params.embed, x, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

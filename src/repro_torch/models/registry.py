@@ -4,9 +4,10 @@ Counterpart of ``repro.models.registry`` for the ``lm`` family: every
 registered architecture (:mod:`repro_torch.configs`) resolves here by name,
 and :func:`build_bundle` binds a config to the model functions and its
 substrate plan. Other families (vlm, xlstm, zamba, encdec) raise until their
-slices are ported (ROADMAP.md queue 1 item 7); the loss (with training,
-item 9) and the dry-run's ``SHAPES`` / ``input_specs`` /
-``decode_state_specs`` / ``param_specs`` (item 12) are not ported.
+slices are ported (ROADMAP.md queue 1 item 7); the dry-run's ``SHAPES`` /
+``input_specs`` / ``decode_state_specs`` / ``param_specs`` (item 12) are not
+ported. ``bundle.layout`` maps the parameters' names to ``repro``'s tree, the
+layout checkpoints and plan bundles store.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import dataclasses
 from typing import Any, Callable, Dict
 
 from repro_torch.models import common as cm
-from repro_torch.models import lm
+from repro_torch.models import convert, lm
 from repro_torch.nn import substrate as psub
 
 
@@ -22,6 +23,7 @@ from repro_torch.nn import substrate as psub
 class ModelBundle:
     cfg: cm.ModelConfig
     init_params: Callable        # (generator, device=None) -> params
+    loss_fn: Callable            # (params, batch) -> scalar
     prefill: Callable            # (params, batch) -> logits
     decode_step: Callable        # (params, state, batch) -> (logits, state)
     init_decode_state: Callable  # (batch, max_len, device=None) -> state
@@ -29,17 +31,20 @@ class ModelBundle:
     # once at build time
     substrate: Any = None
     plan: Any = None
+    layout: Any = None           # convert.TreeLayout of the params
 
 
 def _lm_bundle(cfg: cm.ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         init_params=lambda gen, device=None: lm.init_params(cfg, gen, device),
+        loss_fn=lambda p, b: lm.loss_fn(cfg, p, b),
         prefill=lambda p, b: lm.prefill(cfg, p, b["tokens"]),
         decode_step=lambda p, s, b: lm.decode_step(cfg, p, s, b["token"],
                                                    b["cache_len"]),
         init_decode_state=lambda batch, max_len, device=None:
             lm.init_kv_caches(cfg, batch, max_len, device),
+        layout=convert.lm_layout(cfg),
     )
 
 

@@ -46,6 +46,7 @@ __all__ = [
     "SubstratePlan", "as_plan", "load_plan", "save_plan",
     "stat_spec", "stat_plan", "site_scope", "current_sites",
     "plan_override_scope", "current_plan_override", "PLAN_SCHEMA_VERSION",
+    "current_site_stack", "site_stack_scope",
 ]
 
 PLAN_SCHEMA_VERSION = 1
@@ -305,3 +306,25 @@ def current_sites(leaf: Optional[str] = None):
     """
     tail = [str(leaf)] if leaf is not None else []
     return None, (".".join(_stack() + tail),)
+
+
+def current_site_stack() -> Tuple[str, ...]:
+    """The site segments pushed on this thread, outermost first."""
+    return tuple(_stack())
+
+
+@contextlib.contextmanager
+def site_stack_scope(stack: Tuple[str, ...]):
+    """Replace this thread's site stack with ``stack`` (a
+    :func:`current_site_stack` snapshot) for the block, then restore it.
+
+    For work that runs where the stack was never pushed: a checkpointed
+    layer that autograd recomputes on its own device thread.
+    """
+    st = _stack()
+    saved = st[:]
+    st[:] = list(stack)
+    try:
+        yield
+    finally:
+        st[:] = saved

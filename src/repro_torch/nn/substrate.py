@@ -48,8 +48,10 @@ every backend that pads corrects for the wiring's f(0,0).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -190,6 +192,39 @@ class ContractionSpec:
                site: Optional[str] = None) -> "ContractionSpec":
         """Plain ``(…, K) @ (K, N)`` spec."""
         return ContractionSpec(MATMUL_DIMS, quant, site)
+
+
+# -- ambient contraction override (the QAT layer's injection point) ---------
+
+_DOT_OVERRIDE_STATE = threading.local()
+
+
+def current_dot_override():
+    """The ambient contraction override installed by
+    :func:`dot_override_scope`, or None. Read at call time by call sites
+    that route through the ambient plan (``models.common.dense``)."""
+    return getattr(_DOT_OVERRIDE_STATE, "value", None)
+
+
+@contextlib.contextmanager
+def dot_override_scope(fn):
+    """Install an ambient contraction override for the duration of the block.
+
+    ``fn(spec_str, x, w, cspec) -> Tensor`` replaces the default
+    ``get_substrate(spec_str).dot_general(x, w, cspec)`` at every consulting
+    call site, so higher layers change *how* a resolved (site → spec)
+    assignment contracts without this layer importing them:
+    ``repro_torch.train.qat.qat_scope`` installs its straight-through
+    wrapper here. ``None`` clears the override for the block. Thread-local:
+    a block that runs on another thread (autograd's device thread, which
+    recomputes a checkpointed layer) re-enters it explicitly.
+    """
+    prev = getattr(_DOT_OVERRIDE_STATE, "value", None)
+    _DOT_OVERRIDE_STATE.value = fn
+    try:
+        yield fn
+    finally:
+        _DOT_OVERRIDE_STATE.value = prev
 
 
 # ---------------------------------------------------------------------------

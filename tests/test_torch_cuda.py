@@ -745,3 +745,95 @@ def test_forced_design_on_a_shape_it_cannot_take_raises(dev):
     assert fn(a8.data_ptr(), w.data_ptr(), table.data_ptr() + 2, out.data_ptr(),
               1, 8, 64, 64, 8, stream) != 0  # a misaligned table
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# training: the straight-through contraction, a TrainLoop step, checkpoints
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("moment", [False, True])
+@pytest.mark.parametrize("spec", ["approx_cuda:proposed@8", "approx_cuda:exact",
+                                  "approx_cuda:csp_axc1@6"])
+def test_ste_on_the_card_equals_the_cpu(dev, spec, moment):
+    """The forward bit for bit (the same codes, the kernels against their
+    plain versions); the float32 backward within 1e-5 (its matmuls sum in
+    another order on the card)."""
+    from repro_torch.train import QATPolicy, qat
+
+    x = RNG.normal(size=(2, 24, 64)).astype(np.float32)
+    w = (RNG.normal(size=(64, 96)) / 8).astype(np.float32)
+    g = RNG.normal(size=(2, 24, 96)).astype(np.float32)
+    cspec = sub.ContractionSpec.matmul(quant=sub.QuantPolicy())
+
+    def run(device):
+        xt = torch.from_numpy(x).to(device).requires_grad_(True)
+        wt = torch.from_numpy(w).to(device).requires_grad_(True)
+        out = qat.qat_dot_general(xt, wt, spec, cspec,
+                                  QATPolicy(moment_correction=moment))
+        dx, dw = torch.autograd.grad(out, (xt, wt), torch.from_numpy(g).to(device))
+        return [t.cpu() for t in (out, dx, dw)]
+
+    before = closed_form_matmul.launches.value + lut_matmul.launches.value
+    got, want = run(dev), run("cpu")
+    assert closed_form_matmul.launches.value + lut_matmul.launches.value == before + 1
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_training_step_on_the_card_kernels_equal_the_table(dev, tmp_path):
+    """Two QAT TrainLoop steps at a small width: on approx_cuda (the tile
+    designs at M = 64, forward and recompute) the losses and every updated
+    parameter equal, bit for bit, those of approx_lut (plain gathers, the
+    same integers) on the card."""
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.models import convert
+    from repro_torch.models import registry as reg
+    from repro_torch.optim import adamw
+    from repro_torch.train import QATPolicy, TrainLoop, TrainLoopConfig
+
+    bundle = reg.get_bundle("minitron-8b", n_layers=2, d_model=256, d_ff=512,
+                            vocab=512, n_heads=4, n_kv_heads=2)
+
+    def train(spec):
+        loop = TrainLoop(bundle.loss_fn, adamw(), TrainLoopConfig(
+            total_steps=2, ckpt_every=100, ckpt_dir=str(tmp_path), lr=1e-3,
+            qat=QATPolicy(), plan=spec), layout=bundle.layout)
+        params, opt, start = loop.init_or_restore(
+            lambda: bundle.init_params(torch.Generator(dev).manual_seed(0), dev))
+        before = closed_form_matmul.launches.value
+        loop.run(params, opt, SyntheticLMStream(vocab=512, batch=4, seq_len=16,
+                                                seed=0), start)
+        torch.cuda.synchronize()
+        return (loop.metrics["losses"], closed_form_matmul.launches.value - before,
+                {k: t.cpu() for k, t in convert.named_leaves(params).items()})
+
+    losses_k, launched, pk = train("approx_cuda:proposed@8")
+    losses_t, none, pt = train("approx_lut:proposed@8")
+    assert (launched, none) == (2 * 2 * 7 * 2, 0)
+    assert losses_k == losses_t
+    for k in pk:
+        assert torch.equal(pk[k], pt[k]), k
+
+
+def test_checkpoint_round_trip_through_the_card(dev, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+
+    tree = {"a": torch.randn((3, 4), device=dev),
+            "nest": {"b": torch.randn((5,), device=dev).to(torch.bfloat16)},
+            "lst": [torch.arange(3, device=dev, dtype=torch.int32)]}
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    mgr.save_async(4, tree)
+    want = {"a": tree["a"].clone(), "b": tree["nest"]["b"].clone()}
+    tree["a"].add_(1.0)  # in place, as a training step: the saved copy holds
+    tree["nest"]["b"].add_(1.0)
+    mgr.wait()
+    out, step, _ = load_checkpoint(str(tmp_path), tree)
+    assert step == 4 and out["a"].device.type == "cuda"
+    assert out["nest"]["b"].dtype == torch.bfloat16
+    assert torch.equal(out["a"], want["a"])
+    assert torch.equal(out["nest"]["b"].view(torch.int16), want["b"].view(torch.int16))
+    assert torch.equal(out["lst"][0], tree["lst"][0])
+    cpu, _, _ = load_checkpoint(str(tmp_path), tree, device="cpu")
+    assert cpu["a"].device.type == "cpu"

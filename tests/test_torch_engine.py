@@ -261,7 +261,14 @@ def test_launcher_serves_on_the_cpu(tmp_path, capsys):
         (tmp_path / "t.json").read_text())["traceEvents"]}
     assert {"serve.generate", "serve.decode_step",
             "kernel.closed_form_matmul", "kernel.lut_matmul"} <= names
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        launch_serve.main(["--arch", "minitron-8b", "--device", "cpu",
-                           "--n-layers", "1", "--d-model", "32", "--d-ff",
-                           "64", "--vocab", "64", "--plan", str(tmp_path)])
+    # a plan bundle directory (no params: the seeded init serves)
+    from repro_torch.checkpoint import save_plan_bundle
+
+    save_plan_bundle(str(tmp_path / "bundle"), json.loads(plan.read_text()))
+    out = launch_serve.main(["--arch", "minitron-8b", "--device", "cpu",
+                             "--n-layers", "1", "--d-model", "32", "--d-ff",
+                             "64", "--vocab", "64", "--n-heads", "2",
+                             "--n-kv-heads", "2", "--requests", "1",
+                             "--max-tokens", "2", "--plan",
+                             str(tmp_path / "bundle")])
+    assert [len(r.output) for r in out] == [2]

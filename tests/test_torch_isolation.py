@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import registry as reg
 from repro_torch.serving import EdgeDetectService, ServingEngine
 
@@ -90,6 +91,27 @@ def test_lm_slice_modules_are_checked(rel):
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
     assert files and all(f in PORT_FILES for f in files)
     assert all(not (_imported_roots(f) & FORBIDDEN) for f in files)
+
+
+TRAIN_MODULES = ["checkpoint", "optim", "train", "data/synthetic.py",
+                 "launch/train.py", "nn/substrate.py", "models/convert.py"]
+
+
+@pytest.mark.parametrize("rel", TRAIN_MODULES)
+def test_training_slice_modules_are_checked(rel):
+    """The training slice's modules are among the files checked above."""
+    path = ROOT / "src" / "repro_torch" / rel
+    files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
+    assert files and all(f in PORT_FILES for f in files)
+    assert all(not (_imported_roots(f) & FORBIDDEN) for f in files)
+
+
+def test_train_launcher_defaults_to_cuda():
+    if torch.cuda.is_available():
+        assert launch_train.resolve_device("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launch_train.main(["--arch", "minitron-8b", "--n-layers", "1"])
 
 
 def test_serving_engine_and_launcher_default_to_cuda():

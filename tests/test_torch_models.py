@@ -40,12 +40,12 @@ PARAMS_MINITRON = 8_833_204_224
 RNG = np.random.default_rng(7)
 
 
-#: ``repro`` fields the port leaves out: execution switches of the loss
-#: and XLA (with training, ROADMAP.md queue 1 item 9), the deprecated
-#: ``dot_mode`` shim (its spec lands in ``dot_plan``), and the fields of the
-#: MoE, SSM, encoder and frontend families (item 7). The ported configs hold
-#: ``repro``'s defaults there.
-DROPPED = {"remat", "loss_chunk", "cost_unroll", "dot_mode", "top_k",
+#: ``repro`` fields the port leaves out: XLA's cost-analysis switch
+#: (``cost_unroll``, with the roofline tools, ROADMAP.md queue 1 item 12),
+#: the deprecated ``dot_mode`` shim (its spec lands in ``dot_plan``), and the
+#: fields of the MoE, SSM, encoder and frontend families (item 7). The
+#: ported configs hold ``repro``'s defaults there.
+DROPPED = {"cost_unroll", "dot_mode", "top_k",
            "moe_interleave", "shared_expert", "capacity_factor", "ssm_state",
            "conv_width", "shared_attn_every", "n_frames", "n_patches",
            "n_encoder_layers"}
