@@ -16,9 +16,11 @@ the plain twins; one planned window is traced the same way
 (``chiprun_out/chip_smoke_planned_trace.json``). The planned path must
 launch only the narrow design of the two contraction kernels; a wide
 contraction through ``dot_general`` (a dense layer's shape) drives their
-tile design. The 512×512 set is served once more under uniform
-``approx_cuda:exact``. The fused conv's stencil design must be the only one
-the uniform paths launch (both product kinds); its generic design runs on
+rows design, and the same contraction at width 12 and under a table beyond
+the rows design's planes their tile design. The 512×512 set is served once
+more under uniform ``approx_cuda:exact``. The fused conv's stencil design
+must be the only one the uniform paths launch (both product kinds); its
+generic design runs on
 the paths that take it (the closed form at width 12, a 7×7 kernel). Both
 designs of the fused conv and of the contraction kernels are checked and
 timed at the shapes the served paths give them. The edge model of QAT
@@ -34,25 +36,30 @@ memory) and the tensor design of ``lut_matmul`` (the ``exact`` product on
 the INT8 tensor cores) are checked exactly against their plain twins, the
 tile designs' plain versions and ``torch._int_mm``, and timed beside the
 tile designs and ``torch._int_mm``; at M = 256 (a prefill of 4 × 64
-tokens) the tile designs are, and the few-row designs must refuse the
-shape. The ``kernel="lut"`` substrate runs one decode layer-step's dense
-calls (``lut_matmul``'s decode design), bit for bit those of the closed
-form. The model, cut to 4 layers, serves 16 requests through
+tokens, a training step's 8 × 32) the rows design of both kernels (the
+product as an exact int8 GEMM plus bit-monomial int8 GEMMs on the INT8
+tensor cores) is, the same way, and the few-row designs must refuse the
+shape; the rows design must be 20× faster than the tile design and reach
+10% of its tensor-core bound (``approx_matmul``), and be no slower than
+``torch._int_mm`` (``exact``). The ``kernel="lut"`` substrate runs one
+decode layer-step's dense calls (``lut_matmul``'s decode design), bit for
+bit those of the closed form. The model, cut to 4 layers, serves 16 requests through
 ``ServingEngine`` under ``approx_cuda:proposed@8`` at 2 workers (only
 decode launches, 7 per layer-step, no tile launch; worker 0's first wave
 equal to a 1-worker run) and under a per-site plan (layer 0 on the exact
 table: tensor launches; the FFNs at csp_axc1@6), whose prefill of 4 × 64
-tokens through ``bundle.prefill`` (M = 256: tile launches only; the engine
+tokens through ``bundle.prefill`` (M = 256: rows launches only; the engine
 prefills token by token) must equal the same plan on ``approx_lut``; one
 decode step's logits must equal, bit for bit, those of the plain substrates
 on the card; 4 decode steps are traced (``chiprun_out/
 chip_smoke_lm_trace.json``); and two timed decode steps and one prefill
-of 8 × 32 tokens run at all 32 layers.
+of 8 × 32 tokens run at all 32 layers (the prefill on the rows design
+alone).
 
 Then training (phase ``lm_train_path``): the 4-layer model at its published
 widths takes 3 QAT steps of ``TrainLoop`` (AdamW, batch 8 × 32 tokens, so
 M = 256 on every dense) under ``approx_cuda:proposed@8`` and 3 under the
-LM plan, on the tile designs alone (7 launches per layer in the forward, 7
+LM plan, on the rows designs alone (7 launches per layer in the forward, 7
 in the recompute of the backward), each held bit for bit, losses and every
 updated parameter, to the same steps on the table substrate; one more step
 runs under ``torch.profiler`` (``chiprun_out/chip_smoke_train_trace.json``,
@@ -110,7 +117,8 @@ LM_PREFILL = (4, 64)  # (batch, tokens) of the kernel shapes' prefill: M = 256
 LM_FULL_PREFILL = (8, 32)  # the full-depth prefill, also M = 256
 INT_MM_MIN_M = 17  # torch._int_mm takes M > 16: M = 8 is zero-padded to 17
 #: the training phases: TrainLoop steps of (batch, seq) tokens, M = 256 rows
-#: per dense layer (the M = 256 tile rows), AdamW at a constant rate
+#: per dense layer (the M = 256 rows of the kernels line), AdamW at a
+#: constant rate
 TRAIN_BATCH = (8, 32)
 TRAIN_STEPS = 3
 TRAIN_LR = 3e-4
@@ -149,6 +157,7 @@ LM_SPANS = ("kernel.closed_form_matmul", "kernel.lut_matmul",
 #: any torch op), attributed in a traced decode step by name
 LM_KERNELS_BY_NAME = {"decode design kernels (by name)": ("decode_matmul_kernel",),
                       "tensor design kernel (by name)": ("exact_matmul_kernel",),
+                      "rows design kernel (by name)": ("rows_matmul_kernel",),
                       "tile design kernels (by name)": ("approx_matmul_kernel",
                                                         "lut_matmul_kernel"),
                       "output memsets (by name)": ("Memset",)}
@@ -260,6 +269,17 @@ def exact_contraction_work(m: int, k: int, n: int):
     return m * k + k * n + 4 * m * n, 2 * m * k * n
 
 
+def rows_contraction_work(m: int, k: int, n: int, planes: int):
+    """(bytes, operations) of the least work of an (m × k) @ (k × n)
+    contraction of int8 codes into int32 whose product table takes
+    ``planes`` bit-monomial planes besides the exact product
+    (``kernels.monomials``): R + 1 int8 tensor-core products (two
+    operations per multiply-add, at ``INT8_TC_OPS_PER_S``); each input read
+    once, each output written once. For a closed form at M = 256 this is
+    below ``contraction_work``'s INT32 count."""
+    return m * k + k * n + 4 * m * n, (planes + 1) * 2 * m * k * n
+
+
 def device_ms_by_span(prof, spans) -> dict:
     """Device ms of a profile's kernels and copies launched by torch ops,
     split by the innermost of ``spans`` (the port's trace spans, profiler
@@ -284,8 +304,9 @@ def device_ms_by_span(prof, spans) -> dict:
 def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     """The LM path: minitron-8b through ServingEngine, every M = 8 dense on
     the decode design of ``approx_matmul`` (closed forms) or the tensor
-    design of ``lut_matmul`` (``exact``), the M = 256 prefill on the tile
-    designs. Returns (rows of the kernels line, least work by row name)."""
+    design of ``lut_matmul`` (``exact``), the M = 256 prefill and training
+    steps on the rows designs. Returns (rows of the kernels line, least work
+    by row name)."""
     import dataclasses
 
     from repro_torch.kernels import blocking
@@ -306,10 +327,12 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     counters = {"closed_form_tile": closed_form_matmul.launches,
                 "closed_form_narrow": closed_form_matmul.narrow_launches,
                 "closed_form_decode": closed_form_matmul.decode_launches,
+                "closed_form_rows": closed_form_matmul.rows_launches,
                 "lut_tile": lut_matmul.launches,
                 "lut_narrow": lut_matmul.narrow_launches,
                 "lut_decode": lut_matmul.decode_launches,
-                "lut_tensor": lut_matmul.tensor_launches}
+                "lut_tensor": lut_matmul.tensor_launches,
+                "lut_rows": lut_matmul.rows_launches}
 
     def reset():
         for c in counters.values():
@@ -329,6 +352,7 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     gen = torch.Generator(dev).manual_seed(1)
     t_exact = device_table("exact", dev)
     t_prop = device_table("proposed@8", dev)  # kernel="lut" under proposed@8
+    cf_planes = am.rows_decomposition("proposed@8")  # the rows design's planes
     require(torch.equal(am.closed_form_table16("proposed@8", dev).cpu(),
                         am.closed_form_table16("proposed@8", "cpu")),
             "the decode table built on the card differs from the closed form")
@@ -410,17 +434,54 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
                     except ValueError:
                         continue
                     require(False, f"a few-row design took M = {m}")
+                # the served design at many rows, through the public entry
+                # points on the int8 codes as dense hands them over: each
+                # against its plain twin, the tile design's plain version
+                # and (exact) torch._int_mm
+                rows_plain, ms["closed_form_rows_plain"] = timed_once(
+                    lambda: blocking.rows_matmul_plain(qa, qb, cf_planes, 8))
+                lrows_plain, ms["lut_rows_plain"] = timed_once(
+                    lambda: blocking.rows_matmul_plain(
+                        qa, qb, lm.rows_decomposition(t_exact), 8))
+                reset()
+                got = {"closed_form_rows": closed_form_matmul(qa, qb, "proposed@8"),
+                       "lut_rows": lut_matmul(qa, qb, t_exact)}
+                require(counts() == only(closed_form_rows=1, lut_rows=1),
+                        f"M = {m} at {site}: designs launched {counts()}")
+                err["closed_form_rows"] = max(
+                    max_abs_err(got["closed_form_rows"], rows_plain),
+                    max_abs_err(got["closed_form_rows"], cf_plain))
+                err["lut_rows"] = max(max_abs_err(got["lut_rows"], lrows_plain),
+                                      max_abs_err(got["lut_rows"], lut_plain),
+                                      max_abs_err(got["lut_rows"][0],
+                                                  torch._int_mm(a2, b2)))
+                ms["closed_form_rows"] = time_ms(
+                    lambda: closed_form_matmul(qa, qb, "proposed@8"))
+                ms["lut_rows"] = time_ms(lambda: lut_matmul(qa, qb, t_exact))
+                del got, rows_plain, lrows_plain
             require(set(err.values()) == {0},
                     f"designs at ({m} x {k}) @ ({k} x {n}): {err}")
-            work = {"closed_form": contraction_work(m, k, n),
+            # least work: the closed form's at M = 256 is that of its planes
+            # on the INT8 tensor cores, below its INT32 count
+            work = {"closed_form": contraction_work(m, k, n) if decode
+                    else rows_contraction_work(m, k, n, cf_planes.planes),
                     "lut": exact_contraction_work(m, k, n)}
+            rate = {"closed_form": INT32_OPS_PER_S if decode else INT8_TC_OPS_PER_S,
+                    "lut": INT8_TC_OPS_PER_S}
+            bounds = {kind: bound_ms(*work[kind], rate[kind])[0] for kind in work}
+            if not decode:  # what the rows design must reach at this shape
+                require(ms["closed_form_tile"] >= 20 * ms["closed_form_rows"]
+                        and bounds["closed_form"] >= 0.1 * ms["closed_form_rows"]
+                        and ms["lut_rows"] <= ms["int_mm"],
+                        f"rows designs at ({m} x {k}) @ ({k} x {n}): {ms}, "
+                        f"bounds {bounds}")
             shape_rows[(m, site)] = {"k": k, "n": n, "per_layer_step": per_step,
-                                     "ms": ms, "work": work, "err": err}
+                                     "ms": ms, "work": work, "rate": rate,
+                                     "err": err}
             emit("lm_kernel_shapes", m=m, site=site, shape=[1, m, k, n],
                  operands="int8 codes", max_abs_err=err, tolerance=0, ms=ms,
-                 int_mm_rows=a2.shape[0],
-                 bound_ms={"closed_form": bound_ms(*work["closed_form"])[0],
-                           "lut": bound_ms(*work["lut"], INT8_TC_OPS_PER_S)[0]})
+                 int_mm_rows=a2.shape[0], bound_ms=bounds,
+                 rows_planes=None if decode else cf_planes.planes)
             del x, w, qa, qb, a32, b32, cf_plain, lut_plain, a2, b2
     torch.cuda.empty_cache()
 
@@ -524,7 +585,7 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
             f"lm planned launches {cp} over {sp} steps")
     # one prefill of 4 x 64 tokens under the plan through the prefill entry
     # point (ServingEngine prefills through decode_step): M = 256 on both
-    # tile designs, the logits bit for bit those of the table substrate's plan
+    # rows designs, the logits bit for bit those of the table substrate's plan
     def planned(plan):
         return reg.build_bundle(dataclasses.replace(
             bundle.cfg, dot_plan=plan_mod.as_plan(plan)))
@@ -535,7 +596,7 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     (logits_pf, prefill_ms) = timed_once(
         lambda: pbundle.prefill(params, {"tokens": toks}))
     cpf = counts()
-    require(cpf == only(closed_form_tile=7 * (LM_LAYERS - 1), lut_tile=7),
+    require(cpf == only(closed_form_rows=7 * (LM_LAYERS - 1), lut_rows=7),
             f"planned prefill {cpf}")
     table_pf, table_pf_ms = timed_once(
         lambda: planned(LM_PLAN_TABLE).prefill(params, {"tokens": toks}))
@@ -655,7 +716,7 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     cfull = counts()
     require(cdec == only(closed_form_decode=7 * cfg.n_layers * 2),
             f"full-depth decode launches {cdec}")
-    require(cfull == only(closed_form_tile=7 * cfg.n_layers),
+    require(cfull == only(closed_form_rows=7 * cfg.n_layers),
             f"full-depth prefill launches {cfull}")
     require(logits.shape == (LM_BATCH, 1, vocab) and bool(torch.isfinite(logits).all())
             and pf_logits.shape == (LM_FULL_PREFILL[0], 1, vocab)
@@ -675,8 +736,8 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     # it runs. M = 8 rows count ServingEngine's launches (the main path;
     # kernel="lut" rows CudaSubstrate.dot_general's), where the tile
     # designs must show 0; M = 256 rows count lm_train_path's (TrainLoop),
-    # beside the prefill entry point's, which the engine does not call (it
-    # prefills token by token)
+    # where the tile designs must show 0, beside the prefill entry point's,
+    # which the engine does not call (it prefills token by token)
     kinds = {"closed_form": ("closed_form_matmul", "src/repro_torch/csrc/approx_matmul.cu",
                              "src/repro/kernels/approx_matmul/kernel.py:59",
                              "proposed@8", "closed_form"),
@@ -694,14 +755,18 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
             c2["closed_form_decode"], "lm_serving_path", served),
         ("closed_form", "tile", LM_BATCH): ("closed_form_tile",
             c2["closed_form_tile"], "lm_serving_path (must be 0)", served),
+        ("closed_form", "rows", m_pf): ("closed_form_rows",
+            train["closed_form_rows"], "lm_train_path", trained),
         ("closed_form", "tile", m_pf): ("closed_form_tile",
-            train["closed_form_tile"], "lm_train_path", trained),
+            train["closed_form_tile"], "lm_train_path (must be 0)", trained),
         ("lut", "tensor", LM_BATCH): ("lut_tensor", cp["lut_tensor"],
                                       "lm_planned_path", served),
         ("lut", "tile", LM_BATCH): ("lut_tile", cp["lut_tile"],
                                     "lm_planned_path (must be 0)", served),
-        ("lut", "tile", m_pf): ("lut_tile", train["lut_tile"],
+        ("lut", "rows", m_pf): ("lut_rows", train["lut_rows"],
                                 "lm_train_path", trained),
+        ("lut", "tile", m_pf): ("lut_tile", train["lut_tile"],
+                                "lm_train_path (must be 0)", trained),
         ("lut_kernel", "decode", LM_BATCH): ("lut_decode", c_lut["lut_decode"],
                                              "lm_lut_kernel_path", lut_entry)}
     rows, work = [], {}
@@ -710,8 +775,7 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
             if dm != m:
                 continue
             name, source, tpu, mult_key, work_kind = kinds[kind]
-            ops_rate = INT8_TC_OPS_PER_S if work_kind == "lut" else INT32_OPS_PER_S
-            b_ms, by = bound_ms(*r["work"][work_kind], ops_rate)
+            b_ms, by = bound_ms(*r["work"][work_kind], r["rate"][work_kind])
             row_name = f"{name}[{design},{site},M={m}]"
             if kind == "lut_kernel":
                 row_name = f"{name}[{design},{site},M={m},proposed@8]"
@@ -809,9 +873,9 @@ def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, reset, counts
     launches = {name: 0 for name in counters}
     for name, kern, plain, expect in (
             ("approx_cuda:proposed@8", "approx_cuda:proposed@8",
-             "approx_lut:proposed@8", only(closed_form_tile=2 * 7 * LM_LAYERS)),
+             "approx_lut:proposed@8", only(closed_form_rows=2 * 7 * LM_LAYERS)),
             ("lm_plan", LM_PLAN, LM_PLAN_TABLE,
-             only(closed_form_tile=2 * 7 * (LM_LAYERS - 1), lut_tile=2 * 7))):
+             only(closed_form_rows=2 * 7 * (LM_LAYERS - 1), lut_rows=2 * 7))):
         p_kern, r_kern = train(kern, TRAIN_STEPS)
         require(all(c == expect for c in r_kern["launches_per_step"]),
                 f"lm_train_path {name}: launches per step "
@@ -848,7 +912,7 @@ def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, reset, counts
          steps=TRAIN_STEPS, optimizer="adamw", lr=TRAIN_LR, qat="bitexact",
          remat=bundle.cfg.remat,
          launches_expected="per step: 7 per layer in the forward + 7 in the "
-                           "recompute of the backward (remat); tile designs only",
+                           "recompute of the backward (remat); rows designs only",
          cases=cases, launches=launches, card=card)
 
     # one more step under torch.profiler: where a training step's device
@@ -863,14 +927,16 @@ def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, reset, counts
     prof.export_chrome_trace(str(trace_path))
     busy_us, by_name = device_busy(trace_path)
     step_ms = r_tr["step_ms"][0]
-    tile_ms = sum(v for k, v in by_name.items() if "matmul_kernel" in k) / 1e3
+    kernel_ms = sum(v for k, v in by_name.items() if "matmul_kernel" in k) / 1e3
+    rows_ms = sum(v for k, v in by_name.items() if "rows_matmul_kernel" in k) / 1e3
     emit("lm_train_trace", trace=str(trace_path.relative_to(out_dir.parent)),
          plan="approx_cuda:proposed@8", steps=1,
          wall_s_with_init=wall, step_ms=step_ms,
          device_busy_ms=busy_us / 1e3,
          device_ms_by_name={k: v / 1e3 for k, v in sorted(
              by_name.items(), key=lambda kv: -kv[1])[:12]},
-         tile_kernels_ms=tile_ms, launches=r_tr["launches_per_step"][0], card=card)
+         contraction_kernels_ms=kernel_ms, rows_kernels_ms=rows_ms,
+         launches=r_tr["launches_per_step"][0], card=card)
 
     # -- lm_train_restart: crash -> restart bitwise at a reduced size
     rcfg = reg.get_config(LM_ARCH, **RESTART_SIZE)
@@ -1253,7 +1319,8 @@ def main() -> int:
         for counter in (fused_conv2d.launches, fused_conv2d.lut_launches,
                         fused_conv2d.stencil_launches,
                         closed_form_matmul.launches,
-                        closed_form_matmul.narrow_launches):
+                        closed_form_matmul.narrow_launches,
+                        closed_form_matmul.rows_launches):
             counter.reset()
         served, first = window(svc)
         windows = [first]
@@ -1275,7 +1342,8 @@ def main() -> int:
                     "fused_conv_lut": fused_conv2d.lut_launches.value,
                     "approx_matmul": closed_form_matmul.launches.value,
                     "approx_matmul_narrow":
-                        closed_form_matmul.narrow_launches.value}
+                        closed_form_matmul.narrow_launches.value,
+                    "approx_matmul_rows": closed_form_matmul.rows_launches.value}
         # one more window under torch.profiler (device activity) and the
         # port's span tracer (host phases); not counted in `windows`
         tracer = Tracer()
@@ -1293,7 +1361,8 @@ def main() -> int:
             and launches["fused_conv_generic"] == 0
             and launches["fused_conv_lut"] == 0
             and launches["approx_matmul_narrow"] > 0
-            and launches["approx_matmul"] == 0, f"launches {launches}")
+            and launches["approx_matmul"] == launches["approx_matmul_rows"] == 0,
+            f"launches {launches}")
     for img, out in zip(images, served):
         require(out.shape == img.shape and out.dtype == np.uint8,
                 f"served map shape {out.shape} {out.dtype}")
@@ -1384,6 +1453,7 @@ def main() -> int:
         for counter in (lut_matmul.launches, closed_form_matmul.launches,
                         lut_matmul.narrow_launches,
                         closed_form_matmul.narrow_launches,
+                        lut_matmul.rows_launches, closed_form_matmul.rows_launches,
                         fused_conv2d.launches, fused_conv2d.lut_launches):
             counter.reset()
         p_served, first = window(svc)
@@ -1399,6 +1469,8 @@ def main() -> int:
                       "lut_matmul_narrow": lut_matmul.narrow_launches.value,
                       "closed_form_matmul_narrow":
                           closed_form_matmul.narrow_launches.value,
+                      "lut_matmul_rows": lut_matmul.rows_launches.value,
+                      "closed_form_matmul_rows": closed_form_matmul.rows_launches.value,
                       "fused_conv2d": fused_conv2d.launches.value,
                       "fused_conv2d_lut": fused_conv2d.lut_launches.value}
         # one more planned window under torch.profiler and the span tracer
@@ -1414,8 +1486,9 @@ def main() -> int:
     # the planned path launches only the narrow design of both kernels
     require(p_launches["lut_matmul_narrow"] > 0
             and p_launches["closed_form_matmul_narrow"] > 0
-            and p_launches["lut_matmul"] == 0
-            and p_launches["closed_form_matmul"] == 0,
+            and p_launches["lut_matmul"] == p_launches["lut_matmul_rows"] == 0
+            and p_launches["closed_form_matmul"] == 0
+            and p_launches["closed_form_matmul_rows"] == 0,
             f"planned path launches {p_launches}")
     for img, out in zip(images, p_served):
         require(out.shape == img.shape and out.dtype == np.uint8,
@@ -1440,7 +1513,9 @@ def main() -> int:
         "closed_form_matmul": closed_form_matmul.launches,
         "closed_form_matmul_narrow": closed_form_matmul.narrow_launches,
         "closed_form_matmul_decode": closed_form_matmul.decode_launches,
+        "closed_form_matmul_rows": closed_form_matmul.rows_launches,
         "lut_matmul": lut_matmul.launches,
+        "lut_matmul_rows": lut_matmul.rows_launches,
         "lut_matmul_narrow": lut_matmul.narrow_launches,
         "lut_matmul_decode": lut_matmul.decode_launches,
         "lut_matmul_tensor": lut_matmul.tensor_launches,
@@ -1505,35 +1580,52 @@ def main() -> int:
          cases=["proposed@12 3x3", "proposed 7x7", "exact 7x7"],
          launches=g_launches, max_abs_err=g_err, tolerance=0)
 
-    # the tile design of both contraction kernels, on the path that takes
+    # the rows design of both contraction kernels, on the path that takes
     # it: dot_general at a dense layer's shape, (8 x 128 tokens x 64) @
-    # (64 x 256), K = 64 and N = 256 beyond the narrow design's limits
+    # (64 x 256), K = 64 and N = 256 beyond the narrow design's limits; the
+    # same contraction through the kernels' entry points takes the tile
+    # design at width 12 (beyond int8 codes; no approx_cuda spec takes it)
+    # and under a product table beyond the rows design's planes
     tokens = torch.from_numpy(rng.integers(-128, 128, (8, 128, 64))
                               .astype(np.int32)).to(dev)
     weight = torch.from_numpy(rng.integers(-128, 128, (64, 256))
                               .astype(np.int32)).to(dev)
     dense_dims = (((2,), (0,)), ((), ()))
     a_w, b_w = tokens.reshape(1, -1, 64), weight[None]
+    noise = torch.from_numpy(rng.integers(-2**20, 2**20, 1 << 16)
+                             .astype(np.int32)).to(dev)
+    require(lm.rows_decomposition(noise) is None,
+            "a noise table within the rows design's planes")
     wide_plain = {"approx_cuda": closed_form_matmul_plain(a_w, b_w, "proposed@8"),
                   "approx_cuda:exact": lut_matmul_plain(
                       a_w, b_w, device_table("exact", dev))}
-    for counter in (closed_form_matmul.launches, lut_matmul.launches,
-                    closed_form_matmul.narrow_launches, lut_matmul.narrow_launches):
+    wide_counters = {"closed_form_matmul": closed_form_matmul.launches,
+                     "lut_matmul": lut_matmul.launches,
+                     "closed_form_matmul_rows": closed_form_matmul.rows_launches,
+                     "lut_matmul_rows": lut_matmul.rows_launches,
+                     "closed_form_matmul_narrow": closed_form_matmul.narrow_launches,
+                     "lut_matmul_narrow": lut_matmul.narrow_launches}
+    for counter in wide_counters.values():
         counter.reset()
     w_err = 0
     for spec, want in wide_plain.items():
         got = sub.get_substrate(spec).dot_general(
             tokens, weight, sub.ContractionSpec(dense_dims))
         w_err = max(w_err, max_abs_err(got, want[0].reshape(got.shape)))
+    w_err = max(w_err, max_abs_err(lut_matmul(a_w, b_w, noise),
+                                   lut_matmul_plain(a_w, b_w, noise)),
+                max_abs_err(closed_form_matmul(a_w, b_w, "proposed@12"),
+                            closed_form_matmul_plain(a_w, b_w, "proposed@12")))
     torch.cuda.synchronize()
-    w_launches = {"closed_form_matmul": closed_form_matmul.launches.value,
-                  "lut_matmul": lut_matmul.launches.value,
-                  "closed_form_matmul_narrow": closed_form_matmul.narrow_launches.value,
-                  "lut_matmul_narrow": lut_matmul.narrow_launches.value}
-    require(w_launches["closed_form_matmul"] > 0 and w_launches["lut_matmul"] > 0,
+    w_launches = {name: c.value for name, c in wide_counters.items()}
+    require(w_launches == {"closed_form_matmul": 1, "lut_matmul": 1,
+                           "closed_form_matmul_rows": 1, "lut_matmul_rows": 1,
+                           "closed_form_matmul_narrow": 0, "lut_matmul_narrow": 0},
             f"wide contraction launches {w_launches}")
     require(w_err == 0, "wide contraction vs plain")
-    emit("wide_contraction_path", shape=[8, 128, 64, 256], specs=list(wide_plain),
+    emit("wide_contraction_path", shape=[8, 128, 64, 256],
+         specs=list(wide_plain) + ["lut_matmul, a table beyond the rows planes",
+                                   "closed_form_matmul, proposed@12"],
          launches=w_launches, max_abs_err=w_err, tolerance=0)
 
     # the elementwise entry point, called as its users call it: one array of

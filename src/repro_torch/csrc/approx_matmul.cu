@@ -1,16 +1,18 @@
-// Batched contraction under the CSP approximate multiplier, three designs.
+// Batched contraction under the CSP approximate multiplier, four designs.
 //
 // Replaces the TPU kernel src/repro/kernels/approx_matmul/kernel.py,
 // approx_matmul_pallas (body _matmul_kernel): (B,M,K) @ (B,K,N) int32 where
 // every scalar product is the wiring's closed form (closed_form.cuh) and the
 // sum is exact in the int32 ring.
 //
-// Bound on the H100. The product is not a multiply-add, so tensor cores (and
-// cuBLAS, torch.matmul, _int_mm) cannot evaluate it. Where b has few distinct
+// Bound on the H100. The product is not a multiply-add, so no library GEMM
+// (cuBLAS, torch.matmul, _int_mm) evaluates it; the rows design rewrites it
+// as a short sum of int8 GEMMs for the tensor cores. Where b has few distinct
 // values per launch, as the conv path's (K x 1) tap column, the least work is
 // a table read per product, and the bytes of A and C bound it. The wrapper
 // (kernels/approx_matmul/ops.py) picks the design from the shape and width
-// alone (kernels/blocking.py, narrow_design, decode_design), in this order:
+// alone (kernels/blocking.py, narrow_design, decode_design, rows_design), in
+// this order:
 //
 // * narrow (N <= 8, K <= 16, width <= 8; every shape the edge paths give
 //   it): cf_columns_kernel evaluates the closed form once per (coefficient,
@@ -23,7 +25,13 @@
 //   per (wiring, device), and decode_contract.cuh gathers every product from
 //   that table in shared memory, reading each int8 weight code once for all
 //   M rows. INT32 operations (a gather and an add per product) bound it.
-// * tile (M > 16 at wider N or longer K, widths 9..16): 16x16 output
+// * rows (M > 16, widths 3..8, any other K and N; every dense layer of a
+//   training step or a prefill): the closed form's int16 table (the decode
+//   design's) taken apart on the host into an exact int8 GEMM plus R
+//   bit-monomial int8 GEMMs (kernels/monomials.py; R = 19 at proposed@8),
+//   which rows_contract.cuh runs on the INT8 tensor cores. The tensor cores
+//   bound it.
+// * tile (widths 9..16, or forced): 16x16 output
 //   tiles, one thread per output, A/B k-slabs of 16 staged in shared
 //   memory, grid (M-tiles, N-tiles, B) -- M on grid x, beyond the 65535
 //   limit of grid y. It evaluates the generic closed form for each of the
@@ -35,7 +43,8 @@
 // slab entries must never be multiplied into the sum; the JAX wrapper
 // instead pads and subtracts f00 * pad_k (blocking.pad_crop_correct). Both
 // give the same integers. The narrow and decode designs have no K slab and
-// no K tail.
+// no K tail; the rows design adds K * f(0,0) once and zero-fills a K tail
+// whose bit tests and factors are all 0.
 
 #include <cuda_runtime.h>
 
@@ -44,6 +53,7 @@
 #include "closed_form.cuh"
 #include "decode_contract.cuh"
 #include "narrow_contract.cuh"
+#include "rows_contract.cuh"
 
 #define MM_TILE 16
 
@@ -151,4 +161,19 @@ extern "C" int approx_matmul_decode_launch(const void* a, const void* b,
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
       static_cast<const int16_t*>(table), static_cast<int32_t*>(c), B, M, K, N,
       n_bits, static_cast<cudaStream_t>(stream)));
+}
+
+// The rows design. a: contiguous (B, M, K) int8 codes, w: (B, K, N) int8
+// codes, c: (B, M, N) int32, planes: the closed form's planes as
+// kernels/monomials.device_planes lays them out (R of them, f00 its
+// product at (0, 0)), all on the card. Contract in rows_contract.cuh.
+// Returns cudaGetLastError() or the contract's error.
+extern "C" int approx_matmul_rows_launch(const void* a, const void* w,
+                                         const void* planes, void* c, int B,
+                                         int M, int K, int N, int n_bits,
+                                         int R, int f00, void* stream) {
+  return static_cast<int>(rows_contract(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
+      static_cast<const int32_t*>(planes), static_cast<int32_t*>(c), B, M, K,
+      N, n_bits, R, f00, static_cast<cudaStream_t>(stream)));
 }

@@ -1,5 +1,5 @@
 // Batched contraction with every scalar product read from a product table,
-// four designs.
+// five designs.
 //
 // Replaces the TPU kernel src/repro/kernels/lut_matmul/kernel.py,
 // lut_matmul_pallas (body _lut_matmul_kernel): (B,M,K) @ (B,K,N) int32 where
@@ -15,7 +15,7 @@
 // (1 x 1)) the bytes of A and C bound it. The wrapper
 // (kernels/lut_matmul/ops.py) picks the design from the shape, the width
 // and the table (kernels/blocking.py, narrow_design, tensor_design,
-// decode_design), in this order:
+// decode_design, rows_design), in this order:
 //
 // * narrow (N <= 8, K <= 16, every entry of the table within int16, which
 //   holds for every product table: products wrap to 2n <= 16 bits):
@@ -30,7 +30,12 @@
 // * decode (M <= 16, any other K and N, every table entry within int16):
 //   an int16 twin of the table (kernels/lut_matmul/ops.py) and
 //   decode_contract.cuh, as approx_matmul.cu's decode design.
-// * tile (M > 16 at wider N or longer K, a table beyond int16): the table
+// * rows (M > 16, widths 3..8, a table that the host takes apart into at
+//   most 32 int8 bit-monomial planes besides the exact product: every
+//   product table of a CSP wiring, and the exact product with none):
+//   rows_contract.cuh on the INT8 tensor cores, as approx_matmul.cu's rows
+//   design; the table itself is not read.
+// * tile (any other table, or forced): the table
 //   is 256 KiB of int32 at n = 8, more than the 227 KiB of shared memory a
 //   block may use, so it is gathered from device memory through the
 //   read-only data path (__ldg): it stays in L2 (50 MB) and its hot lines
@@ -52,6 +57,7 @@
 
 #include "decode_contract.cuh"
 #include "narrow_contract.cuh"
+#include "rows_contract.cuh"
 
 #define LM_TILE 16
 
@@ -416,4 +422,19 @@ extern "C" int lut_matmul_tensor_launch(const void* a, const void* w, void* c,
   int32_t* c32 = static_cast<int32_t*>(c);
   return static_cast<int>(M <= 8 ? exact_matmul_run<1>(a8, w8, c32, B, M, K, N, s)
                                  : exact_matmul_run<2>(a8, w8, c32, B, M, K, N, s));
+}
+
+// The rows design. a: contiguous (B, M, K) int8 codes, w: (B, K, N) int8
+// codes, c: (B, M, N) int32, planes: the table's planes as
+// kernels/monomials.device_planes lays them out (R of them, f00 the table's
+// entry at (0, 0)), all on the card. Contract in rows_contract.cuh. Returns
+// cudaGetLastError() or the contract's error.
+extern "C" int lut_matmul_rows_launch(const void* a, const void* w,
+                                      const void* planes, void* c, int B,
+                                      int M, int K, int N, int n_bits, int R,
+                                      int f00, void* stream) {
+  return static_cast<int>(rows_contract(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
+      static_cast<const int32_t*>(planes), static_cast<int32_t*>(c), B, M, K,
+      N, n_bits, R, f00, static_cast<cudaStream_t>(stream)));
 }

@@ -11,9 +11,13 @@
 * ``lut_matmul`` — the same with every product read from a product table
   (``csrc/lut_matmul.cu``); both contractions have a narrow design
   (``csrc/narrow_contract.cuh``), a decode design for few rows
-  (``csrc/decode_contract.cuh``) and a tile design, and ``lut_matmul`` a
-  tensor design for the exact product (INT8 tensor cores), picked by
-  ``blocking.narrow_design``, ``tensor_design`` and ``decode_design``;
+  (``csrc/decode_contract.cuh``), a rows design for many rows on the INT8
+  tensor cores (``csrc/rows_contract.cuh``) and a tile design, and
+  ``lut_matmul`` a tensor design for the exact product at few rows, picked
+  by ``blocking.narrow_design``, ``tensor_design``, ``decode_design`` and
+  ``rows_design``;
+* ``monomials`` — a product table as an exact int8 GEMM plus bit-monomial
+  int8 GEMMs, the rows design's planes;
 * ``approx_mul`` — the elementwise proposed@8 product
   (``csrc/approx_mul.cu``);
 * ``build`` — nvcc build, ctypes loading and launch counters;
@@ -22,7 +26,8 @@
 
 A wrapper runs its kernel for a CUDA tensor and its plain version for a CPU
 tensor; ``<wrapper>.launches`` counts kernel launches (per design or kind:
-``.narrow_launches``, ``.decode_launches``, ``lut_matmul.tensor_launches``,
+``.narrow_launches``, ``.decode_launches``, ``.rows_launches``,
+``lut_matmul.tensor_launches``,
 ``fused_conv2d.lut_launches``,
 ``fused_conv2d.stencil_launches``).
 """

@@ -16,8 +16,13 @@ and an exact int32-ring sum:
   of an LM decode step) gathers every product from the whole int16 product
   table (:func:`closed_form_table16`, built on the card once per key and
   device) in shared memory, taking the int8 codes ``dense`` hands over
-  without a copy; the *tile* design (16×16 output tiles, the batch as grid
-  z) takes every other shape. The narrow design needs 16-byte
+  without a copy; the *rows* design (M > 16, widths 3..8: every dense
+  layer of a training step or a prefill) runs the closed form's table,
+  taken apart into an exact int8 GEMM plus a few bit-monomial int8 GEMMs
+  (:func:`rows_decomposition`, ``kernels.monomials``), on the INT8 tensor
+  cores, on the int8 codes as they are; the *tile* design (16×16 output
+  tiles, the batch as grid z) takes every other shape (widths 9–16). The
+  narrow design needs 16-byte
   aligned batches: an A whose base is not 16-byte aligned (a view with a
   storage offset), or a batched A with M % 4 ≠ 0, is first copied into a
   fresh buffer, its rows zero-padded to a multiple of 4, and the result
@@ -26,12 +31,15 @@ and an exact int32-ring sum:
   under the pad / crop / f(0,0) contract of ``kernels.blocking``.
 
 ``closed_form_matmul.launches`` counts tile launches,
-``closed_form_matmul.narrow_launches`` narrow ones and
-``closed_form_matmul.decode_launches`` decode ones. The narrow design's
+``closed_form_matmul.narrow_launches`` narrow ones,
+``closed_form_matmul.decode_launches`` decode ones and
+``closed_form_matmul.rows_launches`` rows ones. The narrow design's
 plain twin is :func:`closed_form_columns` with
 :func:`~repro_torch.kernels.blocking.narrow_matmul_plain`; the decode
 design's is :func:`closed_form_table16` with
-:func:`~repro_torch.kernels.blocking.decode_matmul_plain`.
+:func:`~repro_torch.kernels.blocking.decode_matmul_plain`; the rows
+design's is :func:`rows_decomposition` with
+:func:`~repro_torch.kernels.blocking.rows_matmul_plain`.
 
 :func:`approx_matmul` is the historical proposed@8 entry point.
 """
@@ -42,9 +50,10 @@ import ctypes
 import torch
 
 from repro_torch.core import multiplier as mult
-from repro_torch.kernels import blocking, build
+from repro_torch.kernels import blocking, build, monomials
 from repro_torch.kernels.blocking import (decode_matmul_plain,  # noqa: F401
-                                          narrow_matmul_plain)
+                                          narrow_matmul_plain,
+                                          rows_matmul_plain)
 from repro_torch.kernels.closed_form import (closed_form_f00, closed_form_params,
                                              make_closed_form)
 from repro_torch.obs.trace import trace_span
@@ -59,6 +68,10 @@ _DECODE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _TABLE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+_ROWS_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p)
 
 
 def closed_form_matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -126,20 +139,33 @@ def closed_form_table16(key: str, device) -> torch.Tensor:
     return build.device_constant(("cf_table16", key), device, make)
 
 
+def rows_decomposition(key: str) -> monomials.Decomposition:
+    """The rows design's planes of ``key`` (width n ≤ 8): its product table
+    (:func:`closed_form_table16`, built by the closed form on the host) as
+    an exact int8 GEMM plus bit-monomial int8 GEMMs, once per key."""
+    key = mult.canonical_key(key)
+    return monomials.cached(("closed_form", key), lambda: monomials.decompose(
+        closed_form_table16(key, "cpu").numpy()))
+
+
+def _rows_planes(key: str, device) -> torch.Tensor:
+    """:func:`rows_decomposition` as the kernel reads it, on ``device``."""
+    return build.device_constant(
+        ("cf_rows", key), device,
+        lambda: monomials.device_planes(rows_decomposition(key)))
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, key: str,
             design: "str | None" = None) -> torch.Tensor:
-    """Launch the kernel of ``design`` (``"narrow"``, ``"decode"`` or
-    ``"tile"``; None: the first of them that takes the shape, by
-    :func:`~repro_torch.kernels.blocking.narrow_design` and
-    :func:`~repro_torch.kernels.blocking.decode_design`) on CUDA
+    """Launch the kernel of ``design`` (``"narrow"``, ``"decode"``,
+    ``"rows"`` or ``"tile"``; None: the first of them that takes the shape,
+    by :func:`~repro_torch.kernels.blocking.eligible_designs`) on CUDA
     (B,M,K)@(B,K,N) integer operands."""
     bsz, m, k = a.shape
     n = b.shape[2]
     n_bits = mult.split_width(key)[1]
     design = blocking.resolve_design(
-        design, {"narrow": blocking.narrow_design(k, n, n_bits),
-                 "decode": blocking.decode_design(m, k, n, n_bits),
-                 "tile": True},
+        design, blocking.eligible_designs(m, k, n, n_bits),
         "approx_matmul", f"M={m}, K={k}, N={n} at width {n_bits}")
     if not (bsz <= 65535 and (n + 15) // 16 <= 65535 and max(m, k) < 2**31):
         raise ValueError(f"approx_matmul grid limit exceeded by "
@@ -159,6 +185,22 @@ def _launch(a: torch.Tensor, b: torch.Tensor, key: str,
                     out.data_ptr(), bsz, m, k, n, n_bits, stream)
         build.check(rc, "approx_matmul_decode_launch")
         closed_form_matmul.decode_launches.add()
+        return out
+    if design == "rows":
+        a8 = blocking.codes8(a).contiguous()
+        b8 = blocking.codes8(b).contiguous()
+        d = rows_decomposition(key)
+        planes = _rows_planes(key, a.device)
+        out = torch.empty((bsz, m, n), dtype=torch.int32, device=a.device)
+        fn = build.load_function("approx_matmul", "approx_matmul_rows_launch",
+                                 _ROWS_ARGTYPES)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(a8.data_ptr(), b8.data_ptr(), planes.data_ptr(),
+                    out.data_ptr(), bsz, m, k, n, n_bits, d.planes, d.f00,
+                    stream)
+        build.check(rc, "approx_matmul_rows_launch")
+        closed_form_matmul.rows_launches.add()
         return out
     params = closed_form_params(key)
     a, b = a.to(torch.int32), b.to(torch.int32)
@@ -194,7 +236,8 @@ def closed_form_matmul(a: torch.Tensor, b: torch.Tensor,
     (M,N) or (B,M,N). The operands' device decides: CUDA launches the
     kernel of the design the shape takes (or raises), CPU runs
     :func:`closed_form_matmul_plain`. Integer operands of any dtype give the
-    same integers; the decode design reads int8 codes without a copy.
+    same integers; the decode and rows designs read int8 codes without a
+    copy.
     """
     if not (torch.is_tensor(a) and torch.is_tensor(b)) or a.device != b.device:
         raise ValueError("operands must be tensors on one device")
@@ -217,6 +260,7 @@ def closed_form_matmul(a: torch.Tensor, b: torch.Tensor,
 closed_form_matmul.launches = build.LaunchCounter()         # tile design
 closed_form_matmul.narrow_launches = build.LaunchCounter()  # narrow design
 closed_form_matmul.decode_launches = build.LaunchCounter()  # decode design
+closed_form_matmul.rows_launches = build.LaunchCounter()    # rows design
 
 
 def approx_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

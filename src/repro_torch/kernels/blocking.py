@@ -18,17 +18,23 @@ against one 2^n-entry product column per coefficient; the *decode* design
 (:func:`decode_design`, ``csrc/decode_contract.cuh``) contracts few rows
 against the whole int16 product table in shared memory; ``lut_matmul`` has
 a *tensor* design for the exact product (:func:`tensor_design`, INT8 tensor
-cores) before it; and the *tile* design (16×16 output tiles) takes every
-other shape. :func:`narrow_matmul_plain`, :func:`decode_matmul_plain` and
-:func:`tensor_matmul_plain` are the plain twins of the first three.
+cores) before it; the *rows* design (:func:`rows_design`,
+``csrc/rows_contract.cuh``) contracts many rows as an exact int8 GEMM plus a
+few bit-monomial int8 GEMMs on the INT8 tensor cores (``kernels.monomials``);
+and the *tile* design (16×16 output tiles) takes every other shape.
+:func:`narrow_matmul_plain`, :func:`decode_matmul_plain`,
+:func:`tensor_matmul_plain` and :func:`rows_matmul_plain` are the plain
+twins of the first four.
 
-The decode and tensor designs take the int8 codes that ``dense`` hands
-over as they are (:func:`codes8`); the narrow and tile designs take int32.
+The decode, tensor and rows designs take the int8 codes that ``dense``
+hands over as they are (:func:`codes8`); the narrow and tile designs take
+int32.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -55,6 +61,11 @@ DECODE_MAX_BITS = 8
 #: signed 8-bit codes (|a·b| ≤ 2^14) can overflow.
 TENSOR_MAX_M = 16
 TENSOR_MAX_K = 131071
+#: Widths of the rows design (``RC_MIN_BITS`` / ``RC_MAX_BITS`` in
+#: rows_contract.cuh): the product tables of the CSP wirings (widths 3..16)
+#: that fit int8 codes.
+ROWS_MIN_BITS = 3
+ROWS_MAX_BITS = 8
 
 
 def _is_int(t: torch.Tensor) -> bool:
@@ -115,6 +126,16 @@ def tensor_design(m: int, k: int, n: int, n_bits: int) -> bool:
             and n >= 1 and not narrow_design(k, n, n_bits))
 
 
+def rows_design(m: int, k: int, n: int, n_bits: int) -> bool:
+    """Whether a (B,m,k)@(B,k,n) contraction at operand width ``n_bits``
+    runs the rows design on the card (``lut_matmul`` also needs a table of
+    at most ``monomials.MAX_PLANES`` planes): many rows (a training step's
+    or a prefill's M = 256), widths 3..8, and a shape the narrow design does
+    not take. A pure function of shape and width."""
+    return (m > DECODE_MAX_M and ROWS_MIN_BITS <= n_bits <= ROWS_MAX_BITS
+            and k >= 1 and n >= 1 and not narrow_design(k, n, n_bits))
+
+
 def decode_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                         table16: torch.Tensor, n_bits: int) -> torch.Tensor:
     """Plain twin of the decode design on any device: (B,M,K) rows against
@@ -148,6 +169,41 @@ def tensor_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.int64).to(torch.int32)
 
 
+def _wrapped(x: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """The wrapped n-bit values of integer operands: their low n bits,
+    sign-extended, as int64."""
+    x = x.to(torch.int64) & ((1 << n_bits) - 1)
+    return x - ((x >> (n_bits - 1)) << n_bits)
+
+
+def rows_matmul_plain(a: torch.Tensor, b: torch.Tensor, decomp,
+                      n_bits: int) -> torch.Tensor:
+    """Plain twin of the rows design on any device: (B,M,K)@(B,K,N) as
+    ``(A @ W) + Σ_r scale_r·(A_{S_r} @ F_r(W)) + K·f00`` with the planes of
+    ``decomp`` (a ``kernels.monomials.Decomposition`` of width ``n_bits``),
+    A and W the wrapped n-bit values of the operands, ``A_S = [u(a) & S ==
+    S]`` on their unsigned n-bit codes u; summed in int64, then wrapped to
+    the int32 ring. The card has no int64 matmul: there each GEMM is a
+    float64 one, exact while its sums stay below 2^53 (|a·w| ≤ 2^14, so for
+    K < 2^39)."""
+    if decomp.n_bits != n_bits:
+        raise ValueError(f"a width-{decomp.n_bits} decomposition at width "
+                         f"{n_bits}")
+    dt = torch.int64 if a.device.type == "cpu" else torch.float64
+
+    def mm(x, y):
+        return torch.matmul(x.to(dt), y.to(dt)).to(torch.int64)
+
+    ua = a.to(torch.int64) & ((1 << n_bits) - 1)
+    ub = (b.to(torch.int64) & ((1 << n_bits) - 1))
+    acc = mm(_wrapped(a, n_bits), _wrapped(b, n_bits))
+    factors = torch.from_numpy(decomp.factors.astype(np.int64)).to(a.device)
+    for mask, scale, fac in zip(decomp.masks, decomp.scales, factors):
+        acc += scale * mm((ua & mask) == mask, fac[ub])
+    acc += a.shape[2] * decomp.f00
+    return acc.to(torch.int32)
+
+
 def narrow_matmul_plain(a: torch.Tensor, cols: torch.Tensor,
                         n_bits: int) -> torch.Tensor:
     """Plain twin of the narrow design on any device: (B,M,K) int32 rows
@@ -162,6 +218,32 @@ def narrow_matmul_plain(a: torch.Tensor, cols: torch.Tensor,
         acc += torch.gather(cols[:, kk].to(torch.int32), 2,
                             idx[:, None, :].expand(bsz, n, m))
     return acc.transpose(1, 2).contiguous()
+
+
+#: The dispatch order of both contraction kernels; ``lut_matmul`` alone has
+#: the tensor design (the exact product at few rows), ahead of the decode
+#: design that would also take its shapes.
+DESIGN_ORDER = ("narrow", "tensor", "decode", "rows", "tile")
+
+
+def eligible_designs(m: int, k: int, n: int, n_bits: int,
+                     table_checks: "dict | None" = None) -> dict:
+    """Design name → whether it takes a (B,m,k)@(B,k,n) contraction at
+    width ``n_bits``, in :data:`DESIGN_ORDER`, the tile design taking
+    everything. ``table_checks`` (``lut_matmul``): design name → a callable
+    that checks the product table for that design, called only where the
+    shape fits (a check may synchronise once per table version); without it
+    the tensor design is left out (``approx_matmul``). A pure function of
+    shape and width, and of the table's checks."""
+    shape = {"narrow": narrow_design(k, n, n_bits),
+             "tensor": tensor_design(m, k, n, n_bits),
+             "decode": decode_design(m, k, n, n_bits),
+             "rows": rows_design(m, k, n, n_bits),
+             "tile": True}
+    checks = table_checks or {}
+    return {name: shape[name] and (name not in checks or bool(checks[name]()))
+            for name in DESIGN_ORDER
+            if name != "tensor" or table_checks is not None}
 
 
 def resolve_design(design: "str | None", eligible: dict, kernel: str,

@@ -21,23 +21,27 @@ out-of-range ints to their low N bits; the sum is exact in the int32 ring.
   131071: the ``exact`` dense layers of an LM decode step) computes the
   int8 product on the INT8 tensor cores and reads no table; the *decode*
   design (M ≤ 16) gathers every product from an int16 twin of the table
-  (:func:`table16`) in shared memory; the *tile* design (16×16 output
-  tiles, the batch as grid z) takes every other shape, and any table with
-  an entry beyond int16 (no product table of a width ≤ 8 has one). A table
-  not from :func:`device_table` is checked once per tensor version (int16
-  range, exact product), which synchronises. The tensor and decode designs
-  take the int8 codes ``dense`` hands over without a copy. A narrow batch
-  that is not 16-byte aligned is copied first, as in
+  (:func:`table16`) in shared memory; the *rows* design (M > 16, widths
+  3..8, a table that :func:`rows_decomposition` takes apart into at most
+  ``monomials.MAX_PLANES`` bit-monomial planes: every product table of a
+  CSP wiring, and ``exact`` with none) runs an exact int8 GEMM plus those
+  planes on the INT8 tensor cores; the *tile* design (16×16 output tiles,
+  the batch as grid z) takes every other shape and table. A table not from
+  :func:`device_table` is checked once per tensor version (int16 range,
+  exact product, planes), which synchronises. The tensor, decode and rows
+  designs take the int8 codes ``dense`` hands over without a copy. A narrow
+  batch that is not 16-byte aligned is copied first, as in
   ``kernels.approx_matmul``;
 * a CPU tensor runs :func:`lut_matmul_plain`, k walked in slabs.
 
 ``lut_matmul.launches`` counts tile launches, ``.narrow_launches``,
-``.tensor_launches`` and ``.decode_launches`` those of the other designs.
-Plain twins: :func:`table_columns` with
+``.tensor_launches``, ``.decode_launches`` and ``.rows_launches`` those of
+the other designs. Plain twins: :func:`table_columns` with
 :func:`~repro_torch.kernels.blocking.narrow_matmul_plain` (narrow),
 :func:`~repro_torch.kernels.blocking.tensor_matmul_plain` (tensor),
 :func:`table16` with :func:`~repro_torch.kernels.blocking.decode_matmul_plain`
-(decode).
+(decode), :func:`rows_decomposition` with
+:func:`~repro_torch.kernels.blocking.rows_matmul_plain` (rows).
 
 The table must lie on the operands' device: :func:`device_table` keeps one
 per (wiring, device), uploaded once, so no call copies a table.
@@ -51,9 +55,10 @@ import torch
 
 from repro_torch.core import lut as lut_lib
 from repro_torch.core import multiplier as mult
-from repro_torch.kernels import blocking, build
+from repro_torch.kernels import blocking, build, monomials
 from repro_torch.kernels.blocking import (decode_matmul_plain,  # noqa: F401
                                           narrow_matmul_plain,
+                                          rows_matmul_plain,
                                           tensor_matmul_plain)
 from repro_torch.obs.trace import trace_span
 
@@ -70,6 +75,10 @@ _DECODE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 _TENSOR_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p)
+_ROWS_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p)
 _INT16 = (-(1 << 15), (1 << 15) - 1)
 
 
@@ -104,6 +113,9 @@ def device_table(mult_key: str, device) -> torch.Tensor:
             t._table16 = (t._version, build.device_constant(
                 ("flat_lut16", key), device, lambda: host.astype(np.int16)))
         t._exact_at = (t._version, bool(np.array_equal(host, _exact_product8())))
+        d = monomials.cached(("flat_lut", key), lambda: monomials.try_decompose(host))
+        t._rows_at = (t._version, d, None if d is None else build.device_constant(
+            ("flat_lut_rows", key), device, lambda: monomials.device_planes(d)))
         t._int16_at = (t._version, fits)
     return t
 
@@ -128,6 +140,30 @@ def _is_exact(table: torch.Tensor) -> bool:
             table, torch.from_numpy(_exact_product8()).to(table.device)))
         table._exact_at = (table._version, ok)
     return ok
+
+
+def _rows(table: torch.Tensor) -> tuple:
+    """(decomposition, its device planes) of ``table`` for the rows design,
+    or (None, None) where its factors do not fit int8 planes or need more
+    than ``monomials.MAX_PLANES``; marked by :func:`device_table`, else
+    computed once per tensor version (which synchronises)."""
+    version, d, planes = getattr(table, "_rows_at", (None, None, None))
+    if version != table._version:
+        d = monomials.try_decompose(table.cpu().numpy())
+        planes = None
+        if d is not None:
+            planes = torch.from_numpy(monomials.device_planes(d)).to(table.device)
+            if planes.is_cuda:  # complete before another stream reads it
+                torch.cuda.current_stream(planes.device).synchronize()
+        table._rows_at = (table._version, d, planes)
+    return d, planes
+
+
+def rows_decomposition(table: torch.Tensor) -> "monomials.Decomposition | None":
+    """The rows design's planes of a flat product table (an exact int8 GEMM
+    plus bit-monomial int8 GEMMs; ``kernels.monomials``), or None for a
+    table the rows design does not take."""
+    return _rows(table)[0]
 
 
 def table16(table: torch.Tensor) -> torch.Tensor:
@@ -179,24 +215,30 @@ def lut_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return blocking.decode_matmul_plain(a, b, table, table_width(table.shape[0]))
 
 
+def table_checks(table: torch.Tensor) -> dict:
+    """What each design needs of the table, for
+    :func:`~repro_torch.kernels.blocking.eligible_designs`: entries within
+    int16 (narrow, decode), the exact product of 8-bit codes (tensor), at
+    most ``monomials.MAX_PLANES`` int8 planes (rows)."""
+    return {"narrow": lambda: _fits_int16(table),
+            "tensor": lambda: _is_exact(table),
+            "decode": lambda: _fits_int16(table),
+            "rows": lambda: rows_decomposition(table) is not None}
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
             n_bits: int, design: "str | None" = None) -> torch.Tensor:
     """Launch the kernel of ``design`` (``"narrow"``, ``"tensor"``,
-    ``"decode"`` or ``"tile"``; None: the first of them that takes the
-    shape, width and table) on CUDA (B,M,K)@(B,K,N) integer operands."""
+    ``"decode"``, ``"rows"`` or ``"tile"``; None: the first of them that
+    takes the shape, width and table) on CUDA (B,M,K)@(B,K,N) integer
+    operands."""
     bsz, m, k = a.shape
     n = b.shape[2]
     design = blocking.resolve_design(
-        design, {"narrow": blocking.narrow_design(k, n, n_bits)
-                 and _fits_int16(table),
-                 "tensor": blocking.tensor_design(m, k, n, n_bits)
-                 and _is_exact(table),
-                 "decode": blocking.decode_design(m, k, n, n_bits)
-                 and _fits_int16(table),
-                 "tile": True},
+        design, blocking.eligible_designs(m, k, n, n_bits, table_checks(table)),
         "lut_matmul", f"M={m}, K={k}, N={n} at width {n_bits}, or a table "
         "beyond int16 (the tensor design: a table that is not the exact "
-        "product)")
+        "product; the rows design: one beyond its int8 planes)")
     if not (bsz <= 65535 and (n + 15) // 16 <= 65535 and max(m, k) < 2**31):
         raise ValueError(f"lut_matmul grid limit exceeded by "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
@@ -222,6 +264,21 @@ def _launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
         counter = (lut_matmul.tensor_launches if design == "tensor"
                    else lut_matmul.decode_launches)
         counter.add()
+        return out
+    if design == "rows":
+        a8 = blocking.codes8(a).contiguous()
+        b8 = blocking.codes8(b).contiguous()
+        d, planes = _rows(table)
+        out = torch.empty((bsz, m, n), dtype=torch.int32, device=a.device)
+        fn = build.load_function("lut_matmul", "lut_matmul_rows_launch",
+                                 _ROWS_ARGTYPES)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(a8.data_ptr(), b8.data_ptr(), planes.data_ptr(),
+                    out.data_ptr(), bsz, m, k, n, n_bits, d.planes, d.f00,
+                    stream)
+        build.check(rc, "lut_matmul_rows_launch")
+        lut_matmul.rows_launches.add()
         return out
     a, b = a.to(torch.int32), b.to(torch.int32)
     if design == "narrow":
@@ -281,3 +338,4 @@ lut_matmul.launches = build.LaunchCounter()         # tile design
 lut_matmul.narrow_launches = build.LaunchCounter()  # narrow design
 lut_matmul.tensor_launches = build.LaunchCounter()  # tensor design
 lut_matmul.decode_launches = build.LaunchCounter()  # decode design
+lut_matmul.rows_launches = build.LaunchCounter()    # rows design

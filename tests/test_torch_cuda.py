@@ -748,6 +748,159 @@ def test_forced_design_on_a_shape_it_cannot_take_raises(dev):
 
 
 # ---------------------------------------------------------------------------
+# the rows design: many rows as an exact int8 GEMM plus bit-monomial int8
+# GEMMs on the INT8 tensor cores
+# ---------------------------------------------------------------------------
+
+#: (B, M, K, N): ragged K (no multiple of 32 or 16), odd N, a K tail inside
+#: a 32-row chunk (48), 16-byte rows (the cp.async path), several M tiles
+ROWS_SHAPES = [(1, 17, 33, 9), (2, 33, 45, 17), (1, 40, 48, 32),
+               (2, 130, 100, 70), (1, 256, 512, 384), (3, 300, 64, 129)]
+
+
+def _rows_check(a, w, key=None, table=None):
+    """The public call (it must take the rows design) against the plain
+    twin, the tile design and the tile design's plain version."""
+    if table is None:
+        n_bits = mult.split_width(key)[1]
+        got = _launched(closed_form_matmul.rows_launches,
+                        lambda: closed_form_matmul(a, w, key))
+        plain = blocking.rows_matmul_plain(a, w, am.rows_decomposition(key), n_bits)
+        tile = am._launch(a, w, key, design="tile")
+    else:
+        n_bits = lm.table_width(table.shape[0])
+        got = _launched(lut_matmul.rows_launches, lambda: lut_matmul(a, w, table))
+        plain = blocking.rows_matmul_plain(a, w, lm.rows_decomposition(table),
+                                           n_bits)
+        tile = lm._launch(a, w, table, n_bits, design="tile")
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    torch.testing.assert_close(got, tile, rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.parametrize("shape", ROWS_SHAPES)
+def test_rows_design_vs_plain_and_tile(dev, shape):
+    """Ragged M, K and N, batched with a distinct weight per batch, int8
+    codes: the rows design of both kernels against its plain twin and the
+    tile design, every integer equal."""
+    bsz, m, k, n = shape
+    a, w = _codes((bsz, m, k)).to(dev), _codes((bsz, k, n)).to(dev)
+    for key in ("proposed@8", "csp_axc1@6", "design_strollo2020@4"):
+        _rows_check(a, w, key=key)
+    for key in ("proposed", "exact", "csp_axc5@5", "exact@6"):
+        _rows_check(a, w, table=device_table(key, dev))
+
+
+@pytest.mark.parametrize("width", range(3, 9))
+@pytest.mark.parametrize("name", sorted(mult.WIRINGS))
+def test_rows_every_wiring_and_width(dev, name, width):
+    """Every wiring at widths 3..8 at one shape of 16-byte rows, operands
+    anywhere in int32 (each wraps to its low n bits, the codes' too)."""
+    key = f"{name}@{width}"
+    a = torch.from_numpy(RNG.integers(-2**31, 2**31, (1, 70, 96), dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    w = torch.from_numpy(RNG.integers(-2**31, 2**31, (1, 96, 80), dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    got = _rows_check(a, w, key=key)
+    torch.testing.assert_close(got.cpu(), closed_form_matmul(a.cpu(), w.cpu(), key),
+                               rtol=0, atol=0)
+    _rows_check(a, w, table=device_table(key, dev))
+
+
+def test_rows_flushes_and_wraps(dev):
+    """K = 2^18 rows: beyond one block's k range at every plane count (the
+    mma sums flushed into wrapping int32 adds), and the int32 sums wrap
+    (every code -128 or -127 in the first 3/4: products near 2^14)."""
+    k, hot = 1 << 18, 3 << 16
+    a = _codes((1, 17, k))
+    w = _codes((1, k, 16))
+    a[:, :, :hot] = -128
+    w[:, :hot] = torch.from_numpy(RNG.integers(-128, -126, (hot, 16)).astype(np.int8))
+    a, w = a.to(dev), w.to(dev)
+    for key in ("proposed@8", "design_akbari2017@8"):
+        _rows_check(a, w, key=key)
+    exact = lut_matmul(a, w, device_table("exact", dev))
+    want = torch.matmul(a.double(), w.double()).to(torch.int64)
+    assert (want.abs() > 2**31).any()  # the sums wrap
+    torch.testing.assert_close(exact, want.to(torch.int32), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mkn", [(17, 512, 256), (256, 1024, 512), (256, 4096, 1024)])
+def test_rows_exact_equals_int_mm(dev, mkn):
+    m, k, n = mkn
+    a, w = _codes((m, k)).to(dev), _codes((k, n)).to(dev)
+    t = device_table("exact", dev)
+    got = _launched(lut_matmul.rows_launches, lambda: lut_matmul(a, w, t))
+    torch.testing.assert_close(got, torch._int_mm(a, w), rtol=0, atol=0)
+
+
+def test_rows_two_int8_planes(dev):
+    """design_akbari2017@8's factors reach -768..512: each such factor is
+    two int8 planes (a scale-256 one among them)."""
+    d = am.rows_decomposition("design_akbari2017@8")
+    assert 256 in d.scales and d.planes <= 32
+    a, w = _codes((2, 64, 160)).to(dev), _codes((2, 160, 96)).to(dev)
+    _rows_check(a, w, key="design_akbari2017@8")
+    _rows_check(a, w, table=device_table("design_akbari2017@8", dev))
+
+
+def test_rows_k_padding_adds_no_f00(dev):
+    """Zero operands: every real k row gives f(0,0) once (K = 45, in a
+    chunk of 32 rows and a split of K), no zero-filled row gives any."""
+    a = torch.zeros((1, 20, 45), dtype=torch.int8, device=dev)
+    w = torch.zeros((1, 45, 30), dtype=torch.int8, device=dev)
+    got = _launched(closed_form_matmul.rows_launches,
+                    lambda: closed_form_matmul(a, w, "proposed@8"))
+    assert (got == 45 * 192).all()
+
+
+def test_rows_takes_an_unaligned_view(dev):
+    """Views with a storage offset of 1 byte (no 16-byte copies): byte
+    loads, the same integers."""
+    m, k, n = 40, 1029, 301
+    a = _codes(1 + m * k).to(dev)[1:].view(1, m, k)
+    w = _codes(1 + k * n).to(dev)[1:].view(1, k, n)
+    assert a.data_ptr() % 16 and w.data_ptr() % 16
+    _rows_check(a, w, key="proposed@8")
+    _rows_check(a, w, table=device_table("exact", dev))
+
+
+def test_rows_forced_where_it_cannot_take_raises(dev):
+    """No fallback: the rows design refuses few rows, widths beyond 8 and a
+    table beyond its planes, and its C entry point refuses a bad contract."""
+    from repro_torch.kernels import build
+
+    a8, w = _codes((1, 8, 64)).to(dev), _codes((1, 64, 64)).to(dev)
+    a17 = _codes((1, 17, 64)).to(dev)
+    with pytest.raises(ValueError, match="rows design does not take"):
+        am._launch(a8, w, "proposed@8", design="rows")
+    with pytest.raises(ValueError, match="rows design does not take"):
+        am._launch(a17, w, "proposed@12", design="rows")
+    noise = torch.from_numpy(RNG.integers(-2**20, 2**20, 1 << 16)
+                             .astype(np.int32)).to(dev)
+    assert lm.rows_decomposition(noise) is None
+    with pytest.raises(ValueError, match="rows design does not take"):
+        lm._launch(a17, w, noise, 8, design="rows")
+    before = lut_matmul.launches.value
+    torch.testing.assert_close(lut_matmul(a17, w, noise),
+                               lut_matmul_plain(a17.cpu(), w.cpu(), noise.cpu()).to(dev),
+                               rtol=0, atol=0)
+    assert lut_matmul.launches.value == before + 1  # the tile design
+    planes = am._rows_planes("proposed@8", dev)
+    out = torch.empty((1, 17, 64), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = build.load_function("approx_matmul", "approx_matmul_rows_launch",
+                             am._ROWS_ARGTYPES)
+    assert fn(a17.data_ptr(), w.data_ptr(), planes.data_ptr(), out.data_ptr(),
+              1, 17, 64, 64, 12, 19, 192, stream) == 1  # width 12
+    assert fn(a17.data_ptr(), w.data_ptr(), planes.data_ptr(), out.data_ptr(),
+              1, 17, 64, 64, 8, 33, 192, stream) == 1  # 33 planes
+    assert fn(a17.data_ptr(), w.data_ptr(), planes.data_ptr() + 2, out.data_ptr(),
+              1, 17, 64, 64, 8, 19, 192, stream) != 0  # misaligned planes
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
 # training: the straight-through contraction, a TrainLoop step, checkpoints
 # ---------------------------------------------------------------------------
 
@@ -774,17 +927,18 @@ def test_ste_on_the_card_equals_the_cpu(dev, spec, moment):
         dx, dw = torch.autograd.grad(out, (xt, wt), torch.from_numpy(g).to(device))
         return [t.cpu() for t in (out, dx, dw)]
 
-    before = closed_form_matmul.launches.value + lut_matmul.launches.value
+    before = closed_form_matmul.rows_launches.value + lut_matmul.rows_launches.value
     got, want = run(dev), run("cpu")
-    assert closed_form_matmul.launches.value + lut_matmul.launches.value == before + 1
+    assert (closed_form_matmul.rows_launches.value
+            + lut_matmul.rows_launches.value) == before + 1
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
     for a, b in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 def test_training_step_on_the_card_kernels_equal_the_table(dev, tmp_path):
-    """Two QAT TrainLoop steps at a small width: on approx_cuda (the tile
-    designs at M = 64, forward and recompute) the losses and every updated
+    """Two QAT TrainLoop steps at a small width: on approx_cuda (the rows
+    design at M = 64, forward and recompute) the losses and every updated
     parameter equal, bit for bit, those of approx_lut (plain gathers, the
     same integers) on the card."""
     from repro_torch.data import SyntheticLMStream
@@ -802,11 +956,12 @@ def test_training_step_on_the_card_kernels_equal_the_table(dev, tmp_path):
             qat=QATPolicy(), plan=spec), layout=bundle.layout)
         params, opt, start = loop.init_or_restore(
             lambda: bundle.init_params(torch.Generator(dev).manual_seed(0), dev))
-        before = closed_form_matmul.launches.value
+        before = closed_form_matmul.rows_launches.value
         loop.run(params, opt, SyntheticLMStream(vocab=512, batch=4, seq_len=16,
                                                 seed=0), start)
         torch.cuda.synchronize()
-        return (loop.metrics["losses"], closed_form_matmul.launches.value - before,
+        return (loop.metrics["losses"],
+                closed_form_matmul.rows_launches.value - before,
                 {k: t.cpu() for k, t in convert.named_leaves(params).items()})
 
     losses_k, launched, pk = train("approx_cuda:proposed@8")
