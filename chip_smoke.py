@@ -68,9 +68,31 @@ crashed after its step-8 checkpoint and restarted with neither plan nor
 policy configured (both adopted from the manifest) ends bit for bit where
 an uninterrupted run does, a conflicting plan is refused, and the
 launchers' ``--qat-out`` bundle serves through ``launch/serve.py --plan``
-(phase ``lm_train_restart``). Every phase prints one JSON line;
-the line before the last lists the kernels with their launches on the path
-that runs them, their times and least-work bounds, and the last line is
+(phase ``lm_train_restart``).
+
+Then the paper's tables, the contraction meter and the plan autotuner.
+Table 4 (``core.metrics.evaluate``, every 8-bit design) runs on the card,
+every field equal to the CPU's, beside Table 5 and the headline savings
+(phase ``paper_tables``). The 512×512 set is served under the edge plan
+with a probing ``ContractionMeter`` installed: exactly 16·512·512·K MACs
+per tap group, energy = MACs × the unit-gate PDP, the probe's moments equal
+to the same service on the CPU, maps and launches equal to an un-metered
+run (phase ``meter_path``). ``launch.autotune.autotune_edge`` searches the
+same set from an ``approx_cuda`` baseline (the narrow designs meter and
+validate it; its tuned plan, rewritten onto ``approx_cuda``, serves the
+same maps), and a QAT-scored search picks the CPU's plan (phase
+``autotune_edge_path``). ``autotune_lm`` tunes minitron-8b at its
+published widths, cut to 4 layers: through the CLI at the default budget
+(its bundle then served by ``launch/serve.py --plan``), and at a budget
+taken from the scored divergence of one move, where a move is accepted;
+each search's metered baseline prefill and one metered prefill of the
+greedy's plan count 31,138,512,896 MACs, the validation prefills launch
+only the rows design, and the greedy's plan prefills bit for bit as on the
+table substrate (phase ``autotune_lm_path``). Every phase prints one JSON
+line; the line before the last lists the kernels with their launches on
+the path that runs them (and, beside the rows of their design and shape,
+those of the new phases, counted by shape), their times and least-work
+bounds, and the last line is
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Needs CUDA; exits non-zero without it. Imports no JAX.
@@ -1077,6 +1099,269 @@ def edge_qat_phase(dev, tiles: list, planned_maps: list, counters: dict) -> dict
     return launches
 
 
+def tools_phases(dev, card: str, tiles: list, out_dir: Path) -> dict:
+    """The paper's tables, the contraction meter and the plan autotuner on
+    the card (phases paper_tables, meter_path, autotune_edge_path,
+    autotune_lm_path). Returns the contraction kernels' launches on each
+    phase's path by design and shape (``"BxMxKxN"``), for the kernels
+    line."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    from repro_torch.core import energy, metrics
+    from repro_torch.core import multiplier as mult
+    from repro_torch.data import image_batch
+    from repro_torch.kernels.approx_matmul.ops import closed_form_matmul
+    from repro_torch.kernels.lut_matmul.ops import lut_matmul
+    from repro_torch.launch import autotune as at
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import registry as reg
+    from repro_torch.nn import plan as plan_mod
+    from repro_torch.obs.meter import (ContractionMeter, pdp_per_mac_fj,
+                                       telemetry_scope)
+    from repro_torch.serving import EdgeDetectService
+
+    counters = {"closed_form_tile": closed_form_matmul.launches,
+                "closed_form_narrow": closed_form_matmul.narrow_launches,
+                "closed_form_decode": closed_form_matmul.decode_launches,
+                "closed_form_rows": closed_form_matmul.rows_launches,
+                "lut_tile": lut_matmul.launches,
+                "lut_narrow": lut_matmul.narrow_launches,
+                "lut_decode": lut_matmul.decode_launches,
+                "lut_tensor": lut_matmul.tensor_launches,
+                "lut_rows": lut_matmul.rows_launches}
+
+    def counted(fn):
+        """(fn(), launches by design, launches by design and shape): the
+        counts set to 0 just before."""
+        for c in counters.values():
+            c.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: c.value for name, c in counters.items()}, {
+            name: {"x".join(map(str, s)): v for s, v in c.by_shape().items()}
+            for name, c in counters.items() if c.value}
+
+    log = io.StringIO()  # the searches' and the launcher's own prints
+    shapes = {}
+
+    # -- paper_tables: Table 4 on the card, every field equal to the CPU's;
+    # Table 5 and the headline savings (not a gate)
+    t0 = time.perf_counter()
+    reports = {}
+    for name in mult.default_width_names():
+        fn = mult.ALL_MULTIPLIERS[name]
+        got = dataclasses.asdict(metrics.evaluate(fn, name, device=dev))
+        want = dataclasses.asdict(metrics.evaluate(fn, name, device="cpu"))
+        require(got == want, f"Table 4 {name}: card {got} vs CPU {want}")
+        reports[name] = {k: got[k] for k in ("er", "nmed", "mred", "max_ed")}
+    sav = energy.savings_vs("proposed", "design_du2022")
+    emit("paper_tables", seconds=time.perf_counter() - t0,
+         table4=reports, equal_to_cpu=True, table5=energy.table5(),
+         proposed_vs_du2022={"pdp_pct": sav["pdp"], "power_pct": sav["power"],
+                             "paper_pdp_pct": 29.21, "paper_power_pct": 14.39})
+
+    # -- meter_path: the 512x512 set served under PLAN with the probing
+    # meter installed; batches flushed in order on the calling thread
+    # (start=False), so the probe draws its rows in the same order as the
+    # same service on the CPU
+    imgs = np.stack(tiles)
+    n, h, w = imgs.shape
+
+    def serve(device, meter):
+        with EdgeDetectService(PLAN, device=device, max_batch_size=8,
+                               start=False) as svc, telemetry_scope(meter):
+            return svc.detect(list(imgs), timeout=300.0)
+
+    def timed(meter_fn):
+        """(maps, (launches by design, by shape), meter, wall s of 3
+        passes): each pass on a fresh meter, the last one kept; the first
+        un-metered pass is a warm-up."""
+        walls = []
+        for _ in range(3):
+            meter_ = meter_fn()
+            t0 = time.perf_counter()
+            maps_, *counts_ = counted(lambda: serve(dev, meter_))
+            walls.append(time.perf_counter() - t0)
+        return maps_, counts_, meter_, walls
+
+    serve(dev, None)  # warm-up
+    bare, bare_counts, _, bare_s = timed(lambda: None)
+    _, count_counts, counting, count_s = timed(ContractionMeter)
+    metered, metered_counts, meter, probe_s = timed(
+        lambda: ContractionMeter(error_probe=True))
+    require(all(np.array_equal(a, b) for a, b in zip(bare, metered)),
+            "metered maps differ from the un-metered run")
+    require(bare_counts == metered_counts == count_counts
+            and bare_counts[0]["closed_form_narrow"] > 0
+            and bare_counts[0]["lut_narrow"] > 0,
+            f"meter_path launches {bare_counts} / {metered_counts}")
+    metered_counts, shapes["meter_path"] = metered_counts
+    sites = meter.site_summary()
+    want_macs = {"conv.edge.center": n * h * w, "conv.edge.ring": n * h * w * 8}
+    require({s: sites[s]["macs"] for s in want_macs} == want_macs == {
+        "conv.edge.center": 4_194_304, "conv.edge.ring": 33_554_432},
+        f"meter_path MACs {sites}")
+    for site, spec in ((s, plan_mod.as_plan(PLAN).resolve(s)) for s in want_macs):
+        price = pdp_per_mac_fj(spec.split(":", 1)[1])
+        e = sites[site]["energy_pdp_fj"]
+        require(abs(e - want_macs[site] * price) <= 1e-12 * e,
+                f"{site}: energy {e} vs MACs x {price}")
+    require(counting.site_summary() == sites, "probe changed the counts")
+    cpu = ContractionMeter(error_probe=True)
+    serve("cpu", cpu)
+    require(meter.probe_moments() == cpu.probe_moments()
+            and meter.registry.to_json() == cpu.registry.to_json(),
+            f"probe moments card {meter.probe_moments()} vs CPU "
+            f"{cpu.probe_moments()}")
+    emit("meter_path", plan=PLAN, images=[n, h, w], sites=sites,
+         probe_moments=meter.probe_moments(), equal_to_cpu=True,
+         byte_identical_to_unmetered=True, launches=metered_counts,
+         launches_by_shape=shapes["meter_path"],
+         wall_s={"unmetered": bare_s, "metered": count_s,
+                 "metered_with_probe": probe_s})
+
+    # -- autotune_edge_path: the search on the 512x512 set with an
+    # approx_cuda baseline (the narrow designs meter and validate it)
+    t0 = time.perf_counter()
+    res, e_counts, shapes["autotune_edge_path"] = counted(lambda: at.autotune_edge(
+        imgs, baseline="approx_cuda:proposed@8", device=dev))
+    e_s = time.perf_counter() - t0
+    base, tuned = res["baseline"], res["tuned"]
+    require(tuned["psnr_db"] >= base["psnr_db"] or res["rolled_back"],
+            f"autotune_edge validation {tuned} vs {base}")
+    require(tuned["pdp_fj"] <= base["pdp_fj"], f"tuned pdp {tuned} vs {base}")
+    require(e_counts["closed_form_narrow"] > 0
+            and e_counts["closed_form_tile"] == e_counts["lut_tile"] == 0
+            and e_counts["closed_form_rows"] == e_counts["lut_rows"] == 0,
+            f"autotune_edge launches {e_counts}")
+    # the tuned plan on the kernels, rewritten here (not by the program)
+    plan = res["plan"]
+    on_kernels = plan_mod.SubstratePlan.from_dict(json.loads(json.dumps(
+        plan.to_dict()).replace("approx_bitexact:", "approx_cuda:")))
+    with EdgeDetectService(plan, max_batch_size=8) as a, \
+            EdgeDetectService(on_kernels, max_batch_size=8) as b:
+        maps_a = a.detect(list(imgs), timeout=300.0)
+        maps_b = b.detect(list(imgs), timeout=300.0)
+    require(all(np.array_equal(u, v) for u, v in zip(maps_a, maps_b)),
+            "the tuned plan on approx_cuda serves other maps")
+    small = image_batch(6, 64, 64)
+    t0 = time.perf_counter()
+    q_card = at.autotune_edge(small, qat_steps=3, device=dev)
+    q_cpu = at.autotune_edge(small, qat_steps=3, device="cpu")
+    q_s = time.perf_counter() - t0
+    require(q_card["plan"] == q_cpu["plan"],
+            f"qat search: card {q_card['plan']} vs CPU {q_cpu['plan']}")
+    require(abs(q_card["qat"]["psnr_post"] - q_cpu["qat"]["psnr_post"]) <= 0.05,
+            f"qat psnr_post card {q_card['qat']} vs CPU {q_cpu['qat']}")
+    emit("autotune_edge_path", images=[n, h, w], seconds=e_s,
+         site_macs=res["site_macs"], candidates=res["candidates"],
+         baseline=base, tuned=tuned, rolled_back=res["rolled_back"],
+         accepted_moves=len(res["history"]) - 1, launches=e_counts,
+         launches_by_shape=shapes["autotune_edge_path"],
+         served_on_approx_cuda_byte_identical=True,
+         qat_search={"images": [6, 64, 64], "steps": 3, "seconds": q_s,
+                     "plan": q_card["plan"].to_dict(), "card": q_card["qat"],
+                     "cpu": q_cpu["qat"]})
+
+    # -- autotune_lm_path: minitron-8b at its published widths, depth cut to
+    # 4; first through the CLI at repro's budget (its bundle then served by
+    # the launcher), then at a budget taken from the scored divergence of
+    # the move layer.3.* -> approx_cuda:proposed@8
+    layers = 4
+    bundle_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_autotune"
+    macs_per_prefill = layers * 32 * (2 * 4096 * 4096 + 2 * 4096 * 1024
+                                      + 3 * 4096 * 16384)
+    require(macs_per_prefill == 31_138_512_896, "MACs per prefill")
+    cand = "approx_cuda:proposed@8"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        first, l1, _ = counted(lambda: at.main([
+            "--workload", "lm", "--arch", LM_ARCH, "--n-layers", str(layers),
+            "--candidates", f"int8,{cand}", "--out", str(bundle_dir)]))
+    first_s = time.perf_counter() - t0
+    # the first scoring pass: the single move on the last layer
+    cfg = reg.get_config(LM_ARCH, n_layers=layers)
+    tokens = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, size=(2, 16))).to(dev)}
+
+    def prefill(plan_):
+        with torch.no_grad():
+            return reg.get_bundle(LM_ARCH, n_layers=layers, dot_plan=plan_
+                                  ).prefill(first["params"], tokens)
+
+    exact_logits = prefill("exact").float()
+    move = at.with_rule(plan_mod.SubstratePlan.uniform("exact"),
+                        f"layer.{layers - 1}.*", cand)
+    scored = float((prefill(at.stat_plan(move)).float()
+                    - exact_logits).abs().max())
+    budget = scored * (1 + 1e-6)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        second, l2, shapes["autotune_lm_path"] = counted(lambda: at.autotune_lm(
+            LM_ARCH, overrides={"n_layers": layers},
+            candidates=("int8", cand), div_budget=budget, verbose=True,
+            device=dev))
+    second_s = time.perf_counter() - t0
+    # each search's metered baseline prefill (its site_macs)
+    macs_seen = [sum(r["site_macs"].values()) for r in (first, second)]
+    require(macs_seen == [macs_per_prefill] * 2,
+            f"MACs of the searches' metered prefills {macs_seen}")
+    require(len(second["history"]) > 1,
+            f"no move accepted under the budget {budget}")
+
+    def cuda_layers(d) -> int:
+        p = plan_mod.SubstratePlan.from_dict(d)
+        return sum(p.resolve(f"layer.{i}.attn.wq") == cand for i in range(layers))
+
+    validated = second["history"][::-1][:second["rolled_back"] + 1]
+    want_rows = 7 * sum(cuda_layers(s["plan"]) for s in validated)
+    require(l2["closed_form_rows"] == want_rows > 0
+            and l2["closed_form_decode"] == l2["closed_form_tile"] == 0
+            and sum(v for k, v in l2.items() if k.startswith("lut")) == 0
+            and l2["closed_form_narrow"] == 0,
+            f"autotune_lm launches {l2}, want {want_rows} rows")
+    # the greedy's final plan on the kernels, bit for bit the table substrate
+    last = second["history"][-1]["plan"]
+    on_table = plan_mod.SubstratePlan.from_dict(json.loads(json.dumps(last).replace(
+        "approx_cuda:", "approx_lut:")))
+    with telemetry_scope(ContractionMeter()) as meter:
+        on_kernels = prefill(plan_mod.SubstratePlan.from_dict(last))
+    own_macs = sum(e["macs"] for e in meter.summary().values())
+    require(own_macs == macs_per_prefill, f"metered prefill MACs {own_macs}")
+    require(same_bits(on_kernels, prefill(on_table)),
+            "the tuned plan's prefill on approx_cuda differs from approx_lut")
+    del exact_logits
+    # the CLI's bundle serves through the launcher
+    with contextlib.redirect_stdout(log):
+        served = launch_serve.main(["--arch", LM_ARCH, "--n-layers", str(layers),
+                                    "--requests", "2", "--max-tokens", "2",
+                                    "--plan", str(bundle_dir)])
+    require([len(r.output) for r in served] == [2, 2], "served from the bundle")
+    shutil.rmtree(bundle_dir, ignore_errors=True)
+    (out_dir / "chip_smoke_autotune.log").write_text(log.getvalue())
+    emit("autotune_lm_path", arch=LM_ARCH, reduced={"n_layers": layers},
+         batch=[2, 16], candidates=["int8", cand],
+         macs_per_prefill=macs_per_prefill,
+         default_budget={"div_budget": 0.25, "seconds": first_s,
+                         "tuned": first["tuned"], "baseline": first["baseline"],
+                         "history": first["history"], "launches": l1},
+         derived_budget={"div_budget": budget, "scored_single_move": scored,
+                         "seconds": second_s, "tuned": second["tuned"],
+                         "baseline": second["baseline"],
+                         "history": second["history"],
+                         "rolled_back": second["rolled_back"], "launches": l2,
+                         "launches_by_shape": shapes["autotune_lm_path"]},
+         site_macs=second["site_macs"], prefill_bit_identical_to_approx_lut=True,
+         bundle_served_by_launcher=True, log="chiprun_out/chip_smoke_autotune.log",
+         card=card)
+    del first, second
+    torch.cuda.empty_cache()
+    return shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -1846,6 +2131,27 @@ def main() -> int:
     ]
     lm_rows, lm_work = lm_phases(dev, card, out_dir, emit_trace)
     kernels += lm_rows
+    tool_shapes = tools_phases(dev, card, tiles, out_dir)
+
+    def at_kn(by_shape: dict, k: int, n: int) -> dict:
+        """The counted launches ("BxMxKxN" -> n) whose K and N are k and n."""
+        return {s: v for s, v in by_shape.items()
+                if s.split("x")[2:] == [str(k), str(n)]}
+
+    # the new phases' launches beside the row of their design, K and N: the
+    # meter and the edge search launch the narrow designs (ring K = 8 on
+    # the closed form, center K = 1 on the table), the LM search's
+    # validation prefills (M = 32) the rows design; each phase's record
+    # lists all its launches by shape
+    for row in kernels:
+        if row["name"] in ("closed_form_matmul[ring,narrow]", "lut_matmul[narrow]"):
+            kind = "lut" if row["name"].startswith("lut") else "closed_form"
+            for phase in ("meter_path", "autotune_edge_path"):
+                row[f"launches_{phase}"] = at_kn(
+                    tool_shapes[phase].get(f"{kind}_narrow", {}), *row["shape"][2:])
+        if row["name"].startswith("closed_form_matmul[rows,"):
+            row["launches_autotune_lm_path"] = at_kn(
+                tool_shapes["autotune_lm_path"]["closed_form_rows"], *row["shape"][2:])
     # every row exact; launched on its path, except the tile designs at the
     # decode step's M = 8, which the served path must not launch at all
     require(all(k["max_abs_err"] == 0 and (k["launches"] == 0 if k.get("off_path")

@@ -350,6 +350,11 @@ ALL_MULTIPLIERS: Dict[str, Callable[[Tensor, Tensor], Tensor]] = {
 }
 
 
+def default_width_names() -> list[str]:
+    """The 8-bit design names (the paper's sweep set, no @N variants)."""
+    return [k for k in ALL_MULTIPLIERS if "@" not in k]
+
+
 # ---------------------------------------------------------------------------
 # Structural model (independent cross-check of the closed form)
 # ---------------------------------------------------------------------------

@@ -33,7 +33,8 @@ and an exact int32-ring sum:
 ``closed_form_matmul.launches`` counts tile launches,
 ``closed_form_matmul.narrow_launches`` narrow ones,
 ``closed_form_matmul.decode_launches`` decode ones and
-``closed_form_matmul.rows_launches`` rows ones. The narrow design's
+``closed_form_matmul.rows_launches`` rows ones, each also by its
+``(B, M, K, N)`` (``.by_shape()``). The narrow design's
 plain twin is :func:`closed_form_columns` with
 :func:`~repro_torch.kernels.blocking.narrow_matmul_plain`; the decode
 design's is :func:`closed_form_table16` with
@@ -184,7 +185,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, key: str,
             rc = fn(a8.data_ptr(), b8.data_ptr(), table.data_ptr(),
                     out.data_ptr(), bsz, m, k, n, n_bits, stream)
         build.check(rc, "approx_matmul_decode_launch")
-        closed_form_matmul.decode_launches.add()
+        closed_form_matmul.decode_launches.add((bsz, m, k, n))
         return out
     if design == "rows":
         a8 = blocking.codes8(a).contiguous()
@@ -200,7 +201,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, key: str,
                     out.data_ptr(), bsz, m, k, n, n_bits, d.planes, d.f00,
                     stream)
         build.check(rc, "approx_matmul_rows_launch")
-        closed_form_matmul.rows_launches.add()
+        closed_form_matmul.rows_launches.add((bsz, m, k, n))
         return out
     params = closed_form_params(key)
     a, b = a.to(torch.int32), b.to(torch.int32)
@@ -213,7 +214,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, key: str,
             rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), cols.data_ptr(),
                     bsz, a.shape[1], k, n, params.ctypes.data, stream)
         build.check(rc, "approx_matmul_narrow_launch")
-        closed_form_matmul.narrow_launches.add()
+        closed_form_matmul.narrow_launches.add((bsz, m, k, n))
         return out if crop is None else out[:, :crop].contiguous()
     a = a.contiguous()
     b = b.contiguous()
@@ -224,7 +225,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, key: str,
         rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, m, k, n,
                 params.ctypes.data, stream)
     build.check(rc, "approx_matmul_launch")
-    closed_form_matmul.launches.add()
+    closed_form_matmul.launches.add((bsz, m, k, n))
     return out
 
 

@@ -156,19 +156,30 @@ def device_constant(key: Hashable, device,
 
 class LaunchCounter:
     """Thread-safe count of kernel launches, kept on each kernel wrapper so a
-    run can show that its main path went through the kernel."""
+    run can show that its main path went through the kernel. A launch that
+    names its shape is also counted under that shape (:meth:`by_shape`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._n = 0
+        self._shapes: Dict[tuple, int] = {}
 
-    def add(self) -> None:
+    def add(self, shape: Sequence[int] = ()) -> None:
         with self._lock:
             self._n += 1
+            if shape:
+                key = tuple(int(d) for d in shape)
+                self._shapes[key] = self._shapes.get(key, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._shapes = {}
+
+    def by_shape(self) -> Dict[tuple, int]:
+        """Launches by the shape their launch named, e.g. ``(B, M, K, N)``."""
+        with self._lock:
+            return dict(self._shapes)
 
     @property
     def value(self) -> int:

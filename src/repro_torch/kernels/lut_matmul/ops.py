@@ -36,7 +36,8 @@ out-of-range ints to their low N bits; the sum is exact in the int32 ring.
 
 ``lut_matmul.launches`` counts tile launches, ``.narrow_launches``,
 ``.tensor_launches``, ``.decode_launches`` and ``.rows_launches`` those of
-the other designs. Plain twins: :func:`table_columns` with
+the other designs, each also by its ``(B, M, K, N)`` (``.by_shape()``).
+Plain twins: :func:`table_columns` with
 :func:`~repro_torch.kernels.blocking.narrow_matmul_plain` (narrow),
 :func:`~repro_torch.kernels.blocking.tensor_matmul_plain` (tensor),
 :func:`table16` with :func:`~repro_torch.kernels.blocking.decode_matmul_plain`
@@ -263,7 +264,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
         build.check(rc, f"lut_matmul_{design}_launch")
         counter = (lut_matmul.tensor_launches if design == "tensor"
                    else lut_matmul.decode_launches)
-        counter.add()
+        counter.add((bsz, m, k, n))
         return out
     if design == "rows":
         a8 = blocking.codes8(a).contiguous()
@@ -278,7 +279,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
                     out.data_ptr(), bsz, m, k, n, n_bits, d.planes, d.f00,
                     stream)
         build.check(rc, "lut_matmul_rows_launch")
-        lut_matmul.rows_launches.add()
+        lut_matmul.rows_launches.add((bsz, m, k, n))
         return out
     a, b = a.to(torch.int32), b.to(torch.int32)
     if design == "narrow":
@@ -291,7 +292,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
                     out.data_ptr(), cols.data_ptr(), bsz, a.shape[1], k, n,
                     n_bits, stream)
         build.check(rc, "lut_matmul_narrow_launch")
-        lut_matmul.narrow_launches.add()
+        lut_matmul.narrow_launches.add((bsz, m, k, n))
         return out if crop is None else out[:, :crop].contiguous()
     a = a.contiguous()
     b = b.contiguous()
@@ -302,7 +303,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
         rc = fn(a.data_ptr(), b.data_ptr(), table.data_ptr(), out.data_ptr(),
                 bsz, m, k, n, n_bits, stream)
     build.check(rc, "lut_matmul_launch")
-    lut_matmul.launches.add()
+    lut_matmul.launches.add((bsz, m, k, n))
     return out
 
 

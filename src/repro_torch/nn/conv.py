@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import multiplier as mult
+from repro_torch.obs.meter import current_meter
 
 Tensor = torch.Tensor
 
@@ -104,6 +105,27 @@ def _im2col(imgs: Tensor, kh: int, kw: int, taps=None) -> Tensor:
 _CONV_DIMS = (((3,), (0,)), ((), ()))
 
 
+def _meter_fused(s, imgs: Tensor, kernel, kh: int, kw: int, site=None) -> None:
+    """Telemetry for the fused conv path, which bypasses ``dot_general``.
+
+    Records the contraction the fused kernel performs — per pixel, one
+    tap-axis dot: ``(B, H·W, kh·kw) @ (kh·kw, 1)`` — on the ambient meter,
+    so fused and im2col runs report identical MAC/energy totals. The
+    opt-in error probe samples a small leading-rows im2col slab (the
+    fused kernel contracts the same zero-padded tap products).
+    """
+    meter = current_meter()
+    if meter is None:
+        return
+    b, h, w = imgs.shape
+    meter.record_contraction(s.meta, b, h * w, kh * kw, 1, site=site)
+    if meter.error_probe and s.meta.mult_name != "exact":
+        slab = _im2col(imgs[:1, :8], kh, kw)  # (1, ≤8, W, taps)
+        taps = _kernel_tensor(kernel, imgs.device).reshape(1, kh * kw, 1)
+        meter.probe(s.meta, s.scalar, slab.reshape(1, -1, kh * kw), taps,
+                    site=site)
+
+
 def conv2d_batched(imgs: Tensor, kernel, substrate="approx_bitexact",
                    fused: "bool | None" = None,
                    site: "str | None" = None) -> Tensor:
@@ -137,6 +159,7 @@ def conv2d_batched(imgs: Tensor, kernel, substrate="approx_bitexact",
             raise ValueError(
                 f"fused=True but substrate {s.meta.spec} has no fused conv "
                 "kernel (only approx_cuda does); use fused=False")
+        _meter_fused(s, imgs, kernel, kh, kw, site=site)
         out = s.fused_conv2d(imgs, kernel)
     else:
         # the only path that needs the taps on the device: the fused kernel

@@ -62,6 +62,7 @@ from repro_torch.core import lut as lut_lib
 from repro_torch.core import multiplier as mult
 from repro_torch.kernels import build
 from repro_torch.nn import quant
+from repro_torch.obs.meter import current_meter as _current_meter
 from repro_torch.obs.trace import trace_span
 
 Tensor = torch.Tensor
@@ -423,6 +424,24 @@ class _SubstrateBase:
                              f"{tuple(a.shape)} @ {tuple(b.shape)}")
         return self._contract3(a[None], b[None])[0]
 
+    def _meter_hook(self, plan: _Plan, a3: Optional[Tensor],
+                    b3: Optional[Tensor], site: Optional[str] = None) -> None:
+        """Record this contraction on the ambient telemetry meter, if any.
+
+        One global read when no :func:`repro_torch.obs.meter.telemetry_scope`
+        is active. The record reads shapes only (no device sync); the
+        opt-in error probe samples the integer operands. Outputs are
+        bit-identical either way.
+        """
+        meter = _current_meter()
+        if meter is None:
+            return
+        meter.record_contraction(self.meta, plan.b, plan.m, plan.k, plan.n,
+                                 site=site)
+        if (meter.error_probe and a3 is not None
+                and self.meta.mult_name != "exact" and _is_int(a3)):
+            meter.probe(self.meta, self.scalar, a3, b3, site=site)
+
     def dot_general(self, x: Tensor, w: Tensor,
                     spec: Optional[ContractionSpec] = None) -> Tensor:
         """General contraction of ``x`` and ``w`` under this substrate.
@@ -441,7 +460,9 @@ class _SubstrateBase:
                     "integer-domain dot_general (spec.quant=None) needs "
                     f"integer operands, got {x.dtype}/{w.dtype}; pass a "
                     "QuantPolicy to contract float tensors")
-            return plan.unflatten(self._contract3(plan.lhs3(x), plan.rhs3(w)))
+            a3, b3 = plan.lhs3(x), plan.rhs3(w)
+            self._meter_hook(plan, a3, b3, site=spec.site)
+            return plan.unflatten(self._contract3(a3, b3))
         q = spec.quant
         bits = q.bits if q.bits is not None else self.meta.width
         if bits > self.meta.width:
@@ -455,6 +476,7 @@ class _SubstrateBase:
                                        contract_axis=2, bits=bits, eps=q.eps)
             qb, sb = _quantize_operand(plan.rhs3(w), q.w_mode, q.w_scale,
                                        contract_axis=1, bits=bits, eps=q.eps)
+            self._meter_hook(plan, qa, qb, site=spec.site)
             out3 = self._contract3(qa, qb).to(torch.float32) * (sa * sb)
             return plan.unflatten(out3).to(x.dtype)
 
@@ -516,6 +538,7 @@ class ExactSubstrate(_SubstrateBase):
         w = _require_tensor(w, "w").to(x.dtype)
         plan = _plan_contraction(tuple(x.shape), tuple(w.shape),
                                  spec.dimension_numbers)
+        self._meter_hook(plan, None, None, site=spec.site)  # no probe
         return plan.unflatten(torch.matmul(plan.lhs3(x), plan.rhs3(w)))
 
 

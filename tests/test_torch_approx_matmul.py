@@ -108,3 +108,18 @@ def test_blocking_contract():
         blocking.check_kernel_shapes("k", "ops", (5, 8), (8, 4), 4, 4, 4)
     with pytest.raises(ValueError, match="contraction-dim mismatch"):
         blocking.check_kernel_shapes("k", "ops", (4, 8), (4, 4), 4, 4, 4)
+
+
+def test_launch_counter_counts_by_shape():
+    """A launch that names its shape is also counted under it; reset clears
+    both counts."""
+    from repro_torch.kernels.build import LaunchCounter
+
+    c = LaunchCounter()
+    for shape in ((1, 32, 4096, 1024), (1, 32, 4096, 1024), (2, 8, 9, 1)):
+        c.add(shape)
+    c.add()
+    assert c.value == 4
+    assert c.by_shape() == {(1, 32, 4096, 1024): 2, (2, 8, 9, 1): 1}
+    c.reset()
+    assert (c.value, c.by_shape()) == (0, {})

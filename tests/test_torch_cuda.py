@@ -992,3 +992,85 @@ def test_checkpoint_round_trip_through_the_card(dev, tmp_path):
     assert torch.equal(out["lst"][0], tree["lst"][0])
     cpu, _, _ = load_checkpoint(str(tmp_path), tree, device="cpu")
     assert cpu["a"].device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the meter and the autotuner on the card, against the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_meter_on_the_card_equals_the_cpu(dev):
+    """Counts, MACs, energy and the probe's moments of the served planned
+    path and of a quantized contraction: the same on the card (the kernels)
+    as on the CPU (their plain versions)."""
+    from repro_torch.data import image_batch
+    from repro_torch.obs.meter import ContractionMeter, telemetry_scope
+
+    imgs = torch.from_numpy(image_batch(4, 64, 64, seed=2))
+    x = torch.from_numpy(RNG.normal(size=(40, 64)).astype(np.float32))
+    w = torch.from_numpy(RNG.normal(size=(64, 24)).astype(np.float32))
+    qc = sub.ContractionSpec.matmul(quant=sub.QuantPolicy(), site="dense")
+
+    def run(device):
+        m = ContractionMeter(error_probe=True, seed=4)
+        with telemetry_scope(m):
+            maps = conv.edge_detect_planned(imgs.to(device), PLAN)
+            fused = conv.edge_detect_batched(imgs.to(device), "approx_cuda:csp_axc1@6")
+            out = sub.get_substrate("approx_cuda").dot_general(
+                x.to(device), w.to(device), qc)
+        return [t.cpu() for t in (maps, fused, out)], m
+
+    got, mc = run(dev)
+    want, mh = run("cpu")
+    for u, v in zip(got, want):
+        assert torch.equal(u, v)
+    assert mc.registry.to_json() == mh.registry.to_json()
+    assert mc.probe_moments() == mh.probe_moments()
+
+
+def test_autotune_edge_on_the_card_equals_the_cpu(dev):
+    from repro_torch.launch import autotune as at
+
+    kw = dict(n_images=2, size=(64, 64), wirings=("proposed",), widths=(6, 7, 8))
+    got, want = at.autotune_edge(device=dev, **kw), at.autotune_edge(device="cpu", **kw)
+    assert got["site_macs"] == want["site_macs"]
+    assert got["plan"].to_dict() == want["plan"].to_dict()
+    assert [(h["pattern"], h["spec"], h["pdp_fj"]) for h in got["history"]] == \
+        [(h["pattern"], h["spec"], h["pdp_fj"]) for h in want["history"]]
+    for g, h in zip(got["history"], want["history"]):
+        assert g["score"] == pytest.approx(h["score"], abs=1e-3)
+    assert got["tuned"]["psnr_db"] == pytest.approx(want["tuned"]["psnr_db"],
+                                                    abs=1e-3)
+
+
+_DRIVERS = ["table2_compressors", "table3_compressor4", "table4_errors",
+            "table5_hardware", "fig9_edge", "fig10_tradeoff"]
+
+
+@pytest.mark.parametrize("name", _DRIVERS)
+def test_paper_driver_on_the_card_equals_the_cpu(dev, name, monkeypatch):
+    """``benchmarks/torch_<name>.py`` prints the same values on the card as
+    on the CPU (whose values equal the JAX driver's); only the timings and
+    the fused conv row's device label differ. Fig. 9's alias rows and its
+    fused conv row launch the kernels."""
+    import contextlib
+    import importlib.util
+    import io
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    spec = importlib.util.spec_from_file_location(
+        f"_card_drv_{name}", root / "benchmarks" / f"torch_{name}.py")
+    drv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(drv)
+    before = fused_conv2d.launches.value
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = drv.run(device="cuda")
+        launched = fused_conv2d.launches.value - before
+        want = drv.run(device="cpu")
+    values = lambda rows: {n: v for n, _, v in rows if n != "fig9/cuda_fused_conv"}
+    assert values(got) == values(want)
+    if name == "fig9_edge":
+        assert ("fig9/cuda_fused_conv", "device=cuda") in {(n, v) for n, _, v in got}
+        assert launched > 0

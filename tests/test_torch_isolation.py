@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import autotune as launch_autotune
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import registry as reg
@@ -21,6 +22,8 @@ from repro_torch.serving import EdgeDetectService, ServingEngine
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+#: the paper-table drivers of the port, beside the JAX package's
+TORCH_DRIVERS = sorted((ROOT / "benchmarks").glob("torch_*.py"))
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -38,6 +41,19 @@ def _imported_roots(path: Path) -> set:
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_jax_or_repro_imports(path):
     assert not (_imported_roots(path) & FORBIDDEN), path
+
+
+@pytest.mark.parametrize("path", TORCH_DRIVERS,
+                         ids=[p.name for p in TORCH_DRIVERS])
+def test_torch_drivers_import_no_jax_or_repro(path):
+    assert not (_imported_roots(path) & FORBIDDEN), path
+
+
+def test_six_torch_drivers():
+    assert [p.name for p in TORCH_DRIVERS] == [
+        "torch_fig10_tradeoff.py", "torch_fig9_edge.py",
+        "torch_table2_compressors.py", "torch_table3_compressor4.py",
+        "torch_table4_errors.py", "torch_table5_hardware.py"]
 
 
 def test_importing_the_port_loads_no_jax():
@@ -104,6 +120,30 @@ def test_training_slice_modules_are_checked(rel):
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
     assert files and all(f in PORT_FILES for f in files)
     assert all(not (_imported_roots(f) & FORBIDDEN) for f in files)
+
+
+TOOLS_MODULES = ["core/metrics.py", "core/energy.py", "obs/meter.py",
+                 "launch/autotune.py", "nn/approx_dot.py"]
+
+
+@pytest.mark.parametrize("rel", TOOLS_MODULES)
+def test_tools_slice_modules_are_checked(rel):
+    """The paper-table, meter and autotuner modules are among the files
+    checked above."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in PORT_FILES and not (_imported_roots(path) & FORBIDDEN)
+
+
+def test_autotune_defaults_to_cuda():
+    if torch.cuda.is_available():
+        assert launch_autotune.resolve_device("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launch_autotune.autotune_edge(n_images=1, size=(8, 8))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launch_autotune.autotune_lm("minitron-8b", overrides={"n_layers": 1})
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launch_autotune.main(["--out", "unused_bundle"])
 
 
 def test_train_launcher_defaults_to_cuda():
