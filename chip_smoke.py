@@ -88,7 +88,29 @@ taken from the scored divergence of one move, where a move is accepted;
 each search's metered baseline prefill and one metered prefill of the
 greedy's plan count 31,138,512,896 MACs, the validation prefills launch
 only the rows design, and the greedy's plan prefills bit for bit as on the
-table substrate (phase ``autotune_lm_path``). Every phase prints one JSON
+table substrate (phase ``autotune_lm_path``).
+
+Then the MoE, vlm and encdec families, each at its published widths and
+freed before the next is built. llama4-maverick cut to 2 layers (one unit:
+layer 0 dense, layer 1 top-1 MoE of 128 experts with a shared expert)
+serves 16 requests through ``ServingEngine`` at batch 8 under
+``approx_cuda:proposed@8`` at 2 workers and at 1 (only decode launches, 7
+per layer-step; worker 0's first wave equal to the 1-worker run); its dense
+shapes are checked on the decode and rows designs against their plain
+twins and timed; one decode step's logits and one ``bundle.prefill`` of 4 ×
+64 tokens (rows launches only) equal, bit for bit, the same on
+``approx_lut:proposed@8`` (phase ``moe_serving_path``). kimi-k2 at 1 layer
+(top-8 of 384 experts) prefills 2 × 32 tokens and takes two decode steps
+at batch 8, bit for bit the table substrate, with the tokens kept and
+dropped at every dispatch (phase ``moe_topk_path``). paligemma-3b at full
+depth prefills 256 patch embeddings and 32 tokens at batch 4 (``patch_proj``
+and every dense on the rows design) and serves 4 requests, one decode step
+bit for bit the table substrate (phase ``vlm_path``). whisper-large-v3 at
+full depth prefills 1500 frames at batch 2 (the encoder at 3000 rows, all
+rows launches) and serves 4 requests against zero encoder states, 9 decode
+and 2 rows launches per decoder layer-step; one decode step of its first 2
+decoder layers is held bit for bit to the table substrate (phase
+``encdec_path``). Every phase prints one JSON
 line; the line before the last lists the kernels with their launches on
 the path that runs them (and, beside the rows of their design and shape,
 those of the new phases, counted by shape), their times and least-work
@@ -183,6 +205,27 @@ LM_KERNELS_BY_NAME = {"decode design kernels (by name)": ("decode_matmul_kernel"
                       "tile design kernels (by name)": ("approx_matmul_kernel",
                                                         "lut_matmul_kernel"),
                       "output memsets (by name)": ("Memset",)}
+
+#: the MoE, vlm and encdec phases, each family at its published widths
+MOE_ARCH = "llama4-maverick-400b-a17b"
+MOE_LAYERS = 2  # one full unit: layer 0 dense, layer 1 MoE (128 experts)
+MOE_MAX_LEN = 32
+#: the (K, N) of the MoE config's dense layers (layer 0's FFN and layer 1's
+#: shared expert share them) and their launches per layer-step
+MOE_SHAPES = {"attn.wq,wo": (5120, 5120, 2), "attn.wk,wv": (5120, 1024, 2),
+              "ffn.wg,wi": (5120, 8192, 2), "ffn.wo": (8192, 5120, 1)}
+TOPK_ARCH = "kimi-k2-1t-a32b"
+TOPK_LAYERS = 1  # top-8 of 384 experts, every layer MoE
+TOPK_PREFILL = (2, 32)
+VLM_ARCH = "paligemma-3b"  # full depth: 18 layers
+VLM_PREFILL = (4, 32)  # text tokens, after the config's 256 patch embeddings
+VLM_BATCH = 4
+ENCDEC_ARCH = "whisper-large-v3"  # full depth: 32 encoder + 32 decoder layers
+ENCDEC_PREFILL = (2, 16)  # decoder tokens, after 1500 frames a sequence
+ENCDEC_BATCH = 4
+#: decoder layers of the encdec decode step held to the table substrate
+#: (its cross K/V take B * 1500 rows, slow on the plain gathers)
+ENCDEC_IDENTITY_LAYERS = 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -346,15 +389,7 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     from repro_torch.serving import Request, ServingEngine
     from torch.profiler import ProfilerActivity, profile
 
-    counters = {"closed_form_tile": closed_form_matmul.launches,
-                "closed_form_narrow": closed_form_matmul.narrow_launches,
-                "closed_form_decode": closed_form_matmul.decode_launches,
-                "closed_form_rows": closed_form_matmul.rows_launches,
-                "lut_tile": lut_matmul.launches,
-                "lut_narrow": lut_matmul.narrow_launches,
-                "lut_decode": lut_matmul.decode_launches,
-                "lut_tensor": lut_matmul.tensor_launches,
-                "lut_rows": lut_matmul.rows_launches}
+    counters = contraction_counters()
 
     def reset():
         for c in counters.values():
@@ -817,6 +852,35 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     return rows, work
 
 
+def contraction_counters() -> dict:
+    """The contraction kernels' launch counters by kind and design (each
+    wrapper counts its launches, by shape too)."""
+    from repro_torch.kernels.approx_matmul.ops import closed_form_matmul
+    from repro_torch.kernels.lut_matmul.ops import lut_matmul
+
+    return {"closed_form_tile": closed_form_matmul.launches,
+            "closed_form_narrow": closed_form_matmul.narrow_launches,
+            "closed_form_decode": closed_form_matmul.decode_launches,
+            "closed_form_rows": closed_form_matmul.rows_launches,
+            "lut_tile": lut_matmul.launches,
+            "lut_narrow": lut_matmul.narrow_launches,
+            "lut_decode": lut_matmul.decode_launches,
+            "lut_tensor": lut_matmul.tensor_launches,
+            "lut_rows": lut_matmul.rows_launches}
+
+
+def count_launches(counters: dict, fn):
+    """(fn(), launches by design, launches by design and shape
+    ``"BxMxKxN"``): the counts set to 0 just before and read just after."""
+    for c in counters.values():
+        c.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: c.value for name, c in counters.items()}, {
+        name: {"x".join(map(str, sh)): v for sh, v in c.by_shape().items()}
+        for name, c in counters.items() if c.value}
+
+
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal shape, dtype and bytes."""
     return (a.shape == b.shape and a.dtype == b.dtype
@@ -1113,8 +1177,6 @@ def tools_phases(dev, card: str, tiles: list, out_dir: Path) -> dict:
     from repro_torch.core import energy, metrics
     from repro_torch.core import multiplier as mult
     from repro_torch.data import image_batch
-    from repro_torch.kernels.approx_matmul.ops import closed_form_matmul
-    from repro_torch.kernels.lut_matmul.ops import lut_matmul
     from repro_torch.launch import autotune as at
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import registry as reg
@@ -1123,26 +1185,10 @@ def tools_phases(dev, card: str, tiles: list, out_dir: Path) -> dict:
                                        telemetry_scope)
     from repro_torch.serving import EdgeDetectService
 
-    counters = {"closed_form_tile": closed_form_matmul.launches,
-                "closed_form_narrow": closed_form_matmul.narrow_launches,
-                "closed_form_decode": closed_form_matmul.decode_launches,
-                "closed_form_rows": closed_form_matmul.rows_launches,
-                "lut_tile": lut_matmul.launches,
-                "lut_narrow": lut_matmul.narrow_launches,
-                "lut_decode": lut_matmul.decode_launches,
-                "lut_tensor": lut_matmul.tensor_launches,
-                "lut_rows": lut_matmul.rows_launches}
+    counters = contraction_counters()
 
     def counted(fn):
-        """(fn(), launches by design, launches by design and shape): the
-        counts set to 0 just before."""
-        for c in counters.values():
-            c.reset()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {name: c.value for name, c in counters.items()}, {
-            name: {"x".join(map(str, s)): v for s, v in c.by_shape().items()}
-            for name, c in counters.items() if c.value}
+        return count_launches(counters, fn)
 
     log = io.StringIO()  # the searches' and the launcher's own prints
     shapes = {}
@@ -1360,6 +1406,397 @@ def tools_phases(dev, card: str, tiles: list, out_dir: Path) -> dict:
     del first, second
     torch.cuda.empty_cache()
     return shapes
+
+
+def family_phases(dev, card: str) -> tuple:
+    """The MoE, vlm and encdec families at their published widths (phases
+    moe_serving_path, moe_topk_path, vlm_path, encdec_path), each model
+    freed before the next is built. Returns (rows of the kernels line for
+    the MoE config's dense shapes, least work by row name)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.kernels import blocking
+    from repro_torch.kernels.approx_matmul import ops as am
+    from repro_torch.kernels.approx_matmul.ops import closed_form_matmul
+    from repro_torch.models import common as mcommon
+    from repro_torch.models import encdec
+    from repro_torch.models import registry as reg
+    from repro_torch.nn import plan as plan_mod
+    from repro_torch.nn import substrate as sub
+    from repro_torch.serving import Request, ServingEngine
+
+    counters = contraction_counters()
+    kern, table = "approx_cuda:proposed@8", "approx_lut:proposed@8"
+
+    def counted(fn):
+        return count_launches(counters, fn)
+
+    def only(**launched) -> dict:
+        return {name: launched.get(name, 0) for name in counters}
+
+    def on(bundle, spec):
+        return reg.build_bundle(dataclasses.replace(
+            bundle.cfg, dot_plan=plan_mod.as_plan(spec)))
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def widths(cfg) -> dict:
+        return {k: getattr(cfg, k) for k in (
+            "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab",
+            "n_experts", "top_k", "moe_interleave", "shared_expert",
+            "n_patches", "n_frames")}
+
+    def build(name, **over):
+        """(bundle, params, seconds to draw them): seeded random weights on
+        the card, the peak-memory count restarted."""
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        bundle = reg.get_bundle(name, **over)
+        t0 = time.perf_counter()
+        params = bundle.init_params(torch.Generator(dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        return bundle, params, time.perf_counter() - t0
+
+    def serve(bundle, params, prompts, batch, workers, max_len):
+        """One generate() on a warmed engine under ``kern``: (requests,
+        launches by design, by shape, readings)."""
+        eng = ServingEngine(bundle, params, batch_size=batch, max_len=max_len,
+                            substrate=kern, device=dev)
+        eng.generate([Request(prompt=[1, 2], max_tokens=1)])  # warm-up
+        torch.cuda.synchronize()
+        eng.metrics.reset()
+        reqs = [Request(prompt=p, max_tokens=mt, temperature=temp)
+                for p, mt, temp in prompts]
+        t0 = time.perf_counter()
+        _, c, by = counted(lambda: eng.generate(reqs, workers=workers))
+        wall = time.perf_counter() - t0
+        st = eng.metrics.snapshot()
+        vocab = bundle.cfg.vocab
+        require(all(r.done and len(r.output) == r.max_tokens
+                    and all(0 <= t < vocab for t in r.output) for r in reqs)
+                and st["requests_served"] == len(reqs)
+                and st["requests_failed"] == 0, f"served {st}")
+        busy, batches = eng.metrics.worker_busy_seconds, eng.metrics.worker_batches
+        tokens = sum(len(r.output) for r in reqs)
+        return reqs, c, by, {
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "latency_p50_ms": st["latency_p50_ms"],
+            "latency_p99_ms": st["latency_p99_ms"],
+            "decode_steps": eng.metrics.batches_flushed,
+            "decode_step_ms_by_worker": {w: 1e3 * busy[w] / batches[w]
+                                         for w in sorted(batches)}}
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(dev).manual_seed(3)
+
+    def tokens(shape, vocab):
+        return torch.from_numpy(rng.integers(1, vocab, shape)).to(dev)
+
+    # -- moe_serving_path: llama4-maverick at its published widths, 2 layers
+    bundle, params, init_s = build(MOE_ARCH, n_layers=MOE_LAYERS)
+    cfg, full = bundle.cfg, reg.get_config(MOE_ARCH)
+    require(params.layers[0].moe is None and params.layers[1].moe is not None
+            and tuple(params.layers[1].moe.wi.shape) == (128, 5120, 8192),
+            "maverick's unit: layer 0 dense, layer 1 MoE of 128 experts")
+    n_params = sum(t.numel() for t in params.parameters())
+    # the dense shapes on the decode (M = 8) and rows (M = 256) designs,
+    # through the public entry point dense calls, on int8 codes as dense
+    # quantizes them, each against its design's plain twin
+    q = sub.QuantPolicy()
+    t16 = am.closed_form_table16("proposed@8", dev)
+    planes = am.rows_decomposition("proposed@8")
+    shape_rows = {}
+    for m in (LM_BATCH, LM_PREFILL[0] * LM_PREFILL[1]):
+        decode = m <= blocking.DECODE_MAX_M
+        for site, (k, n, per_step) in MOE_SHAPES.items():
+            x = torch.randn((1, m, k), generator=gen, device=dev).to(cfg.dtype)
+            w = (torch.randn((1, k, n), generator=gen, device=dev)
+                 / k ** 0.5).to(cfg.dtype)
+            qa, _ = sub._quantize_operand(x, q.x_mode, None, 2, 8, q.eps)
+            qb, _ = sub._quantize_operand(w, q.w_mode, None, 1, 8, q.eps)
+            design = "decode" if decode else "rows"
+            plain, plain_ms = timed_once(
+                (lambda: blocking.decode_matmul_plain(qa, qb, t16, 8)) if decode
+                else (lambda: blocking.rows_matmul_plain(qa, qb, planes, 8)))
+            got, c, _ = counted(lambda: closed_form_matmul(qa, qb, "proposed@8"))
+            require(c == only(**{f"closed_form_{design}": 1}),
+                    f"M = {m} at {site}: designs launched {c}")
+            err = max_abs_err(got, plain)
+            require(err == 0, f"{design} design at ({m} x {k}) @ ({k} x {n}): {err}")
+            ms = time_ms(lambda: closed_form_matmul(qa, qb, "proposed@8"))
+            work = (contraction_work(m, k, n) if decode
+                    else rows_contraction_work(m, k, n, planes.planes))
+            rate = INT32_OPS_PER_S if decode else INT8_TC_OPS_PER_S
+            shape_rows[(design, site)] = {"m": m, "k": k, "n": n, "err": err,
+                                          "ms": ms, "plain_ms": plain_ms,
+                                          "work": work, "rate": rate,
+                                          "per_layer_step": per_step}
+            emit("moe_kernel_shapes", design=design, site=site, shape=[1, m, k, n],
+                 max_abs_err=err, tolerance=0, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms(*work, rate)[0])
+            del x, w, qa, qb, plain, got
+    # the experts at a decode step of batch 8: capacity 1, every expert's
+    # three (1 x d) products, outside the substrate (repro's einsums)
+    moe = params.layers[1].moe
+    buf = torch.randn((cfg.n_experts, 1, cfg.d_model), generator=gen,
+                      device=dev).to(cfg.dtype)
+    expert_ms = time_ms(lambda: mcommon._expert_ffn(moe, buf))
+    expert_bytes = sum(t.numel() * t.element_size() for t in (moe.wi, moe.wg, moe.wo))
+    # ServingEngine: 16 requests of 8 + 8 tokens, odd ones sampled
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, LM_PROMPT)))
+               for _ in range(LM_REQUESTS)]
+    spec_of = lambda order: [(prompts[i], LM_PROMPT, 0.0 if i % 2 == 0 else 0.8)
+                             for i in order]
+    reqs2, c2, by2, r2 = serve(bundle, params, spec_of(range(LM_REQUESTS)),
+                               LM_BATCH, 2, MOE_MAX_LEN)
+    steps = r2["decode_steps"]
+    require(c2 == only(closed_form_decode=7 * MOE_LAYERS * steps),
+            f"moe serving launches {c2} over {steps} steps")
+    order1 = list(range(0, LM_REQUESTS, 2)) + list(range(1, LM_REQUESTS, 2))
+    reqs1, c1, _, r1 = serve(bundle, params, spec_of(order1), LM_BATCH, 1,
+                             MOE_MAX_LEN)
+    first_wave = {i: r.output for i, r in zip(order1[:LM_BATCH], reqs1)}
+    same_wave = all(first_wave[i] == reqs2[i].output for i in first_wave)
+    require(same_wave, "moe first-wave greedy outputs differ between 1 and 2 workers")
+    # one decode step, the kernels against the table substrate on the card
+    tok = tokens((LM_BATCH, 1), cfg.vocab)
+
+    def step_logits(b):
+        st = b.init_decode_state(LM_BATCH, MOE_MAX_LEN, dev)
+        return b.decode_step(params, st, {"token": tok, "cache_len": 0})[0]
+
+    a, c_step, _ = counted(lambda: step_logits(on(bundle, kern)))
+    b, table_step_ms = timed_once(lambda: step_logits(on(bundle, table)))
+    step_same = bool(torch.isfinite(a).all()) and same_bits(a, b)
+    require(step_same and c_step == only(closed_form_decode=7 * MOE_LAYERS),
+            f"moe decode step vs {table}: launches {c_step}")
+    # one prefill of 4 x 64 tokens: M = 256 on the rows design alone; its
+    # first call timed apart (the MoE's first (E, C = 3, d) products)
+    toks = tokens(LM_PREFILL, cfg.vocab)
+    _, pf_first_ms = timed_once(
+        lambda: on(bundle, kern).prefill(params, {"tokens": toks}))
+    t0 = time.perf_counter()
+    (pf, pf_ms), c_pf, by_pf = counted(lambda: timed_once(
+        lambda: on(bundle, kern).prefill(params, {"tokens": toks})))
+    pf_wall = time.perf_counter() - t0
+    pf_table, pf_table_ms = timed_once(
+        lambda: on(bundle, table).prefill(params, {"tokens": toks}))
+    pf_same = pf.shape == (LM_PREFILL[0], 1, cfg.vocab) \
+        and bool(torch.isfinite(pf).all()) and same_bits(pf, pf_table)
+    require(pf_same and c_pf == only(closed_form_rows=7 * MOE_LAYERS),
+            f"moe prefill vs {table}: launches {c_pf}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    emit("moe_serving_path", arch=MOE_ARCH, widths=widths(full),
+         reduced={"n_layers": [MOE_LAYERS, full.n_layers]},
+         layers=[{"moe": layer.moe is not None} for layer in params.layers],
+         params=n_params, param_count=cfg.param_count(), init_s=init_s,
+         substrate=kern, batch=LM_BATCH, requests=LM_REQUESTS,
+         prompt_tokens=LM_PROMPT, max_tokens=LM_PROMPT, workers_2=r2,
+         workers_1=r1, launches=c2, launches_by_shape=by2,
+         launches_expected="7 decode launches (4 attention + 3 FFN or shared "
+                           "expert) x 2 layers x decode steps",
+         first_wave_identical=same_wave,
+         decode_step={"bit_identical_to": table, "bit_identical": step_same,
+                      "launches": c_step, "table_substrate_ms": table_step_ms},
+         prefill={"entry_point": "bundle.prefill", "tokens": list(LM_PREFILL),
+                  "device_events_ms": pf_ms, "first_call_ms": pf_first_ms,
+                  "wall_s": pf_wall, "launches": c_pf,
+                  "launches_by_shape": by_pf, "bit_identical_to": table,
+                  "bit_identical": pf_same, "table_substrate_ms": pf_table_ms},
+         experts={"capacity": 1, "buf": list(buf.shape), "device_ms": expert_ms,
+                  "weight_bytes": expert_bytes,
+                  "bound_ms": 1e3 * expert_bytes / HBM_BYTES_PER_S},
+         peak_memory_gb=peak, card=card)
+    rows, work = [], {}
+    for (design, site), r in shape_rows.items():
+        name = f"closed_form_matmul[{design},{site},M={r['m']},{MOE_ARCH}]"
+        key = (1, r["m"], r["k"], r["n"])
+        by = (by2 if design == "decode" else by_pf).get(f"closed_form_{design}", {})
+        b_ms, b_by = bound_ms(*r["work"], r["rate"])
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/approx_matmul.cu",
+                     "replaces": "src/repro/kernels/approx_matmul/kernel.py:59",
+                     "launches": by.get("x".join(map(str, key)), 0),
+                     "max_abs_err": r["err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None, "shape": list(key), "mult": "proposed@8",
+                     "design": design,
+                     "launches_on": "moe_serving_path" + (
+                         "" if design == "decode" else " (bundle.prefill)"),
+                     "entry_point": "ServingEngine.generate" if design == "decode"
+                     else "bundle.prefill",
+                     "launches_per_layer_step_at_shape": r["per_layer_step"]})
+        work[name] = r["work"]
+    del params, bundle, moe, buf, a, b, pf, pf_table
+    free()
+
+    # -- moe_topk_path: kimi-k2 at its published widths, 1 layer (top-8 of
+    # 384 experts); routing counted at every dispatch
+    bundle, params, init_s = build(TOPK_ARCH, n_layers=TOPK_LAYERS)
+    cfg, full = bundle.cfg, reg.get_config(TOPK_ARCH)
+    routed = []
+    dispatch = mcommon._dispatch_local
+
+    def counting_dispatch(cfg_, xn, router):
+        buf_, info = dispatch(cfg_, xn, router)
+        keep = info[2]
+        routed.append({"tokens": xn.shape[0], "choices": keep.numel(),
+                       "capacity": info[3], "kept": keep.sum(),
+                       "dropped": (~keep).sum()})
+        return buf_, info
+
+    toks = tokens(TOPK_PREFILL, cfg.vocab)
+    steps_tok = tokens((LM_BATCH, 2), cfg.vocab)
+
+    def run(spec):
+        b_ = on(bundle, spec)
+        pf_ = b_.prefill(params, {"tokens": toks})
+        st = b_.init_decode_state(LM_BATCH, 16, dev)
+        outs = [pf_] + [b_.decode_step(params, st, {
+            "token": steps_tok[:, i:i + 1], "cache_len": i})[0] for i in range(2)]
+        return outs
+
+    mcommon._dispatch_local = counting_dispatch
+    try:
+        got, c_k, by_k = counted(lambda: run(kern))
+        run("approx_cuda:exact")  # the routing of the exact product
+    finally:
+        mcommon._dispatch_local = dispatch
+    routing = [{k: int(v) for k, v in r_.items()} for r_ in routed]
+    routing, routing_exact = routing[:3], routing[3:]
+    want = run(table)
+    same = all(bool(torch.isfinite(g).all()) and same_bits(g, w_)
+               for g, w_ in zip(got, want))
+    require(same and c_k == only(closed_form_rows=7 * TOPK_LAYERS,
+                                 closed_form_decode=2 * 7 * TOPK_LAYERS),
+            f"kimi-k2 vs {table}: launches {c_k}")
+    require([r_["capacity"] for r_ in routing] == [2, 1, 1]
+            and all(r_["kept"] + r_["dropped"] == r_["choices"] for r_ in routing),
+            f"kimi-k2 routing {routing}")
+    emit("moe_topk_path", arch=TOPK_ARCH, widths=widths(full),
+         reduced={"n_layers": [TOPK_LAYERS, full.n_layers]},
+         params=sum(t.numel() for t in params.parameters()),
+         param_count=cfg.param_count(), init_s=init_s, substrate=kern,
+         prefill_tokens=list(TOPK_PREFILL), decode_steps=2, batch=LM_BATCH,
+         routing={"prefill": routing[0], "decode_steps": routing[1:]},
+         routing_under_exact={"prefill": routing_exact[0],
+                              "decode_steps": routing_exact[1:]},
+         launches=c_k, launches_by_shape=by_k, bit_identical_to=table,
+         bit_identical=same, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         card=card)
+    del params, bundle, got, want
+    free()
+
+    # -- vlm_path: paligemma-3b at full depth, a prefix of 256 patches
+    bundle, params, init_s = build(VLM_ARCH)
+    cfg = bundle.cfg
+    pe = torch.randn((VLM_PREFILL[0], cfg.n_patches, cfg.d_model), generator=gen,
+                     device=dev).to(cfg.dtype)
+    toks = tokens(VLM_PREFILL, cfg.vocab)
+    (pf, pf_ms), c_v, by_v = counted(lambda: timed_once(lambda: on(
+        bundle, kern).prefill(params, {"tokens": toks, "patch_embeds": pe})))
+    require(pf.shape == (VLM_PREFILL[0], 1, cfg.vocab) and bool(torch.isfinite(pf).all())
+            and c_v == only(closed_form_rows=1 + 7 * cfg.n_layers),
+            f"paligemma prefill launches {c_v}")
+    vprompts = [(list(map(int, rng.integers(1, cfg.vocab, 8))), 4, 0.0)
+                for _ in range(VLM_BATCH)]
+    _, c_ve, by_ve, r_ve = serve(bundle, params, vprompts, VLM_BATCH, 1, 16)
+    require(c_ve == only(closed_form_decode=7 * cfg.n_layers * r_ve["decode_steps"]),
+            f"paligemma serving launches {c_ve}")
+    vtok = tokens((VLM_BATCH, 1), cfg.vocab)
+
+    def vstep(b_):
+        st = b_.init_decode_state(VLM_BATCH, 16, dev)
+        return b_.decode_step(params, st, {"token": vtok, "cache_len": 0})[0]
+
+    a = vstep(on(bundle, kern))
+    b, vtable_ms = timed_once(lambda: vstep(on(bundle, table)))
+    vsame = bool(torch.isfinite(a).all()) and same_bits(a, b)
+    require(vsame, f"paligemma decode step vs {table}")
+    emit("vlm_path", arch=VLM_ARCH, widths=widths(cfg), layers=cfg.n_layers,
+         params=sum(t.numel() for t in params.parameters()),
+         param_count=cfg.param_count(), init_s=init_s, substrate=kern,
+         prefill={"entry_point": "bundle.prefill", "patches": cfg.n_patches,
+                  "tokens": list(VLM_PREFILL), "rows": VLM_PREFILL[0] * (
+                      cfg.n_patches + VLM_PREFILL[1]),
+                  "device_events_ms": pf_ms, "launches": c_v,
+                  "launches_by_shape": by_v},
+         serving=r_ve, serving_launches=c_ve, serving_launches_by_shape=by_ve,
+         decode_step={"batch": VLM_BATCH, "bit_identical_to": table,
+                      "bit_identical": vsame, "table_substrate_ms": vtable_ms},
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    del params, bundle, pf, pe, a, b
+    free()
+
+    # -- encdec_path: whisper-large-v3 at full depth; 1500 frames a sequence
+    bundle, params, init_s = build(ENCDEC_ARCH)
+    cfg = bundle.cfg
+    frames = torch.randn((ENCDEC_PREFILL[0], cfg.n_frames, cfg.d_model),
+                         generator=gen, device=dev).to(cfg.dtype)
+    toks = tokens(ENCDEC_PREFILL, cfg.vocab)
+    (pf, pf_ms), c_e, by_e = counted(lambda: timed_once(lambda: on(
+        bundle, kern).prefill(params, {"tokens": toks, "frames": frames})))
+    ne, nd = cfg.n_encoder_layers, cfg.n_layers
+    require(pf.shape == (ENCDEC_PREFILL[0], 1, cfg.vocab)
+            and bool(torch.isfinite(pf).all())
+            and c_e == only(closed_form_rows=7 * ne + 11 * nd),
+            f"whisper prefill launches {c_e}")
+    eprompts = [(list(map(int, rng.integers(1, cfg.vocab, 4))), 4, 0.0)
+                for _ in range(ENCDEC_BATCH)]
+    _, c_ee, by_ee, r_ee = serve(bundle, params, eprompts, ENCDEC_BATCH, 1, 16)
+    es = r_ee["decode_steps"]
+    require(c_ee == only(closed_form_decode=9 * nd * es, closed_form_rows=2 * nd * es),
+            f"whisper serving launches {c_ee} over {es} steps")
+    # one decode step at a cut depth against the table substrate, the
+    # decoder cross-attending to random encoder states of batch 2
+    cut_cfg = dataclasses.replace(cfg, n_layers=ENCDEC_IDENTITY_LAYERS)
+    cut = encdec.EncDec(params.embed, [], list(params.dec[:ENCDEC_IDENTITY_LAYERS]))
+    cut_bundle = reg.build_bundle(cut_cfg)
+    etok = tokens((ENCDEC_PREFILL[0], 1), cfg.vocab)
+
+    def estep(b_):
+        st = b_.init_decode_state(ENCDEC_PREFILL[0], 16, dev)
+        st["enc_out"] = frames
+        return b_.decode_step(cut, st, {"token": etok, "cache_len": 0})[0]
+
+    a, c_es, by_es = counted(lambda: estep(on(cut_bundle, kern)))
+    b, etable_ms = timed_once(lambda: estep(on(cut_bundle, table)))
+    esame = bool(torch.isfinite(a).all()) and same_bits(a, b)
+    require(esame and c_es == only(closed_form_decode=9 * ENCDEC_IDENTITY_LAYERS,
+                                   closed_form_rows=2 * ENCDEC_IDENTITY_LAYERS),
+            f"whisper decode step vs {table}: launches {c_es}")
+    emit("encdec_path", arch=ENCDEC_ARCH, widths=widths(cfg),
+         layers={"encoder": ne, "decoder": nd},
+         params=sum(t.numel() for t in params.parameters()),
+         param_count=cfg.param_count(), init_s=init_s, substrate=kern,
+         prefill={"entry_point": "bundle.prefill", "frames": cfg.n_frames,
+                  "tokens": list(ENCDEC_PREFILL),
+                  "encoder_rows": ENCDEC_PREFILL[0] * cfg.n_frames,
+                  "device_events_ms": pf_ms, "launches": c_e,
+                  "launches_by_shape": by_e},
+         serving=r_ee, serving_launches=c_ee, serving_launches_by_shape=by_ee,
+         enc_out="zeros, as repro's engine",
+         decode_step={"reduced": {"n_layers": [ENCDEC_IDENTITY_LAYERS, nd]},
+                      "batch": ENCDEC_PREFILL[0], "enc_out": "random frames",
+                      "launches": c_es, "bit_identical_to": table,
+                      "bit_identical": esame, "table_substrate_ms": etable_ms},
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    del params, bundle, cut, pf, frames, a, b
+    free()
+    # the other phases' launches by shape beside the row of their design
+    other = {"moe_topk_path": by_k, "vlm_path (bundle.prefill)": by_v,
+             "vlm_path (ServingEngine.generate)": by_ve,
+             "encdec_path (bundle.prefill)": by_e,
+             "encdec_path (ServingEngine.generate)": by_ee,
+             "encdec_path (decode step)": by_es}
+    for row in rows:
+        design = f"closed_form_{row['design']}"
+        row["launches_other_phases_by_shape"] = {
+            phase: by[design] for phase, by in other.items() if design in by}
+    return rows, work
 
 
 def main() -> int:
@@ -2132,6 +2569,7 @@ def main() -> int:
     lm_rows, lm_work = lm_phases(dev, card, out_dir, emit_trace)
     kernels += lm_rows
     tool_shapes = tools_phases(dev, card, tiles, out_dir)
+    family_rows, family_work = family_phases(dev, card)
 
     def at_kn(by_shape: dict, k: int, n: int) -> dict:
         """The counted launches ("BxMxKxN" -> n) whose K and N are k and n."""
@@ -2152,6 +2590,7 @@ def main() -> int:
         if row["name"].startswith("closed_form_matmul[rows,"):
             row["launches_autotune_lm_path"] = at_kn(
                 tool_shapes["autotune_lm_path"]["closed_form_rows"], *row["shape"][2:])
+    kernels += family_rows
     # every row exact; launched on its path, except the tile designs at the
     # decode step's M = 8, which the served path must not launch at all
     require(all(k["max_abs_err"] == 0 and (k["launches"] == 0 if k.get("off_path")
@@ -2166,7 +2605,7 @@ def main() -> int:
             "closed_form_matmul[ring]": (mr_bytes, mr_ops),
             "closed_form_matmul[ring,narrow]": (mr_bytes, mr_ops),
             "lut_matmul": (lm_bytes, lm_ops), "lut_matmul[narrow]": (lm_bytes, lm_ops),
-            "approx_mul": (am_bytes, am_ops), **lm_work}
+            "approx_mul": (am_bytes, am_ops), **lm_work, **family_work}
     emit("kernel_times", card=card, int32_peak_ops_per_s=INT32_OPS_PER_S,
          int8_tensor_core_peak_ops_per_s=INT8_TC_OPS_PER_S,
          hbm_bytes_per_s=HBM_BYTES_PER_S, tf32={

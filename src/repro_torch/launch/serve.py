@@ -1,20 +1,24 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
-Counterpart of ``repro.launch.serve``: builds the config (reduced with the
-``--n-layers`` ... ``--dot-plan`` overrides), draws random parameters from a
-seeded ``torch.Generator`` on ``--device`` (``cuda`` unless ``--device cpu``
-is given; no card raises), and serves synthetic requests through
-:class:`~repro_torch.serving.ServingEngine`:
+Counterpart of ``repro.launch.serve`` for every ported family (lm with its
+MoE configs, vlm, encdec): builds the config (reduced with the
+``--n-layers`` ... ``--n-experts`` ... ``--dot-plan`` overrides), draws
+random parameters from a seeded ``torch.Generator`` on ``--device``
+(``cuda`` unless ``--device cpu`` is given; no card raises), and serves
+synthetic requests through :class:`~repro_torch.serving.ServingEngine`:
 
     python -m repro_torch.launch.serve --arch minitron-8b --n-layers 2 \\
         --requests 16 --batch 8 --workers 2
+    python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \\
+        --n-layers 2
     python -m repro_torch.launch.serve --arch minitron-8b --device cpu \\
         --n-layers 2 --d-model 32 --d-ff 64 --vocab 64 --n-heads 2 \\
         --n-kv-heads 2 --requests 3 --plan plan.json
 
 ``--plan`` takes a plan JSON file or a plan-bundle directory (as
 ``repro_torch.launch.train --qat-out`` writes it); a bundle that carries
-params restores them into the model. ``--metrics-out``
+params restores them into the model through ``bundle.layout``
+(``repro``'s tree of the config's family). ``--metrics-out``
 dumps the engine's metrics registry (Prometheus text for ``.prom``/``.txt``
 paths, JSON otherwise) and ``--trace-out`` writes a Chrome/Perfetto trace of
 the serving spans.

@@ -16,7 +16,9 @@ come from a seeded ``torch.Generator`` on ``--device``: ``cuda`` unless
         --n-kv-heads 2 --batch 4 --seq-len 16 --steps 8 --qat-out bundle
 
 ``--mesh`` takes only ``none``: the device meshes come with the partitioned
-paths (ROADMAP.md queue 1 item 11).
+paths (ROADMAP.md queue 1 item 11). An MoE config raises: ``repro`` trains
+it with Adafactor acting on its stacked unit tensors, which the port does
+not have yet (queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ def add_reduced_overrides(ap: argparse.ArgumentParser):
     ap.add_argument("--vocab", type=int, default=None)
     ap.add_argument("--n-heads", type=int, default=None)
     ap.add_argument("--n-kv-heads", type=int, default=None)
+    ap.add_argument("--n-experts", type=int, default=None)
     ap.add_argument("--dot-mode", default=None,
                     help="uniform substrate spec, e.g. 'exact', 'int8', or "
                          "'approx_cuda:proposed@6' (any registered "
@@ -63,7 +66,7 @@ def add_reduced_overrides(ap: argparse.ArgumentParser):
 def overrides_from(args) -> dict:
     keys = {"n_layers": args.n_layers, "d_model": args.d_model,
             "d_ff": args.d_ff, "vocab": args.vocab, "n_heads": args.n_heads,
-            "n_kv_heads": args.n_kv_heads}
+            "n_kv_heads": args.n_kv_heads, "n_experts": args.n_experts}
     out = {k: v for k, v in keys.items() if v is not None}
     # --dot-plan (site-addressed) wins over --dot-mode (uniform shorthand);
     # both land in cfg.dot_plan
@@ -124,8 +127,15 @@ def main(argv=None):
     device = resolve_device(args.device)
     overrides = overrides_from(args)
     cfg = reg.get_config(args.arch, **overrides)
+    if cfg.n_experts:
+        # repro trains MoE configs with Adafactor on its stacked unit tensors
+        # (a norm scale stacked over units is factored, the update clip spans
+        # the layers); AdamW would be a different result
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training needs Adafactor on repro's stacked "
+            "unit tensors, not ported yet (ROADMAP.md, queue 1 item 7: MoE "
+            "training)")
     bundle = reg.build_bundle(cfg)
-    # repro takes Adafactor for MoE configs, which the port does not have
     optimizer = adamw()
     qat_policy = (QATPolicy(forward=args.qat_forward,
                             moment_correction=args.qat_moment)

@@ -23,9 +23,17 @@ step (``repro_torch.train.loop``): the parameters stay the same
 ``nn.Parameter`` objects of the same module, and the optimizer updates them in
 place.
 
-Not ported: MoE (``init_moe``, ``moe_block``, its local and expert-parallel
-dispatch; ROADMAP.md queue 1 item 7) and ``sharding.constrain``, which has
-no meaning without a mesh (item 11).
+The MoE layer (:class:`MoE`, :func:`init_moe`, :func:`moe_block`) routes
+each token to its top-k experts with ``repro``'s capacity dispatch
+(``_dispatch_local``: sort-based ranks, token dropping on overflow) and
+runs the experts as three batched products outside the substrate, as
+``repro`` does; the shared expert is a :func:`ffn_block` under the substrate
+at ``layer.<i>.moe.shared.ffn.w*``. :func:`attn_block` takes precomputed
+cross-attention K/V (``cross_kv``) for the encoder-decoder family.
+
+Not ported: the expert-parallel MoE (``_moe_block_ep``, a ``shard_map`` over
+a mesh's "model" axis) and ``sharding.constrain``, which have no meaning
+without a mesh (ROADMAP.md queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -53,13 +61,13 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The dense decoder's fields of ``repro.models.common.ModelConfig``.
-
-    MoE, SSM, encoder and frontend fields wait for their families' slices
-    (ROADMAP.md queue 1 item 7); a config with ``n_experts > 0`` raises.
+    """``repro.models.common.ModelConfig`` for the attention families (lm
+    with its MoE layers, vlm, encdec). The SSM fields (``ssm_state``,
+    ``conv_width``, ``shared_attn_every``) wait for the xlstm and zamba
+    families (ROADMAP.md queue 1 item 7).
     """
     name: str
-    family: str                    # only "lm" builds (registry.build_bundle)
+    family: str                    # lm | vlm | encdec (registry.build_bundle)
     n_layers: int
     d_model: int
     n_heads: int
@@ -67,12 +75,22 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0              # 0 -> d_model // n_heads
-    n_experts: int = 0             # > 0 raises: MoE is not ported
+    # MoE
+    n_experts: int = 0
+    top_k: int = 1
+    moe_interleave: int = 1        # MoE every k-th layer
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
     # attention
     qkv_bias: bool = False
     local_window: int = 0          # sliding-window size for local layers
     local_global_ratio: int = 0    # e.g. 5 -> 5 local : 1 global
     rope_theta: float = 1e4
+    # modality frontend stubs
+    n_frames: int = 0              # whisper encoder frames (post-conv stub)
+    n_patches: int = 0             # paligemma image patches
+    # encoder (enc-dec only)
+    n_encoder_layers: int = 0
     # execution
     dtype: torch.dtype = torch.bfloat16
     dot_plan: Any = "exact"        # site-addressed substrate assignment: a
@@ -84,26 +102,42 @@ class ModelConfig:
     loss_chunk: int = 512          # sequence positions per logits chunk of
                                    # lm_loss_chunked
 
-    def __post_init__(self):
-        if self.n_experts:
-            raise NotImplementedError(
-                f"{self.name}: MoE layers are not ported yet (ROADMAP.md, "
-                "queue 1 item 7)")
-
     @property
     def dh(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def d_ff_expert(self) -> int:
+        return self.d_ff
+
     def param_count(self) -> int:
-        """Total parameter count (used for 6·N·D model FLOPs)."""
-        d = self.d_model
+        """Total parameter count (used for 6·N·D model FLOPs); as ``repro``
+        counts it, which leaves out the vlm's ``patch_proj``."""
+        d, v = self.d_model, self.vocab
         attn = d * self.n_heads * self.dh + 2 * d * self.n_kv_heads * self.dh \
             + self.n_heads * self.dh * d
-        return self.n_layers * (attn + 3 * d * self.d_ff) + self.vocab * d
+        dense_ffn = 3 * d * self.d_ff
+        emb = v * d
+        n_moe = self.n_layers // self.moe_interleave if self.n_experts else 0
+        n_dense = self.n_layers - n_moe
+        moe_ffn = n_moe * (self.n_experts * 3 * d * self.d_ff_expert
+                           + d * self.n_experts
+                           + (3 * d * self.d_ff_expert if self.shared_expert else 0))
+        total = self.n_layers * attn + n_dense * dense_ffn + moe_ffn + emb
+        if self.family == "encdec":
+            total += self.n_encoder_layers * (attn + dense_ffn + attn)  # + cross-attn
+        return total
 
     def active_param_count(self) -> int:
-        """Activated params per token: all of them in a dense model."""
-        return self.param_count()
+        """Activated params per token (MoE: top_k + shared instead of all)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        n_moe = self.n_layers // self.moe_interleave
+        all_experts = n_moe * self.n_experts * 3 * d * self.d_ff_expert
+        active = n_moe * (self.top_k + (1 if self.shared_expert else 0)) \
+            * 3 * d * self.d_ff_expert
+        return self.param_count() - all_experts + active
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +175,22 @@ class FFN(nn.Module):
         super().__init__()
         self.wi, self.wg, self.wo = wi, wg, wo
         self.ln = _frozen(ln)
+
+
+class MoE(nn.Module):
+    """A top-k MoE layer: the float32 (d, E) ``router``, the expert tensors
+    ``wi``, ``wg`` (E, d, f) and ``wo`` (E, f, d) as bare tensors (no
+    :class:`Dense`: ``repro`` stores them bare, and they never pass the
+    substrate), the pre-norm scale ``ln`` (float32) and, where the config
+    has one, the ``shared`` expert's :class:`FFN`."""
+
+    def __init__(self, router: Tensor, wi: Tensor, wg: Tensor, wo: Tensor,
+                 ln: Tensor, shared: Optional[FFN] = None):
+        super().__init__()
+        self.router = _frozen(router)
+        self.wi, self.wg, self.wo = _frozen(wi), _frozen(wg), _frozen(wo)
+        self.ln = _frozen(ln)
+        self.shared = shared
 
 
 class Embed(nn.Module):
@@ -345,22 +395,30 @@ def attn_block(cfg: ModelConfig, p: Attn, x: Tensor, *, positions: Tensor,
                window: int = 0,
                kv_cache: Optional[Tuple[Tensor, Tensor]] = None,
                cache_len: Optional[int] = None,
+               cross_kv: Optional[Tuple[Tensor, Tensor]] = None,
+               causal: bool = True,
                ) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor]]]:
     """Pre-norm GQA attention block. Returns (residual output, kv cache).
 
     kv_cache: (K, V) of shape (B, S_max, Hkv, dh) for decode, updated in
     place (``repro`` returns new arrays); cache_len is the current length
     (the new tokens are written from that index).
+    cross_kv: precomputed (K, V) for encoder-decoder cross attention: only
+    ``wq`` and ``wo`` run here, q is not rotated, and without a cache the
+    block attends to every key (as does ``causal=False``, the encoder's).
     """
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
     xn = rms_norm(x, p.ln)
     with splan.site_scope("attn"):
         q = dense(cfg, xn, p.wq.w, p.wq.b, site="wq").reshape(b, s, h, dh)
-        k = dense(cfg, xn, p.wk.w, p.wk.b, site="wk").reshape(b, s, hkv, dh)
-        v = dense(cfg, xn, p.wv.w, p.wv.b, site="wv").reshape(b, s, hkv, dh)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        if cross_kv is None:
+            k = dense(cfg, xn, p.wk.w, p.wk.b, site="wk").reshape(b, s, hkv, dh)
+            v = dense(cfg, xn, p.wv.w, p.wv.b, site="wv").reshape(b, s, hkv, dh)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        else:
+            k, v = cross_kv
     q_offset = 0
     if kv_cache is not None:
         ck, cv = kv_cache
@@ -368,9 +426,11 @@ def attn_block(cfg: ModelConfig, p: Attn, x: Tensor, *, positions: Tensor,
         _write_cache(cv, v, int(cache_len))
         k, v = ck, cv
         q_offset = int(cache_len)
+    else:
+        causal = causal and cross_kv is None
     with trace_span("lm.attention", "model"):
-        out = attention_chunked(q, k, v, q_offset=q_offset, window=window,
-                                chunk=cfg.attn_chunk)
+        out = attention_chunked(q, k, v, q_offset=q_offset, causal=causal,
+                                window=window, chunk=cfg.attn_chunk)
     with splan.site_scope("attn"):
         out = dense(cfg, out.reshape(b, s, h * dh), p.wo.w, site="wo")
     return x + out.to(x.dtype), kv_cache
@@ -381,8 +441,9 @@ def attn_block(cfg: ModelConfig, p: Attn, x: Tensor, *, positions: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_ffn(gen: torch.Generator, cfg: ModelConfig, device=None) -> FFN:
-    d, f = cfg.d_model, cfg.d_ff
+def init_ffn(gen: torch.Generator, cfg: ModelConfig, device=None,
+             d_ff: Optional[int] = None) -> FFN:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return FFN(wi=init_dense(gen, d, f, cfg.dtype, device=device),
                wg=init_dense(gen, d, f, cfg.dtype, device=device),
                wo=init_dense(gen, f, d, cfg.dtype, device=device),
@@ -395,6 +456,126 @@ def ffn_block(cfg: ModelConfig, p: FFN, x: Tensor) -> Tensor:
         gate = dense(cfg, xn, p.wg.w, site="wg")
         hidden = gate * torch.sigmoid(gate) * dense(cfg, xn, p.wi.w, site="wi")
         return x + dense(cfg, hidden, p.wo.w, site="wo").to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity dispatch, the local path)
+# ---------------------------------------------------------------------------
+
+
+def _expert_weights(gen: torch.Generator, shape, scale: float, dtype,
+                    device) -> Tensor:
+    """Normal (E, d_in, d_out) weights times ``scale``, drawn one expert at a
+    time in float32 and cast into ``dtype``: the float32 draw of a whole
+    expert tensor would be 21.5 GB at llama4-maverick's widths."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for e in range(shape[0]):
+        out[e] = torch.randn(shape[1:], generator=gen, dtype=torch.float32,
+                             device=device) * scale
+    return out
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, device=None) -> MoE:
+    """``repro``'s MoE init (not its random stream: parameters cross over
+    through :mod:`repro_torch.models.convert`)."""
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    std = 1.0 / math.sqrt(d)
+    router = torch.randn((d, e), generator=gen, dtype=torch.float32,
+                         device=device) * std
+    wi = _expert_weights(gen, (e, d, f), std, cfg.dtype, device)
+    wg = _expert_weights(gen, (e, d, f), std, cfg.dtype, device)
+    wo = _expert_weights(gen, (e, f, d), 1.0 / math.sqrt(f), cfg.dtype, device)
+    shared = (init_ffn(gen, cfg, device, cfg.d_ff_expert)
+              if cfg.shared_expert else None)
+    return MoE(router, wi, wg, wo,
+               torch.ones((d,), dtype=torch.float32, device=device), shared)
+
+
+def moe_block(cfg: ModelConfig, p: MoE, x: Tensor) -> Tensor:
+    """Top-k capacity-based MoE (token-dropping on overflow): ``repro``'s
+    local path, every expert on this device. ``repro``'s expert-parallel
+    path (``_moe_block_ep``: all-to-alls over a mesh's "model" axis) needs a
+    mesh and comes with the partitioned paths (ROADMAP.md queue 1 item 11).
+    """
+    return _moe_block_local(cfg, p, x)
+
+
+def _top_k(gates: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, the lower index
+    first among equal values (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch_local(cfg: ModelConfig, xn: Tensor, router: Tensor):
+    """Route tokens ``xn`` (t, d): returns (buf (E, C, d), combine info
+    ``(slot, topw, keep, cap)``).
+
+    The router product and softmax are float32. Each (token, choice) ranks
+    within its expert in token order (a stable sort of the flat expert ids,
+    then its distance from the expert's first entry); ranks at or past the
+    capacity ``C = max(1, ceil(t · k · capacity_factor / E))`` are dropped
+    and scattered to the discarded row ``E · C``, which several may write
+    and nothing reads.
+    """
+    t, d = xn.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dev = xn.device
+    gates = torch.softmax(torch.matmul(xn.to(torch.float32), router), dim=-1)
+    topw, topi = _top_k(gates, k)                               # (t, k)
+    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+    cap = int(max(1, math.ceil(t * k * cfg.capacity_factor / e)))
+    flat_e = topi.reshape(-1)                                   # (t*k,)
+    order = torch.argsort(flat_e, stable=True)                  # token-order ties
+    sorted_e = flat_e[order]
+    start = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
+    rank_sorted = torch.arange(t * k, device=dev) - start[sorted_e]
+    my_rank = torch.empty_like(rank_sorted)
+    my_rank[order] = rank_sorted
+    keep = my_rank < cap
+    slot = torch.where(keep, flat_e * cap + my_rank,
+                       torch.full_like(my_rank, e * cap))
+    tok_idx = torch.arange(t, device=dev).repeat_interleave(k)
+    buf = torch.zeros((e * cap + 1, d), dtype=xn.dtype, device=dev)
+    buf[slot] = xn[tok_idx]
+    return buf[:e * cap].reshape(e, cap, d), (slot, topw, keep, cap)
+
+
+def _combine_local(out: Tensor, info, t: int) -> Tensor:
+    """Inverse of :func:`_dispatch_local`: weighted gather back to token
+    order; dropped choices read a zero row."""
+    slot, topw, keep, cap = info
+    e, d = out.shape[0], out.shape[-1]
+    out_flat = torch.cat([out.reshape(e * cap, d),
+                          torch.zeros((1, d), dtype=out.dtype, device=out.device)])
+    gathered = out_flat[slot]                                   # (t*k, d)
+    w = (topw.reshape(-1) * keep).to(gathered.dtype)
+    k = topw.shape[1]
+    return (gathered * w[:, None]).reshape(t, k, d).sum(dim=1)
+
+
+def _expert_ffn(p: MoE, buf: Tensor) -> Tensor:
+    """Every expert's SwiGLU on its (C, d) slots: three batched products in
+    ``buf``'s dtype, outside the substrate (as ``repro``'s einsums)."""
+    gate = torch.bmm(buf, p.wg.to(buf.dtype))
+    hid = gate * torch.sigmoid(gate) * torch.bmm(buf, p.wi.to(buf.dtype))
+    return torch.bmm(hid, p.wo.to(hid.dtype))
+
+
+def _moe_block_local(cfg: ModelConfig, p: MoE, x: Tensor) -> Tensor:
+    b, s, d = x.shape
+    t = b * s
+    xn = rms_norm(x, p.ln).reshape(t, d)
+    buf, info = _dispatch_local(cfg, xn, p.router)
+    out = _expert_ffn(p, buf)
+    y = _combine_local(out, info, t)
+    if cfg.shared_expert:
+        # ffn_block adds its input back; repro subtracts it again
+        with splan.site_scope("moe", "shared"):
+            y = y + (ffn_block(cfg, p.shared, xn.reshape(b, s, d))
+                     - xn.reshape(b, s, d)).reshape(t, d)
+    return x + y.reshape(b, s, d).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

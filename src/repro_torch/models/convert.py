@@ -7,8 +7,12 @@ that tree with numpy arrays at its leaves (``jax.tree.map(np.asarray,
 params)``; this module imports neither ``jax`` nor ``repro``) and builds the
 :class:`~repro_torch.models.lm.LM` that holds the same numbers: repeat ``r``
 of position ``u`` becomes layer ``r * unit_period + u``, then the tail
-follows. Dtypes are kept (numpy's ``bfloat16`` from ``ml_dtypes`` is read
-bit for bit).
+follows. An MoE layer's ``{"moe": {"router", "wi", "wg", "wo", "ln",
+"shared"}}`` holds bare arrays (stacked: ``(n_units, E, d, f)``), the vlm
+adds a top-level ``patch_proj``. :func:`encdec_params_from_jax` does the
+same for ``repro.models.encdec``'s ``{"embed", "enc", "dec"}``, whose
+``enc`` and ``dec`` are stacked over layers. Dtypes are kept (numpy's
+``bfloat16`` from ``ml_dtypes`` is read bit for bit).
 
 The other direction goes through a :class:`TreeLayout`: it maps the port's
 flat parameter names (``module.named_parameters()``: ``embed.emb``,
@@ -32,7 +36,7 @@ from torch import nn
 
 from repro_torch.checkpoint.ckpt import tree_leaves, tree_map
 from repro_torch.models import common as cm
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -49,20 +53,39 @@ def _dense(d: Dict[str, Any], device, r=None) -> cm.Dense:
                     None if b is None else _tensor(pick(b), device))
 
 
-def _layer(p: Dict[str, Any], window: int, device, r=None) -> lm.Layer:
-    pick = (lambda a: a) if r is None else (lambda a: a[r])
-    a, f = p["attn"], p["ffn"]
-    attn = cm.Attn(*(_dense(a[k], device, r) for k in ("wq", "wk", "wv", "wo")),
+def _attn(a: Dict[str, Any], device, r=None) -> cm.Attn:
+    pick = (lambda x: x) if r is None else (lambda x: x[r])
+    return cm.Attn(*(_dense(a[k], device, r) for k in ("wq", "wk", "wv", "wo")),
                    ln=_tensor(pick(a["ln"]), device))
-    ffn = cm.FFN(*(_dense(f[k], device, r) for k in ("wi", "wg", "wo")),
-                 ln=_tensor(pick(f["ln"]), device))
-    return lm.Layer(attn, ffn, window)
+
+
+def _ffn(f: Dict[str, Any], device, r=None) -> cm.FFN:
+    pick = (lambda x: x) if r is None else (lambda x: x[r])
+    return cm.FFN(*(_dense(f[k], device, r) for k in ("wi", "wg", "wo")),
+                  ln=_tensor(pick(f["ln"]), device))
+
+
+def _moe(m: Dict[str, Any], device, r=None) -> cm.MoE:
+    """``repro``'s MoE dict: bare ``router`` / ``wi`` / ``wg`` / ``wo``
+    arrays, ``ln`` and an optional ``shared`` FFN dict."""
+    pick = (lambda x: x) if r is None else (lambda x: x[r])
+    shared = _ffn(m["shared"], device, r) if "shared" in m else None
+    return cm.MoE(*(_tensor(pick(m[k]), device)
+                    for k in ("router", "wi", "wg", "wo", "ln")), shared)
+
+
+def _layer(p: Dict[str, Any], window: int, device, r=None) -> lm.Layer:
+    attn = _attn(p["attn"], device, r)
+    if "moe" in p:
+        return lm.Layer(attn, window=window, moe=_moe(p["moe"], device, r))
+    return lm.Layer(attn, _ffn(p["ffn"], device, r), window)
 
 
 def lm_params_from_jax(cfg: cm.ModelConfig, tree: Dict[str, Any],
                        device="cpu") -> lm.LM:
     """``repro``'s ``lm.init_params(cfg, key)`` tree, as numpy arrays, → the
-    port's :class:`~repro_torch.models.lm.LM` on ``device``."""
+    port's :class:`~repro_torch.models.lm.LM` on ``device`` (MoE layers and
+    the vlm's ``patch_proj`` included)."""
     plan = lm.layer_plan(cfg)
     period = lm.unit_period(cfg)
     n_units = cfg.n_layers // period
@@ -78,9 +101,36 @@ def lm_params_from_jax(cfg: cm.ModelConfig, tree: Dict[str, Any],
     for t, p in enumerate(tree["tail"]):
         i = n_units * period + t
         layers[i] = _layer(p, plan[i]["window"], device)
-    e = tree["embed"]
-    return lm.LM(cm.Embed(_tensor(e["emb"], device), _tensor(e["ln_f"], device)),
-                 layers)
+    for i, layer in enumerate(layers):
+        if (layer.moe is not None) != plan[i]["moe"]:
+            raise ValueError(f"{cfg.name}: layer {i} of the tree is "
+                             f"{'MoE' if layer.moe is not None else 'dense'}")
+    return lm.LM(_embed(tree["embed"], device), layers,
+                 _dense(tree["patch_proj"], device) if "patch_proj" in tree
+                 else None)
+
+
+def _embed(e: Dict[str, Any], device) -> cm.Embed:
+    return cm.Embed(_tensor(e["emb"], device), _tensor(e["ln_f"], device))
+
+
+def encdec_params_from_jax(cfg: cm.ModelConfig, tree: Dict[str, Any],
+                           device="cpu") -> encdec.EncDec:
+    """``repro``'s ``encdec.init_params(cfg, key)`` tree ``{"embed", "enc",
+    "dec"}`` (``enc`` / ``dec`` stacked over layers), as numpy arrays, →
+    the port's :class:`~repro_torch.models.encdec.EncDec` on ``device``."""
+    ne = cfg.n_encoder_layers or cfg.n_layers
+    for part, n in (("enc", ne), ("dec", cfg.n_layers)):
+        got = tree[part]["ffn"]["ln"].shape[0]
+        if got != n:
+            raise ValueError(f"{cfg.name}: the tree's {part} stacks {got} "
+                             f"layers, the config {n}")
+    enc = [encdec.EncLayer(_attn(tree["enc"]["attn"], device, r),
+                           _ffn(tree["enc"]["ffn"], device, r)) for r in range(ne)]
+    d = tree["dec"]
+    dec = [encdec.DecLayer(_attn(d["self"], device, r), _attn(d["cross"], device, r),
+                           _ffn(d["ffn"], device, r)) for r in range(cfg.n_layers)]
+    return encdec.EncDec(_embed(tree["embed"], device), enc, dec)
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +236,47 @@ class _LMLayout(TreeLayout):
 
 
 def lm_layout(cfg: cm.ModelConfig) -> TreeLayout:
-    """The layout of ``repro``'s ``lm.init_params(cfg, key)`` tree."""
+    """The layout of ``repro``'s ``lm.init_params(cfg, key)`` tree (lm and
+    vlm)."""
     return _LMLayout(cfg)
+
+
+class _StackedLayout(TreeLayout):
+    """``<part>.{i}.*`` → ``<part>`` stacked at ``i``, for each part of
+    ``stacks`` (its name → its number of layers); other names one segment
+    per level."""
+
+    def __init__(self, stacks: Dict[str, int]):
+        self.stacks = stacks
+
+    def _split(self, name):
+        head, _, rest = name.partition(".")
+        if head not in self.stacks:
+            return super()._split(name)
+        idx, _, rest = rest.partition(".")
+        i = int(idx)
+        if not 0 <= i < self.stacks[head]:
+            raise ValueError(f"{name}: layer {i} of {self.stacks[head]}")
+        return (head,) + tuple(rest.split(".")), i
+
+    def _join(self, path, leaf):
+        head = path[0]
+        if head not in self.stacks:
+            yield from super()._join(path, leaf)
+            return
+        if leaf.shape[0] != self.stacks[head]:
+            raise ValueError(f"{'/'.join(map(str, path))}: {leaf.shape[0]} "
+                             f"layers, the config has {self.stacks[head]}")
+        rest = ".".join(str(p) for p in path[1:])
+        for r in range(self.stacks[head]):
+            yield f"{head}.{r}.{rest}", leaf[r]
+
+
+def encdec_layout(cfg: cm.ModelConfig) -> TreeLayout:
+    """The layout of ``repro``'s ``encdec.init_params(cfg, key)`` tree:
+    ``enc`` and ``dec`` stacked over layers."""
+    return _StackedLayout({"enc": cfg.n_encoder_layers or cfg.n_layers,
+                           "dec": cfg.n_layers})
 
 
 def named_leaves(params) -> Dict[str, torch.Tensor]:
@@ -227,6 +316,12 @@ def lm_params_to_jax(cfg: cm.ModelConfig, params: lm.LM) -> Dict[str, Any]:
     """The inverse of :func:`lm_params_from_jax`: ``params`` as ``repro``'s
     ``lm.init_params(cfg, key)`` tree of numpy arrays."""
     return tree_map(lm_layout(cfg).to_tree(named_leaves(params)), _numpy)
+
+
+def encdec_params_to_jax(cfg: cm.ModelConfig,
+                         params: encdec.EncDec) -> Dict[str, Any]:
+    """The inverse of :func:`encdec_params_from_jax`."""
+    return tree_map(encdec_layout(cfg).to_tree(named_leaves(params)), _numpy)
 
 
 def adamw_state_to_jax(cfg: cm.ModelConfig, state: Dict[str, Any]) -> Dict[str, Any]:

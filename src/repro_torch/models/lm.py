@@ -1,12 +1,17 @@
-"""Decoder-only LM family (the dense configs).
+"""Decoder-only LM family.
 
-Counterpart of ``repro.models.lm`` for minitron, internlm2, qwen1.5 (QKV
-bias) and gemma3 (5:1 local:global attention). The parameters are an
-:class:`LM` module: the embedding and one :class:`Layer` per layer in an
-``nn.ModuleList``, run by a Python layer loop in place of ``repro``'s
-``lax.scan`` over stacked unit params. Layer ``i`` runs under
-``site_scope(f"layer.{i}")``, so a per-site plan resolves per layer, which
-``repro`` reaches through ``scan_site_scope`` and ``lax.switch``.
+Counterpart of ``repro.models.lm`` for llama4-maverick (MoE top-1 every
+second layer, a shared expert), kimi-k2 (MoE top-8 in every layer, a shared
+expert), internlm2, qwen1.5 (QKV bias), gemma3 (5:1 local:global
+attention), minitron, and the paligemma VLM backbone (a prefix of projected
+patch embeddings, site ``patch_proj``). The parameters are an :class:`LM`
+module: the embedding, one :class:`Layer` per layer in an
+``nn.ModuleList`` (its FFN an :class:`~repro_torch.models.common.FFN` or an
+:class:`~repro_torch.models.common.MoE`) and the vlm's ``patch_proj``, run
+by a Python layer loop in place of ``repro``'s ``lax.scan`` over stacked
+unit params. Layer ``i`` runs under ``site_scope(f"layer.{i}")``, so a
+per-site plan resolves per layer, which ``repro`` reaches through
+``scan_site_scope`` and ``lax.switch``.
 
 KV caches are a list of per-layer ``(K, V)`` tensors ``(B, S_max, Hkv,
 dh)`` on the model's device, written in place by :func:`decode_step`.
@@ -16,13 +21,11 @@ autograd records) each layer is a ``torch.utils.checkpoint`` region that
 the backward recomputes, as ``repro``'s ``jax.checkpoint`` per layer: the
 recompute runs the layer's contractions again, so a training step launches
 each dense kernel twice.
-
-MoE layers and the vlm patch projection are not ported (ROADMAP.md queue 1
-item 7): a config with ``n_experts > 0`` raises at construction.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,43 +40,54 @@ Caches = List[Tuple[Tensor, Tensor]]
 
 
 def layer_plan(cfg: cm.ModelConfig) -> List[Dict]:
-    """Per-layer block descriptors: {'window': int}."""
+    """Per-layer block descriptors: {'moe': bool, 'window': int}."""
     plan = []
     for i in range(cfg.n_layers):
+        moe = cfg.n_experts > 0 and (i % cfg.moe_interleave
+                                     == cfg.moe_interleave - 1)
         window = 0
         if cfg.local_global_ratio > 0:
             # pattern: R local layers then 1 global
             window = cfg.local_window if (i % (cfg.local_global_ratio + 1)
                                           != cfg.local_global_ratio) else 0
-        plan.append({"window": window})
+        plan.append({"moe": moe, "window": window})
     return plan
 
 
 def unit_period(cfg: cm.ModelConfig) -> int:
-    """Layers per repeating unit in ``repro``'s stacked params: the
-    local:global pattern's period (``repro`` also folds in the MoE
-    interleave, which no config of the port has)."""
-    return cfg.local_global_ratio + 1 if cfg.local_global_ratio else 1
+    """Layers per repeating unit in ``repro``'s stacked params: the lcm of
+    the MoE interleave and the local:global pattern's period."""
+    p = max(1, cfg.moe_interleave) if cfg.n_experts else 1
+    if cfg.local_global_ratio:
+        p = math.lcm(p, cfg.local_global_ratio + 1)
+    return p
 
 
 class Layer(nn.Module):
-    """One decoder layer: attention then FFN; ``window`` > 0 makes the
-    attention local."""
+    """One decoder layer: attention, then a dense FFN (``ffn``) or an MoE
+    (``moe``), the other None; ``window`` > 0 makes the attention local."""
 
-    def __init__(self, attn: cm.Attn, ffn: cm.FFN, window: int = 0):
+    def __init__(self, attn: cm.Attn, ffn: Optional[cm.FFN] = None,
+                 window: int = 0, *, moe: Optional[cm.MoE] = None):
         super().__init__()
+        if (ffn is None) == (moe is None):
+            raise ValueError("a layer holds exactly one of ffn and moe")
         self.attn = attn
         self.ffn = ffn
+        self.moe = moe
         self.window = window
 
 
 class LM(nn.Module):
-    """Embedding (shared with the LM head) and the decoder layers."""
+    """Embedding (shared with the LM head), the decoder layers and, for the
+    vlm, the patch embeddings' projection ``patch_proj``."""
 
-    def __init__(self, embed: cm.Embed, layers: List[Layer]):
+    def __init__(self, embed: cm.Embed, layers: List[Layer],
+                 patch_proj: Optional[cm.Dense] = None):
         super().__init__()
         self.embed = embed
         self.layers = nn.ModuleList(layers)
+        self.patch_proj = patch_proj
 
     @property
     def device(self) -> torch.device:
@@ -93,10 +107,18 @@ def init_params(cfg: cm.ModelConfig, generator: torch.Generator,
     device = torch.device(device if device is not None else generator.device)
     plan = layer_plan(cfg)
     embed = cm.init_embed(generator, cfg, device)
-    layers = [Layer(cm.init_attn(generator, cfg, device),
-                    cm.init_ffn(generator, cfg, device), d["window"])
-              for d in plan]
-    return LM(embed, layers)
+    layers = []
+    for d in plan:
+        attn = cm.init_attn(generator, cfg, device)
+        if d["moe"]:
+            layers.append(Layer(attn, window=d["window"],
+                                moe=cm.init_moe(generator, cfg, device)))
+        else:
+            layers.append(Layer(attn, cm.init_ffn(generator, cfg, device),
+                                d["window"]))
+    patch_proj = (cm.init_dense(generator, cfg.d_model, cfg.d_model, cfg.dtype,
+                                device=device) if cfg.family == "vlm" else None)
+    return LM(embed, layers, patch_proj)
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +131,8 @@ def _apply_layer(cfg, layer: Layer, x, positions, kv_cache=None,
     x, cache = cm.attn_block(cfg, layer.attn, x, positions=positions,
                              window=layer.window, kv_cache=kv_cache,
                              cache_len=cache_len)
+    if layer.moe is not None:
+        return cm.moe_block(cfg, layer.moe, x), cache
     return cm.ffn_block(cfg, layer.ffn, x), cache
 
 
@@ -144,10 +168,17 @@ def _maybe_remat(cfg: cm.ModelConfig, fn):
                                     preserve_rng_state=False)
 
 
-def forward(cfg: cm.ModelConfig, params: LM, tokens: Tensor) -> Tensor:
-    """Full-sequence forward: tokens (B, S) → final hidden states (B, S, d)."""
+def forward(cfg: cm.ModelConfig, params: LM, tokens: Tensor,
+            patch_embeds: Optional[Tensor] = None) -> Tensor:
+    """Full-sequence forward: tokens (B, S) → final hidden states (B, S, d);
+    for the vlm, ``patch_embeds`` (B, P, d) projected at the top-level site
+    ``patch_proj`` come first (B, P + S, d)."""
     _check(cfg, params)
     x = cm.embed(cfg, params.embed, tokens)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        pe = cm.dense(cfg, patch_embeds.to(x.dtype), params.patch_proj.w,
+                      site="patch_proj")
+        x = torch.cat([pe, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     for i, layer in enumerate(params.layers):
@@ -159,8 +190,11 @@ def forward(cfg: cm.ModelConfig, params: LM, tokens: Tensor) -> Tensor:
 
 def loss_fn(cfg: cm.ModelConfig, params: LM, batch: Dict[str, Tensor]) -> Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S) against
-    ``batch["labels"]`` (B, S): a float32 scalar."""
-    x = forward(cfg, params, batch["tokens"])
+    ``batch["labels"]`` (B, S): a float32 scalar. The vlm's
+    ``batch["patch_embeds"]`` prefix is scored on the text positions only."""
+    x = forward(cfg, params, batch["tokens"], batch.get("patch_embeds"))
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = x[:, batch["patch_embeds"].shape[1]:]
     return cm.lm_loss_chunked(cfg, params.embed, x, batch["labels"])
 
 
@@ -195,8 +229,9 @@ def decode_step(cfg: cm.ModelConfig, params: LM, caches: Caches,
     return cm.lm_logits(cfg, params.embed, x), caches
 
 
-def prefill(cfg: cm.ModelConfig, params: LM, tokens: Tensor) -> Tensor:
+def prefill(cfg: cm.ModelConfig, params: LM, tokens: Tensor,
+            patch_embeds: Optional[Tensor] = None) -> Tensor:
     """Prefill forward: returns last-position logits (B, 1, V) (the serving
     engine prefills token by token through :func:`decode_step` instead)."""
-    x = forward(cfg, params, tokens)
+    x = forward(cfg, params, tokens, patch_embeds)
     return cm.lm_logits(cfg, params.embed, x[:, -1:, :])

@@ -1,12 +1,14 @@
-"""Architecture registry: config → init / prefill / decode builders.
+"""Architecture registry: config → init / loss / prefill / decode builders.
 
-Counterpart of ``repro.models.registry`` for the ``lm`` family: every
+Counterpart of ``repro.models.registry`` for the attention families: every
 registered architecture (:mod:`repro_torch.configs`) resolves here by name,
-and :func:`build_bundle` binds a config to the model functions and its
-substrate plan. Other families (vlm, xlstm, zamba, encdec) raise until their
-slices are ported (ROADMAP.md queue 1 item 7); the dry-run's ``SHAPES`` /
-``input_specs`` / ``decode_state_specs`` / ``param_specs`` (item 12) are not
-ported. ``bundle.layout`` maps the parameters' names to ``repro``'s tree, the
+and :func:`build_bundle` binds a config to its family's model functions
+(``lm`` and ``vlm`` through :mod:`~repro_torch.models.lm`, ``encdec``
+through :mod:`~repro_torch.models.encdec`) and its substrate plan. The
+recurrent families (xlstm, zamba) raise until their slice is ported
+(ROADMAP.md queue 1 item 7); the dry-run's ``SHAPES`` / ``input_specs`` /
+``decode_state_specs`` / ``param_specs`` (item 12) are not ported.
+``bundle.layout`` maps the parameters' names to ``repro``'s tree, the
 layout checkpoints and plan bundles store.
 """
 from __future__ import annotations
@@ -14,8 +16,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict
 
+import torch
+
 from repro_torch.models import common as cm
-from repro_torch.models import convert, lm
+from repro_torch.models import convert, encdec, lm
 from repro_torch.nn import substrate as psub
 
 
@@ -35,16 +39,39 @@ class ModelBundle:
 
 
 def _lm_bundle(cfg: cm.ModelConfig) -> ModelBundle:
+    """lm and vlm: the vlm's prefill takes ``batch["patch_embeds"]``."""
     return ModelBundle(
         cfg=cfg,
         init_params=lambda gen, device=None: lm.init_params(cfg, gen, device),
         loss_fn=lambda p, b: lm.loss_fn(cfg, p, b),
-        prefill=lambda p, b: lm.prefill(cfg, p, b["tokens"]),
+        prefill=lambda p, b: lm.prefill(cfg, p, b["tokens"],
+                                        b.get("patch_embeds")),
         decode_step=lambda p, s, b: lm.decode_step(cfg, p, s, b["token"],
                                                    b["cache_len"]),
         init_decode_state=lambda batch, max_len, device=None:
             lm.init_kv_caches(cfg, batch, max_len, device),
         layout=convert.lm_layout(cfg),
+    )
+
+
+def _encdec_bundle(cfg: cm.ModelConfig) -> ModelBundle:
+    def init_state(batch, max_len, device=None):
+        """The self-attention caches and ``enc_out`` zeros (B, n_frames, d),
+        as ``repro``'s bundle makes them."""
+        st = encdec.init_kv_caches(cfg, batch, max_len, device)
+        st["enc_out"] = torch.zeros((batch, cfg.n_frames, cfg.d_model),
+                                    dtype=cfg.dtype, device=device)
+        return st
+
+    return ModelBundle(
+        cfg=cfg,
+        init_params=lambda gen, device=None: encdec.init_params(cfg, gen, device),
+        loss_fn=lambda p, b: encdec.loss_fn(cfg, p, b),
+        prefill=lambda p, b: encdec.prefill(cfg, p, b["tokens"], b["frames"]),
+        decode_step=lambda p, s, b: encdec.decode_step(cfg, p, s, b["token"],
+                                                       b["cache_len"]),
+        init_decode_state=init_state,
+        layout=convert.encdec_layout(cfg),
     )
 
 
@@ -67,6 +94,8 @@ def _with_substrate(builder: Callable) -> Callable:
 
 _BUILDERS = {
     "lm": _with_substrate(_lm_bundle),
+    "vlm": _with_substrate(_lm_bundle),
+    "encdec": _with_substrate(_encdec_bundle),
 }
 
 
@@ -76,7 +105,7 @@ def build_bundle(cfg: cm.ModelConfig) -> ModelBundle:
     if builder is None:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            "queue 1 item 7); ported: lm")
+            f"queue 1 item 7); ported: {', '.join(sorted(_BUILDERS))}")
     return builder(cfg)
 
 

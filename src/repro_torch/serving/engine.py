@@ -10,6 +10,12 @@ plus per-request latency land in a
 :class:`~repro_torch.serving.metrics.ServingMetrics`. Sampling runs in numpy
 on the host, on the step's float32 logits.
 
+Every ported family serves: ``lm`` (its MoE configs too), ``vlm`` (text
+tokens only: no patch prefix reaches ``decode_step``) and ``encdec``, whose
+decode state carries ``enc_out``. As in ``repro``, the engine never runs
+the encoder: ``enc_out`` holds the zeros of the bundle's
+``init_decode_state``, and every decode step cross-attends to them.
+
 The engine runs on ``"cuda"`` unless the caller passes ``device="cpu"``
 (the plain versions of the kernels), and raises when no card is present;
 the parameters must lie on that device.
@@ -90,7 +96,8 @@ class ServingEngine:
                  max_len: int = 256, seed: int = 0, substrate=None,
                  metrics: Optional[ServingMetrics] = None, device=None):
         """bundle / params: a :class:`~repro_torch.models.registry.ModelBundle`
-        and its :class:`~repro_torch.models.lm.LM` parameters, on ``device``.
+        and its parameters (an :class:`~repro_torch.models.lm.LM` or
+        :class:`~repro_torch.models.encdec.EncDec`), on ``device``.
         substrate: optional override for the bundle's substrate assignment —
         a spec string (e.g. ``"int8"``, ``"approx_cuda:proposed@8"``), a
         registry substrate instance, or a

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro import checkpoint as jckpt
+from repro.models import encdec as jed
 from repro.models import lm as jlm
 from repro.nn import plan as jplan
 from repro.optim import adamw as jadamw
@@ -301,3 +302,50 @@ def test_assign_refuses_what_does_not_fit():
     with pytest.raises(KeyError, match="missing"):
         convert.assign_(params, bad)
     convert.assign_(params, flat)
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama4-maverick-400b-a17b",
+                                  "paligemma-3b", "whisper-large-v3"])
+def test_family_params_cross_both_ways(tmp_path, arch):
+    """The MoE units (bare expert arrays stacked over units, the router, the
+    shared FFN), the vlm's top-level ``patch_proj`` and the encoder-decoder's
+    ``enc`` / ``dec`` stacked over layers: through ``models.convert`` both
+    ways, then a plan bundle written by ``repro`` restored in the port
+    through ``bundle.layout`` and one written by the port restored in
+    ``repro``; every leaf bit for bit, bf16 weights included."""
+    jcfg = reduced(arch, vocab=128)
+    assert jcfg.dtype == jnp.bfloat16
+    encdec = jcfg.family == "encdec"
+    jparams = (jed if encdec else jlm).init_params(jcfg, jax.random.PRNGKey(3))
+    cfg = port_cfg(jcfg)
+    from_jax, to_jax = ((convert.encdec_params_from_jax, convert.encdec_params_to_jax)
+                        if encdec else (convert.lm_params_from_jax,
+                                        convert.lm_params_to_jax))
+    params = from_jax(cfg, jax.tree.map(np.asarray, jparams))
+    back = to_jax(cfg, params)
+    assert jax.tree.structure(back) == jax.tree.structure(jparams)
+    for a, b in zip(jax.tree.leaves(jparams), jax.tree.leaves(back)):
+        assert np.asarray(a).dtype == b.dtype
+        np.testing.assert_array_equal(_bits(b), _bits(np.asarray(a)))
+    if jcfg.n_experts:  # e.g. maverick's unit[1]["moe"]["wi"]: (1, 4, 64, 128)
+        moe = [u["moe"] for u in jparams["unit"] if "moe" in u][0]
+        assert moe["wi"].ndim == 4 and moe["router"].dtype == jnp.float32
+
+    jdir, tdir = str(tmp_path / "j"), str(tmp_path / "t")
+    jckpt.save_plan_bundle(jdir, jplan.as_plan(_PLAN), jparams)
+    bundle = reg.build_bundle(cfg)
+    fresh = bundle.init_params(torch.Generator().manual_seed(0))
+    template = bundle.layout.to_tree({k: t.to("meta") for k, t in
+                                      convert.named_leaves(fresh).items()})
+    _, tree, _ = load_plan_bundle(jdir, template)
+    convert.assign_(fresh, bundle.layout.from_tree(tree))
+    want = convert.named_leaves(params)
+    for name, t in convert.named_leaves(fresh).items():
+        assert t.dtype == want[name].dtype, name
+        np.testing.assert_array_equal(_bits(t), _bits(want[name]))
+
+    save_plan_bundle(tdir, _PLAN, bundle.layout.to_tree(convert.named_leaves(params)))
+    _, out, _ = jckpt.load_plan_bundle(tdir, jparams)
+    assert jax.tree.structure(out) == jax.tree.structure(jparams)
+    for a, b in zip(jax.tree.leaves(jparams), jax.tree.leaves(out)):
+        np.testing.assert_array_equal(_bits(np.asarray(b)), _bits(np.asarray(a)))

@@ -1074,3 +1074,71 @@ def test_paper_driver_on_the_card_equals_the_cpu(dev, name, monkeypatch):
     if name == "fig9_edge":
         assert ("fig9/cuda_fused_conv", "device=cuda") in {(n, v) for n, _, v in got}
         assert launched > 0
+
+
+# ---------------------------------------------------------------------------
+# the MoE, vlm and encdec families: their dense shapes and the MoE block
+# ---------------------------------------------------------------------------
+
+#: the (K, N) pairs the new families add: llama4-maverick, kimi-k2,
+#: paligemma-3b, whisper-large-v3 (attention, shared expert or FFN)
+FAMILY_SHAPES = [(5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120),
+                 (7168, 7168), (7168, 896), (7168, 2048), (2048, 7168),
+                 (2048, 2048), (2048, 256), (2048, 16384), (16384, 2048),
+                 (1280, 1280), (1280, 5120), (5120, 1280)]
+
+
+@pytest.mark.parametrize("kn", FAMILY_SHAPES, ids=[f"{k}x{n}" for k, n in FAMILY_SHAPES])
+def test_decode_and_rows_designs_at_the_family_shapes(dev, kn):
+    """One call at each new (K, N): M = 8 on the decode design and M = 48
+    on the rows design of ``approx_matmul`` (proposed@8), and of
+    ``lut_matmul`` under ``exact`` (its tensor design at M = 8), each equal
+    to its plain twin."""
+    k, n = kn
+    w = _codes((1, k, n)).to(dev)
+    t16 = am.closed_form_table16("proposed@8", dev)
+    a = _codes((1, 8, k)).to(dev)
+    got = _launched(closed_form_matmul.decode_launches,
+                    lambda: closed_form_matmul(a, w, "proposed@8"))
+    torch.testing.assert_close(got, blocking.decode_matmul_plain(a, w, t16, 8),
+                               rtol=0, atol=0)
+    t = device_table("exact", dev)
+    got = _launched(lut_matmul.tensor_launches, lambda: lut_matmul(a, w, t))
+    torch.testing.assert_close(got, blocking.tensor_matmul_plain(a, w),
+                               rtol=0, atol=0)
+    a = _codes((1, 48, k)).to(dev)
+    got = _launched(closed_form_matmul.rows_launches,
+                    lambda: closed_form_matmul(a, w, "proposed@8"))
+    torch.testing.assert_close(got, blocking.rows_matmul_plain(
+        a, w, am.rows_decomposition("proposed@8"), 8), rtol=0, atol=0)
+    got = _launched(lut_matmul.rows_launches, lambda: lut_matmul(a, w, t))
+    torch.testing.assert_close(got, blocking.rows_matmul_plain(
+        a, w, lm.rows_decomposition(t), 8), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("spec", ["exact", "approx_cuda:proposed@8"])
+def test_moe_block_on_the_card_equals_the_cpu(dev, spec):
+    """The MoE block at float32 (llama4-maverick's layer at d 64, f 128, 8
+    experts, top-2 with a forced overflow, a shared expert on ``spec``): the
+    same routing on both devices, and outputs within 1e-4 (the float32
+    router, expert and norm sums run in another order on the card; TF32
+    off)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry as reg
+    from repro_torch.nn import plan as tplan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reg.get_config("llama4-maverick-400b-a17b", d_model=64, d_ff=128,
+                         n_heads=4, n_kv_heads=2, n_experts=8, top_k=2,
+                         capacity_factor=0.5, dtype=torch.float32, dot_plan=spec)
+    p = cm.init_moe(torch.Generator().manual_seed(5), cfg)
+    x = torch.from_numpy(RNG.normal(size=(2, 24, 64)).astype(np.float32))
+    xn = cm.rms_norm(x, p.ln).reshape(-1, 64)
+    _, (slot, _, keep, _) = cm._dispatch_local(cfg, xn, p.router)
+    _, (slot_d, _, keep_d, _) = cm._dispatch_local(cfg, xn.to(dev), p.router.to(dev))
+    assert torch.equal(slot_d.cpu(), slot) and torch.equal(keep_d.cpu(), keep)
+    assert (~keep).any()
+    with tplan.site_scope("layer.1"):
+        want = cm.moe_block(cfg, p, x)
+        got = cm.moe_block(cfg, p.to(dev), x.to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)

@@ -3,8 +3,10 @@
 ``SlotScheduler`` as in ``tests/test_serving.py``; ``ServingEngine`` on the
 same parameters (``repro``'s ``PRNGKey(0)`` tree carried across by
 ``lm_params_from_jax``) and prompts, greedy outputs token for token; the
-substrate-override cases; truncation counted as failed; first-wave identity
-at 1 and 2 workers; and the launcher once with ``--device cpu``. Models are
+substrate-override cases; an MoE config and the encoder-decoder against
+``repro``'s engine; truncation counted as failed; first-wave identity at 1
+and 2 workers; and the launcher once with ``--device cpu`` (and once for
+each other family). Models are
 float32 so that both packages quantize the same float32 activations.
 """
 import json
@@ -19,6 +21,7 @@ from repro.models import registry as jreg
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch.launch import serve as launch_serve
+from repro_torch.models import convert
 from repro_torch.models import registry as reg
 from repro_torch.models.convert import lm_params_from_jax
 from repro_torch.nn import plan as tplan
@@ -94,6 +97,32 @@ def test_greedy_outputs_match_repro_engine(spec):
     assert teng.metrics.requests_served == len(PROMPTS)
     assert teng.metrics.batches_by_reason.keys() == {"decode"}
     assert teng.metrics.latency_percentile(50) > 0
+
+
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "whisper-large-v3"])
+def test_other_families_greedy_outputs_match_repro_engine(arch):
+    """An MoE config (batch 2 at capacity 1: a token is dropped where both
+    pick one expert) and the encoder-decoder (``enc_out`` zeros, as
+    ``repro``'s engine sets them): every greedy token equal, under
+    ``approx_cuda`` (its plain versions: the integers of ``repro``'s
+    ``approx_lut``)."""
+    jcfg = reduced(arch, d_model=32, d_ff=64, vocab=64, n_heads=2,
+                   n_kv_heads=2, dtype=jnp.float32)
+    jb = jreg.build_bundle(jcfg)
+    jparams = jb.init_params(jax.random.PRNGKey(1))
+    cfg = port_cfg(jcfg)
+    tb = reg.build_bundle(cfg)
+    tree = jax.tree.map(np.asarray, jparams)
+    tparams = (convert.encdec_params_from_jax(cfg, tree) if cfg.family == "encdec"
+               else convert.lm_params_from_jax(cfg, tree))
+    jeng = JServingEngine(jb, jparams, batch_size=2, max_len=32,
+                          substrate="approx_lut:proposed@8")
+    teng = _engine(tb, tparams, batch_size=2, max_len=32,
+                   substrate="approx_cuda:proposed@8")
+    want = jeng.generate([JRequest(prompt=p, max_tokens=4) for p in PROMPTS])
+    got = teng.generate([Request(prompt=p, max_tokens=4) for p in PROMPTS])
+    assert [r.output for r in got] == [r.output for r in want]
+    assert teng.metrics.requests_served == len(PROMPTS)
 
 
 def test_greedy_output_matches_a_manual_decode_loop():
@@ -272,3 +301,33 @@ def test_launcher_serves_on_the_cpu(tmp_path, capsys):
                              "--max-tokens", "2", "--plan",
                              str(tmp_path / "bundle")])
     assert [len(r.output) for r in out] == [2]
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "paligemma-3b",
+                                  "whisper-large-v3"])
+def test_launcher_serves_the_other_families(arch, tmp_path):
+    """An MoE (``--n-experts``), the vlm and the encoder-decoder through the
+    launcher, the last with a bundle of its params written in ``repro``'s
+    tree and restored through ``bundle.layout``."""
+    from repro_torch.checkpoint import save_plan_bundle
+
+    flags = ["--arch", arch, "--device", "cpu", "--n-layers", "2", "--d-model",
+             "32", "--d-ff", "64", "--vocab", "64", "--n-heads", "2",
+             "--n-kv-heads", "1", "--requests", "1", "--max-tokens", "2"]
+    if arch.startswith("kimi"):
+        flags += ["--n-experts", "16"]  # at least top_k = 8
+    cfg = reg.get_config(arch, n_layers=2, d_model=32, d_ff=64, vocab=64,
+                         n_heads=2, n_kv_heads=1,
+                         **({"n_experts": 16} if arch.startswith("kimi") else {}))
+    bundle = reg.build_bundle(cfg)
+    params = bundle.init_params(torch.Generator().manual_seed(9))
+    save_plan_bundle(str(tmp_path / "b"), "approx_cuda:proposed@8",
+                     bundle.layout.to_tree(convert.named_leaves(params)))
+    out = launch_serve.main(flags + ["--plan", str(tmp_path / "b")])
+    assert [len(r.output) for r in out] == [2]
+    eng = _engine(bundle, params, batch_size=2, max_len=128,
+                  substrate="approx_cuda:proposed@8")
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=list(rng.integers(1, 64, size=4)), max_tokens=2)]
+    eng.generate(reqs)
+    assert reqs[0].output == out[0].output  # the restored params served

