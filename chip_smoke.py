@@ -110,8 +110,21 @@ full depth prefills 1500 frames at batch 2 (the encoder at 3000 rows, all
 rows launches) and serves 4 requests against zero encoder states, 9 decode
 and 2 rows launches per decoder layer-step; one decode step of its first 2
 decoder layers is held bit for bit to the table substrate (phase
-``encdec_path``). Every phase prints one JSON
-line; the line before the last lists the kernels with their launches on
+``encdec_path``).
+
+Then the recurrent families (phase ``recurrent_serving_path``), each at
+its published widths and full depth, one on the card at a time:
+xlstm-125m (12 layers, mLSTM and sLSTM) and zamba2-1.2b (38 mamba layers,
+the shared attention block after every sixth) serve the same 16 requests
+at batch 8 under ``approx_cuda:proposed@8`` at 2 workers and at 1 (only
+decode launches: 72 and 118 a step, each (K, N) as ``REC_SHAPES`` counts
+it; worker 0's first wave equal); one decode step (logits and every
+recurrent state and cache) equals, bit for bit, the same on
+``approx_lut:proposed@8``; an 8 × 64 prefill (M = 512) launches only the
+rows design and, at full depth for xlstm and at 6 layers for zamba, equals
+the table substrate's bit for bit; each new (K, N) is checked on the decode
+and rows designs against its plain twin and timed. Every phase prints one
+JSON line; the line before the last lists the kernels with their launches on
 the path that runs them (and, beside the rows of their design and shape,
 those of the new phases, counted by shape), their times and least-work
 bounds, and the last line is
@@ -226,6 +239,24 @@ ENCDEC_BATCH = 4
 #: decoder layers of the encdec decode step held to the table substrate
 #: (its cross K/V take B * 1500 rows, slow on the plain gathers)
 ENCDEC_IDENTITY_LAYERS = 2
+#: the recurrent families at their published widths and full depth; the
+#: (K, N) of each dense site and its launches per decode step
+REC_ARCHS = ("xlstm-125m", "zamba2-1.2b")
+REC_SHAPES = {
+    "xlstm-125m": {"mlstm.wq,wk,wv,wo_gate,wo;slstm.wz,wi,wf,wo_gate,wo":
+                   (768, 768, 60), "mlstm.wi,wf": (768, 4, 12)},
+    "zamba2-1.2b": {"mamba.in_proj": (2048, 8352, 38),
+                    "mamba.out_proj": (4096, 2048, 38),
+                    "shared.attn.wq,wk,wv,wo": (2048, 2048, 24),
+                    "shared.ffn.wg,wi": (2048, 8192, 12),
+                    "shared.ffn.wo": (8192, 2048, 6)},
+}
+REC_PREFILL = (8, 64)  # M = 512 on every dense: the rows design
+REC_MAX_LEN = 32
+#: zamba's prefill held to the table substrate at a cut depth that keeps one
+#: shared block (after layer 5): 6 layers of 38 (the plain gathers of a
+#: 38-layer prefill at M = 512 would take minutes)
+REC_IDENTITY_LAYERS = {"zamba2-1.2b": 6}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1408,13 +1439,65 @@ def tools_phases(dev, card: str, tiles: list, out_dir: Path) -> dict:
     return shapes
 
 
+def with_plan(bundle, spec):
+    """``bundle`` rebuilt on its config under the plan ``spec``."""
+    import dataclasses
+
+    from repro_torch.models import registry as reg
+    from repro_torch.nn import plan as plan_mod
+
+    return reg.build_bundle(dataclasses.replace(
+        bundle.cfg, dot_plan=plan_mod.as_plan(spec)))
+
+
+def free_card() -> None:
+    """Drop the last model's tensors from the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_mix(bundle, params, prompts, batch: int, workers: int, max_len: int,
+              spec: str, dev, counters: dict) -> tuple:
+    """One ``generate()`` of ``prompts`` ((prompt, max_tokens, temperature)
+    each) on a warmed ``ServingEngine`` under ``spec``: (requests, launches
+    by design, by shape, readings)."""
+    from repro_torch.serving import Request, ServingEngine
+
+    eng = ServingEngine(bundle, params, batch_size=batch, max_len=max_len,
+                        substrate=spec, device=dev)
+    eng.generate([Request(prompt=[1, 2], max_tokens=1)])  # warm-up
+    torch.cuda.synchronize()
+    eng.metrics.reset()
+    reqs = [Request(prompt=p, max_tokens=mt, temperature=temp)
+            for p, mt, temp in prompts]
+    t0 = time.perf_counter()
+    _, c, by = count_launches(counters, lambda: eng.generate(reqs, workers=workers))
+    wall = time.perf_counter() - t0
+    st = eng.metrics.snapshot()
+    vocab = bundle.cfg.vocab
+    require(all(r.done and len(r.output) == r.max_tokens
+                and all(0 <= t < vocab for t in r.output) for r in reqs)
+            and st["requests_served"] == len(reqs)
+            and st["requests_failed"] == 0, f"served {st}")
+    busy, batches = eng.metrics.worker_busy_seconds, eng.metrics.worker_batches
+    tokens = sum(len(r.output) for r in reqs)
+    return reqs, c, by, {
+        "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+        "latency_p50_ms": st["latency_p50_ms"],
+        "latency_p99_ms": st["latency_p99_ms"],
+        "decode_steps": eng.metrics.batches_flushed,
+        "decode_step_ms_by_worker": {w: 1e3 * busy[w] / batches[w]
+                                     for w in sorted(batches)}}
+
+
 def family_phases(dev, card: str) -> tuple:
     """The MoE, vlm and encdec families at their published widths (phases
     moe_serving_path, moe_topk_path, vlm_path, encdec_path), each model
     freed before the next is built. Returns (rows of the kernels line for
     the MoE config's dense shapes, least work by row name)."""
     import dataclasses
-    import gc
 
     from repro_torch.kernels import blocking
     from repro_torch.kernels.approx_matmul import ops as am
@@ -1422,9 +1505,7 @@ def family_phases(dev, card: str) -> tuple:
     from repro_torch.models import common as mcommon
     from repro_torch.models import encdec
     from repro_torch.models import registry as reg
-    from repro_torch.nn import plan as plan_mod
     from repro_torch.nn import substrate as sub
-    from repro_torch.serving import Request, ServingEngine
 
     counters = contraction_counters()
     kern, table = "approx_cuda:proposed@8", "approx_lut:proposed@8"
@@ -1435,14 +1516,6 @@ def family_phases(dev, card: str) -> tuple:
     def only(**launched) -> dict:
         return {name: launched.get(name, 0) for name in counters}
 
-    def on(bundle, spec):
-        return reg.build_bundle(dataclasses.replace(
-            bundle.cfg, dot_plan=plan_mod.as_plan(spec)))
-
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
-
     def widths(cfg) -> dict:
         return {k: getattr(cfg, k) for k in (
             "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab",
@@ -1452,42 +1525,13 @@ def family_phases(dev, card: str) -> tuple:
     def build(name, **over):
         """(bundle, params, seconds to draw them): seeded random weights on
         the card, the peak-memory count restarted."""
-        free()
+        free_card()
         torch.cuda.reset_peak_memory_stats()
         bundle = reg.get_bundle(name, **over)
         t0 = time.perf_counter()
         params = bundle.init_params(torch.Generator(dev).manual_seed(0), dev)
         torch.cuda.synchronize()
         return bundle, params, time.perf_counter() - t0
-
-    def serve(bundle, params, prompts, batch, workers, max_len):
-        """One generate() on a warmed engine under ``kern``: (requests,
-        launches by design, by shape, readings)."""
-        eng = ServingEngine(bundle, params, batch_size=batch, max_len=max_len,
-                            substrate=kern, device=dev)
-        eng.generate([Request(prompt=[1, 2], max_tokens=1)])  # warm-up
-        torch.cuda.synchronize()
-        eng.metrics.reset()
-        reqs = [Request(prompt=p, max_tokens=mt, temperature=temp)
-                for p, mt, temp in prompts]
-        t0 = time.perf_counter()
-        _, c, by = counted(lambda: eng.generate(reqs, workers=workers))
-        wall = time.perf_counter() - t0
-        st = eng.metrics.snapshot()
-        vocab = bundle.cfg.vocab
-        require(all(r.done and len(r.output) == r.max_tokens
-                    and all(0 <= t < vocab for t in r.output) for r in reqs)
-                and st["requests_served"] == len(reqs)
-                and st["requests_failed"] == 0, f"served {st}")
-        busy, batches = eng.metrics.worker_busy_seconds, eng.metrics.worker_batches
-        tokens = sum(len(r.output) for r in reqs)
-        return reqs, c, by, {
-            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
-            "latency_p50_ms": st["latency_p50_ms"],
-            "latency_p99_ms": st["latency_p99_ms"],
-            "decode_steps": eng.metrics.batches_flushed,
-            "decode_step_ms_by_worker": {w: 1e3 * busy[w] / batches[w]
-                                         for w in sorted(batches)}}
 
     rng = np.random.default_rng(7)
     gen = torch.Generator(dev).manual_seed(3)
@@ -1550,14 +1594,14 @@ def family_phases(dev, card: str) -> tuple:
                for _ in range(LM_REQUESTS)]
     spec_of = lambda order: [(prompts[i], LM_PROMPT, 0.0 if i % 2 == 0 else 0.8)
                              for i in order]
-    reqs2, c2, by2, r2 = serve(bundle, params, spec_of(range(LM_REQUESTS)),
-                               LM_BATCH, 2, MOE_MAX_LEN)
+    reqs2, c2, by2, r2 = serve_mix(bundle, params, spec_of(range(LM_REQUESTS)),
+                                   LM_BATCH, 2, MOE_MAX_LEN, kern, dev, counters)
     steps = r2["decode_steps"]
     require(c2 == only(closed_form_decode=7 * MOE_LAYERS * steps),
             f"moe serving launches {c2} over {steps} steps")
     order1 = list(range(0, LM_REQUESTS, 2)) + list(range(1, LM_REQUESTS, 2))
-    reqs1, c1, _, r1 = serve(bundle, params, spec_of(order1), LM_BATCH, 1,
-                             MOE_MAX_LEN)
+    reqs1, c1, _, r1 = serve_mix(bundle, params, spec_of(order1), LM_BATCH, 1,
+                                 MOE_MAX_LEN, kern, dev, counters)
     first_wave = {i: r.output for i, r in zip(order1[:LM_BATCH], reqs1)}
     same_wave = all(first_wave[i] == reqs2[i].output for i in first_wave)
     require(same_wave, "moe first-wave greedy outputs differ between 1 and 2 workers")
@@ -1568,8 +1612,8 @@ def family_phases(dev, card: str) -> tuple:
         st = b.init_decode_state(LM_BATCH, MOE_MAX_LEN, dev)
         return b.decode_step(params, st, {"token": tok, "cache_len": 0})[0]
 
-    a, c_step, _ = counted(lambda: step_logits(on(bundle, kern)))
-    b, table_step_ms = timed_once(lambda: step_logits(on(bundle, table)))
+    a, c_step, _ = counted(lambda: step_logits(with_plan(bundle, kern)))
+    b, table_step_ms = timed_once(lambda: step_logits(with_plan(bundle, table)))
     step_same = bool(torch.isfinite(a).all()) and same_bits(a, b)
     require(step_same and c_step == only(closed_form_decode=7 * MOE_LAYERS),
             f"moe decode step vs {table}: launches {c_step}")
@@ -1577,13 +1621,13 @@ def family_phases(dev, card: str) -> tuple:
     # first call timed apart (the MoE's first (E, C = 3, d) products)
     toks = tokens(LM_PREFILL, cfg.vocab)
     _, pf_first_ms = timed_once(
-        lambda: on(bundle, kern).prefill(params, {"tokens": toks}))
+        lambda: with_plan(bundle, kern).prefill(params, {"tokens": toks}))
     t0 = time.perf_counter()
     (pf, pf_ms), c_pf, by_pf = counted(lambda: timed_once(
-        lambda: on(bundle, kern).prefill(params, {"tokens": toks})))
+        lambda: with_plan(bundle, kern).prefill(params, {"tokens": toks})))
     pf_wall = time.perf_counter() - t0
     pf_table, pf_table_ms = timed_once(
-        lambda: on(bundle, table).prefill(params, {"tokens": toks}))
+        lambda: with_plan(bundle, table).prefill(params, {"tokens": toks}))
     pf_same = pf.shape == (LM_PREFILL[0], 1, cfg.vocab) \
         and bool(torch.isfinite(pf).all()) and same_bits(pf, pf_table)
     require(pf_same and c_pf == only(closed_form_rows=7 * MOE_LAYERS),
@@ -1631,7 +1675,7 @@ def family_phases(dev, card: str) -> tuple:
                      "launches_per_layer_step_at_shape": r["per_layer_step"]})
         work[name] = r["work"]
     del params, bundle, moe, buf, a, b, pf, pf_table
-    free()
+    free_card()
 
     # -- moe_topk_path: kimi-k2 at its published widths, 1 layer (top-8 of
     # 384 experts); routing counted at every dispatch
@@ -1652,7 +1696,7 @@ def family_phases(dev, card: str) -> tuple:
     steps_tok = tokens((LM_BATCH, 2), cfg.vocab)
 
     def run(spec):
-        b_ = on(bundle, spec)
+        b_ = with_plan(bundle, spec)
         pf_ = b_.prefill(params, {"tokens": toks})
         st = b_.init_decode_state(LM_BATCH, 16, dev)
         outs = [pf_] + [b_.decode_step(params, st, {
@@ -1688,7 +1732,7 @@ def family_phases(dev, card: str) -> tuple:
          bit_identical=same, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
          card=card)
     del params, bundle, got, want
-    free()
+    free_card()
 
     # -- vlm_path: paligemma-3b at full depth, a prefix of 256 patches
     bundle, params, init_s = build(VLM_ARCH)
@@ -1696,14 +1740,15 @@ def family_phases(dev, card: str) -> tuple:
     pe = torch.randn((VLM_PREFILL[0], cfg.n_patches, cfg.d_model), generator=gen,
                      device=dev).to(cfg.dtype)
     toks = tokens(VLM_PREFILL, cfg.vocab)
-    (pf, pf_ms), c_v, by_v = counted(lambda: timed_once(lambda: on(
+    (pf, pf_ms), c_v, by_v = counted(lambda: timed_once(lambda: with_plan(
         bundle, kern).prefill(params, {"tokens": toks, "patch_embeds": pe})))
     require(pf.shape == (VLM_PREFILL[0], 1, cfg.vocab) and bool(torch.isfinite(pf).all())
             and c_v == only(closed_form_rows=1 + 7 * cfg.n_layers),
             f"paligemma prefill launches {c_v}")
     vprompts = [(list(map(int, rng.integers(1, cfg.vocab, 8))), 4, 0.0)
                 for _ in range(VLM_BATCH)]
-    _, c_ve, by_ve, r_ve = serve(bundle, params, vprompts, VLM_BATCH, 1, 16)
+    _, c_ve, by_ve, r_ve = serve_mix(bundle, params, vprompts, VLM_BATCH, 1, 16,
+                                     kern, dev, counters)
     require(c_ve == only(closed_form_decode=7 * cfg.n_layers * r_ve["decode_steps"]),
             f"paligemma serving launches {c_ve}")
     vtok = tokens((VLM_BATCH, 1), cfg.vocab)
@@ -1712,8 +1757,8 @@ def family_phases(dev, card: str) -> tuple:
         st = b_.init_decode_state(VLM_BATCH, 16, dev)
         return b_.decode_step(params, st, {"token": vtok, "cache_len": 0})[0]
 
-    a = vstep(on(bundle, kern))
-    b, vtable_ms = timed_once(lambda: vstep(on(bundle, table)))
+    a = vstep(with_plan(bundle, kern))
+    b, vtable_ms = timed_once(lambda: vstep(with_plan(bundle, table)))
     vsame = bool(torch.isfinite(a).all()) and same_bits(a, b)
     require(vsame, f"paligemma decode step vs {table}")
     emit("vlm_path", arch=VLM_ARCH, widths=widths(cfg), layers=cfg.n_layers,
@@ -1729,7 +1774,7 @@ def family_phases(dev, card: str) -> tuple:
                       "bit_identical": vsame, "table_substrate_ms": vtable_ms},
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
     del params, bundle, pf, pe, a, b
-    free()
+    free_card()
 
     # -- encdec_path: whisper-large-v3 at full depth; 1500 frames a sequence
     bundle, params, init_s = build(ENCDEC_ARCH)
@@ -1737,7 +1782,7 @@ def family_phases(dev, card: str) -> tuple:
     frames = torch.randn((ENCDEC_PREFILL[0], cfg.n_frames, cfg.d_model),
                          generator=gen, device=dev).to(cfg.dtype)
     toks = tokens(ENCDEC_PREFILL, cfg.vocab)
-    (pf, pf_ms), c_e, by_e = counted(lambda: timed_once(lambda: on(
+    (pf, pf_ms), c_e, by_e = counted(lambda: timed_once(lambda: with_plan(
         bundle, kern).prefill(params, {"tokens": toks, "frames": frames})))
     ne, nd = cfg.n_encoder_layers, cfg.n_layers
     require(pf.shape == (ENCDEC_PREFILL[0], 1, cfg.vocab)
@@ -1746,7 +1791,8 @@ def family_phases(dev, card: str) -> tuple:
             f"whisper prefill launches {c_e}")
     eprompts = [(list(map(int, rng.integers(1, cfg.vocab, 4))), 4, 0.0)
                 for _ in range(ENCDEC_BATCH)]
-    _, c_ee, by_ee, r_ee = serve(bundle, params, eprompts, ENCDEC_BATCH, 1, 16)
+    _, c_ee, by_ee, r_ee = serve_mix(bundle, params, eprompts, ENCDEC_BATCH, 1, 16,
+                                     kern, dev, counters)
     es = r_ee["decode_steps"]
     require(c_ee == only(closed_form_decode=9 * nd * es, closed_form_rows=2 * nd * es),
             f"whisper serving launches {c_ee} over {es} steps")
@@ -1762,8 +1808,8 @@ def family_phases(dev, card: str) -> tuple:
         st["enc_out"] = frames
         return b_.decode_step(cut, st, {"token": etok, "cache_len": 0})[0]
 
-    a, c_es, by_es = counted(lambda: estep(on(cut_bundle, kern)))
-    b, etable_ms = timed_once(lambda: estep(on(cut_bundle, table)))
+    a, c_es, by_es = counted(lambda: estep(with_plan(cut_bundle, kern)))
+    b, etable_ms = timed_once(lambda: estep(with_plan(cut_bundle, table)))
     esame = bool(torch.isfinite(a).all()) and same_bits(a, b)
     require(esame and c_es == only(closed_form_decode=9 * ENCDEC_IDENTITY_LAYERS,
                                    closed_form_rows=2 * ENCDEC_IDENTITY_LAYERS),
@@ -1785,7 +1831,7 @@ def family_phases(dev, card: str) -> tuple:
                       "bit_identical": esame, "table_substrate_ms": etable_ms},
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
     del params, bundle, cut, pf, frames, a, b
-    free()
+    free_card()
     # the other phases' launches by shape beside the row of their design
     other = {"moe_topk_path": by_k, "vlm_path (bundle.prefill)": by_v,
              "vlm_path (ServingEngine.generate)": by_ve,
@@ -1796,6 +1842,214 @@ def family_phases(dev, card: str) -> tuple:
         design = f"closed_form_{row['design']}"
         row["launches_other_phases_by_shape"] = {
             phase: by[design] for phase, by in other.items() if design in by}
+    return rows, work
+
+
+def recurrent_phases(dev, card: str) -> tuple:
+    """The recurrent families at their published widths and full depth
+    (phase ``recurrent_serving_path``): xlstm-125m and zamba2-1.2b, one on
+    the card at a time, under ``approx_cuda:proposed@8``. Each serves the
+    LM mix at 2 workers and at 1 (decode launches only, per (K, N) as
+    ``REC_SHAPES`` counts them; worker 0's first wave equal), prefills 8 ×
+    64 tokens (rows launches only), and holds a decode step (logits and
+    every state tensor) and a prefill bit for bit to
+    ``approx_lut:proposed@8``. Its dense shapes are checked on the decode
+    (M = 8) and rows (M = 512) designs against their plain twins and
+    timed. Returns (rows of the kernels line, least work by row name)."""
+    import dataclasses
+
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.kernels import blocking
+    from repro_torch.kernels.approx_matmul import ops as am
+    from repro_torch.kernels.approx_matmul.ops import closed_form_matmul
+    from repro_torch.models import registry as reg
+    from repro_torch.models import zamba
+    from repro_torch.nn import substrate as sub
+
+    counters = contraction_counters()
+    kern, table = "approx_cuda:proposed@8", "approx_lut:proposed@8"
+    q = sub.QuantPolicy()
+    t16 = am.closed_form_table16("proposed@8", dev)
+    planes = am.rows_decomposition("proposed@8")
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(dev).manual_seed(5)
+    m_prefill = REC_PREFILL[0] * REC_PREFILL[1]
+
+    def only(**launched) -> dict:
+        return {name: launched.get(name, 0) for name in counters}
+
+    def tokens(shape, vocab):
+        return torch.from_numpy(rng.integers(1, vocab, shape)).to(dev)
+
+    def at(by: dict, m: int, k: int, n: int) -> int:
+        return by.get(f"1x{m}x{k}x{n}", 0)
+
+    rows, work, records = [], {}, {}
+    for arch in REC_ARCHS:
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        bundle = reg.get_bundle(arch)
+        cfg = bundle.cfg
+        t0 = time.perf_counter()
+        params = bundle.init_params(torch.Generator(dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        shapes = REC_SHAPES[arch]
+        per_step = sum(v[2] for v in shapes.values())
+        # the dense shapes on the decode (M = 8) and rows (M = 512) designs,
+        # on int8 codes as dense quantizes them, each against its plain twin
+        shape_rows = {}
+        for m in (LM_BATCH, m_prefill):
+            decode = m <= blocking.DECODE_MAX_M
+            design = "decode" if decode else "rows"
+            for site, (k, n, _) in shapes.items():
+                x = torch.randn((1, m, k), generator=gen, device=dev).to(cfg.dtype)
+                w = (torch.randn((1, k, n), generator=gen, device=dev)
+                     / k ** 0.5).to(cfg.dtype)
+                qa, _ = sub._quantize_operand(x, q.x_mode, None, 2, 8, q.eps)
+                qb, _ = sub._quantize_operand(w, q.w_mode, None, 1, 8, q.eps)
+                plain, plain_ms = timed_once(
+                    (lambda: blocking.decode_matmul_plain(qa, qb, t16, 8)) if decode
+                    else (lambda: blocking.rows_matmul_plain(qa, qb, planes, 8)))
+                got, c, _ = count_launches(
+                    counters, lambda: closed_form_matmul(qa, qb, "proposed@8"))
+                require(c == only(**{f"closed_form_{design}": 1}),
+                        f"{arch} M = {m} at {site}: designs launched {c}")
+                err = max_abs_err(got, plain)
+                require(err == 0, f"{arch} {design} design at ({m} x {k}) @ "
+                                  f"({k} x {n}): {err}")
+                ms = time_ms(lambda: closed_form_matmul(qa, qb, "proposed@8"))
+                wk = (contraction_work(m, k, n) if decode
+                      else rows_contraction_work(m, k, n, planes.planes))
+                rate = INT32_OPS_PER_S if decode else INT8_TC_OPS_PER_S
+                shape_rows[(design, site)] = {"m": m, "k": k, "n": n, "err": err,
+                                              "ms": ms, "plain_ms": plain_ms,
+                                              "work": wk, "rate": rate}
+                emit("recurrent_kernel_shapes", arch=arch, design=design,
+                     site=site, shape=[1, m, k, n], max_abs_err=err, tolerance=0,
+                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(*wk, rate)[0])
+                del x, w, qa, qb, plain, got
+        # ServingEngine: 16 requests of 8 + 8 tokens at batch 8, odd ones
+        # sampled; at 2 workers and at 1 (worker 0's first wave first)
+        prompts = [list(map(int, rng.integers(1, cfg.vocab, LM_PROMPT)))
+                   for _ in range(LM_REQUESTS)]
+        spec_of = lambda order: [(prompts[i], LM_PROMPT, 0.0 if i % 2 == 0 else 0.8)
+                                 for i in order]
+        reqs2, c2, by2, r2 = serve_mix(bundle, params, spec_of(range(LM_REQUESTS)),
+                                       LM_BATCH, 2, REC_MAX_LEN, kern, dev, counters)
+        steps2 = r2["decode_steps"]
+        order1 = list(range(0, LM_REQUESTS, 2)) + list(range(1, LM_REQUESTS, 2))
+        reqs1, c1, by1, r1 = serve_mix(bundle, params, spec_of(order1), LM_BATCH, 1,
+                                       REC_MAX_LEN, kern, dev, counters)
+        steps1 = r1["decode_steps"]
+        for c_, by_, st_ in ((c2, by2, steps2), (c1, by1, steps1)):
+            dec = by_.get("closed_form_decode", {})
+            require(c_ == only(closed_form_decode=per_step * st_)
+                    and all(at(dec, LM_BATCH, k, n) == cnt * st_
+                            for k, n, cnt in shapes.values())
+                    and sum(dec.values()) == per_step * st_,
+                    f"{arch} serving launches {c_} {dec} over {st_} steps")
+        first_wave = {i: r.output for i, r in zip(order1[:LM_BATCH], reqs1)}
+        same_wave = all(first_wave[i] == reqs2[i].output for i in first_wave)
+        require(same_wave, f"{arch} first-wave outputs differ between 1 and 2 workers")
+        # one decode step from a fresh state: logits and every state tensor
+        # bit for bit the table substrate's
+        tok = tokens((LM_BATCH, 1), cfg.vocab)
+
+        def step(b_):
+            st = b_.init_decode_state(LM_BATCH, REC_MAX_LEN, dev)
+            return b_.decode_step(params, st, {"token": tok, "cache_len": 0})
+
+        (a, a_st), c_step, _ = count_launches(
+            counters, lambda: step(with_plan(bundle, kern)))
+        (b, b_st), table_step_ms = timed_once(lambda: step(with_plan(bundle, table)))
+        la = [t for _, t in tree_leaves(a_st)]
+        lb = [t for _, t in tree_leaves(b_st)]
+        step_same = bool(torch.isfinite(a).all()) and same_bits(a, b) \
+            and len(la) == len(lb) and all(same_bits(x_, y_) for x_, y_ in zip(la, lb))
+        require(step_same and c_step == only(closed_form_decode=per_step),
+                f"{arch} decode step vs {table}: launches {c_step}")
+        # the 8 x 64 prefill at full depth: M = 512, the rows design alone
+        toks = tokens(REC_PREFILL, cfg.vocab)
+        _, pf_first_ms = timed_once(
+            lambda: with_plan(bundle, kern).prefill(params, {"tokens": toks}))
+        (pf, pf_ms), c_pf, by_pf = count_launches(counters, lambda: timed_once(
+            lambda: with_plan(bundle, kern).prefill(params, {"tokens": toks})))
+        rows_by = by_pf.get("closed_form_rows", {})
+        require(pf.shape == (REC_PREFILL[0], 1, cfg.vocab)
+                and bool(torch.isfinite(pf).all())
+                and c_pf == only(closed_form_rows=per_step)
+                and all(at(rows_by, m_prefill, k, n) == cnt
+                        for k, n, cnt in shapes.values()),
+                f"{arch} prefill launches {c_pf} {rows_by}")
+        # the prefill bit for bit the table substrate's (zamba at a cut depth
+        # that keeps one shared block)
+        cut_layers = REC_IDENTITY_LAYERS.get(arch, cfg.n_layers)
+        if cut_layers == cfg.n_layers:
+            cut_bundle, cut = bundle, params
+        else:
+            cut_bundle = reg.build_bundle(dataclasses.replace(cfg, n_layers=cut_layers))
+            cut = zamba.Zamba(params.embed, list(params.mamba[:cut_layers]),
+                              params.shared)
+            require(zamba._shared_positions(cut_bundle.cfg) == [cut_layers - 1],
+                    f"{arch} cut keeps one shared block")
+        pk, c_pk, _ = count_launches(
+            counters, lambda: with_plan(cut_bundle, kern).prefill(cut, {"tokens": toks}))
+        pt, pf_table_ms = timed_once(
+            lambda: with_plan(cut_bundle, table).prefill(cut, {"tokens": toks}))
+        pf_same = bool(torch.isfinite(pk).all()) and same_bits(pk, pt)
+        require(pf_same and c_pk["closed_form_rows"] > 0
+                and sum(c_pk.values()) == c_pk["closed_form_rows"],
+                f"{arch} prefill vs {table}: launches {c_pk}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        records[arch] = {"workers_2": r2, "workers_1": r1, "prefill_ms": pf_ms}
+        emit("recurrent_serving_path", arch=arch, family=cfg.family,
+             widths={k: getattr(cfg, k) for k in (
+                 "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab",
+                 "ssm_state", "conv_width", "shared_attn_every")},
+             layers=cfg.n_layers,
+             params=sum(t.numel() for t in params.parameters()),
+             param_count=cfg.param_count(), init_s=init_s, substrate=kern,
+             batch=LM_BATCH, requests=LM_REQUESTS, prompt_tokens=LM_PROMPT,
+             max_tokens=LM_PROMPT, workers_2=r2, workers_1=r1,
+             launches=c2, launches_by_shape=by2, launches_workers_1=c1,
+             launches_per_step={"decode": per_step,
+                                "by_kn": {site: v[2] for site, v in shapes.items()}},
+             first_wave_identical=same_wave,
+             decode_step={"bit_identical_to": table, "bit_identical": step_same,
+                          "state_tensors": len(la), "launches": c_step,
+                          "table_substrate_ms": table_step_ms},
+             prefill={"entry_point": "bundle.prefill", "tokens": list(REC_PREFILL),
+                      "device_events_ms": pf_ms, "first_call_ms": pf_first_ms,
+                      "launches": c_pf, "launches_by_shape": by_pf},
+             prefill_identity={"reduced": {"n_layers": [cut_layers, cfg.n_layers]},
+                               "tokens": list(REC_PREFILL),
+                               "bit_identical_to": table,
+                               "bit_identical": pf_same, "launches": c_pk,
+                               "table_substrate_ms": pf_table_ms},
+             peak_memory_gb=peak, card=card)
+        for (design, site), r in shape_rows.items():
+            name = f"closed_form_matmul[{design},{site},M={r['m']},{arch}]"
+            by = (by2 if design == "decode" else by_pf).get(f"closed_form_{design}", {})
+            b_ms, b_by = bound_ms(*r["work"], r["rate"])
+            rows.append({"name": name, "route": "cuda",
+                         "source": "src/repro_torch/csrc/approx_matmul.cu",
+                         "replaces": "src/repro/kernels/approx_matmul/kernel.py:59",
+                         "launches": at(by, r["m"], r["k"], r["n"]),
+                         "max_abs_err": r["err"], "ms": r["ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None,
+                         "shape": [1, r["m"], r["k"], r["n"]], "mult": "proposed@8",
+                         "design": design,
+                         "launches_on": "recurrent_serving_path" + (
+                             " (2 workers)" if design == "decode"
+                             else " (bundle.prefill)"),
+                         "entry_point": "ServingEngine.generate"
+                         if design == "decode" else "bundle.prefill",
+                         "launches_per_step_at_shape": shapes[site][2]})
+            work[name] = r["work"]
+        del params, bundle, cut, a, b, a_st, b_st, pf, pk, pt
+        free_card()
     return rows, work
 
 
@@ -2570,6 +2824,7 @@ def main() -> int:
     kernels += lm_rows
     tool_shapes = tools_phases(dev, card, tiles, out_dir)
     family_rows, family_work = family_phases(dev, card)
+    rec_rows, rec_work = recurrent_phases(dev, card)
 
     def at_kn(by_shape: dict, k: int, n: int) -> dict:
         """The counted launches ("BxMxKxN" -> n) whose K and N are k and n."""
@@ -2590,7 +2845,7 @@ def main() -> int:
         if row["name"].startswith("closed_form_matmul[rows,"):
             row["launches_autotune_lm_path"] = at_kn(
                 tool_shapes["autotune_lm_path"]["closed_form_rows"], *row["shape"][2:])
-    kernels += family_rows
+    kernels += family_rows + rec_rows
     # every row exact; launched on its path, except the tile designs at the
     # decode step's M = 8, which the served path must not launch at all
     require(all(k["max_abs_err"] == 0 and (k["launches"] == 0 if k.get("off_path")
@@ -2605,7 +2860,8 @@ def main() -> int:
             "closed_form_matmul[ring]": (mr_bytes, mr_ops),
             "closed_form_matmul[ring,narrow]": (mr_bytes, mr_ops),
             "lut_matmul": (lm_bytes, lm_ops), "lut_matmul[narrow]": (lm_bytes, lm_ops),
-            "approx_mul": (am_bytes, am_ops), **lm_work, **family_work}
+            "approx_mul": (am_bytes, am_ops), **lm_work, **family_work,
+            **rec_work}
     emit("kernel_times", card=card, int32_peak_ops_per_s=INT32_OPS_PER_S,
          int8_tensor_core_peak_ops_per_s=INT8_TC_OPS_PER_S,
          hbm_bytes_per_s=HBM_BYTES_PER_S, tf32={

@@ -1,5 +1,6 @@
-"""Scalar tap-loop oracle for the fused conv kernel (counterpart of
-``repro.kernels.fused_conv.ref``)."""
+"""Scalar tap-loop oracles for the fused conv kernel (counterpart of
+``repro.kernels.fused_conv.ref``): the batched conv of any multiplier and
+the single-image Laplacian conv through the paper's multiplier."""
 from __future__ import annotations
 
 import torch
@@ -14,3 +15,9 @@ def fused_conv_ref(imgs, kernel, mult_key: str = "proposed") -> torch.Tensor:
     imgs = torch.as_tensor(imgs).to(torch.int32)
     kernel = torch.as_tensor(kernel).to(torch.int32)
     return torch.stack([conv.conv2d_int(im, kernel, fn) for im in imgs])
+
+
+def laplacian_conv_ref(img_i32) -> torch.Tensor:
+    """'same' Laplacian conv of signed-domain pixels via the core model."""
+    return conv.conv2d_int(torch.as_tensor(img_i32).to(torch.int32),
+                           conv.LAPLACIAN, mult.approx_multiply)

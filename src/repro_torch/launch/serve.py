@@ -1,8 +1,9 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
-Counterpart of ``repro.launch.serve`` for every ported family (lm with its
-MoE configs, vlm, encdec): builds the config (reduced with the
-``--n-layers`` ... ``--n-experts`` ... ``--dot-plan`` overrides), draws
+Counterpart of ``repro.launch.serve`` for every family (lm with its MoE
+configs, vlm, encdec, and the recurrent xlstm and zamba): builds the config
+(reduced with the ``--n-layers`` ... ``--n-experts`` ... ``--dot-plan``
+overrides), draws
 random parameters from a seeded ``torch.Generator`` on ``--device``
 (``cuda`` unless ``--device cpu`` is given; no card raises), and serves
 synthetic requests through :class:`~repro_torch.serving.ServingEngine`:
@@ -11,6 +12,7 @@ synthetic requests through :class:`~repro_torch.serving.ServingEngine`:
         --requests 16 --batch 8 --workers 2
     python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \\
         --n-layers 2
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --batch 8
     python -m repro_torch.launch.serve --arch minitron-8b --device cpu \\
         --n-layers 2 --d-model 32 --d-ff 64 --vocab 64 --n-heads 2 \\
         --n-kv-heads 2 --requests 3 --plan plan.json
@@ -50,8 +52,8 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-tokens", type=int, default=8)
     ap.add_argument("--workers", type=int, default=1,
-                    help="concurrent decode loops (each with its own KV "
-                         "caches and CUDA stream; requests split round-robin)")
+                    help="concurrent decode loops (each with its own decode "
+                         "state and CUDA stream; requests split round-robin)")
     ap.add_argument("--plan", default=None, metavar="PATH",
                     help="substrate plan: a plan JSON file or a plan-bundle "
                          "directory (see docs/plans.md). Serves the model "

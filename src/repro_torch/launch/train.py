@@ -18,7 +18,8 @@ come from a seeded ``torch.Generator`` on ``--device``: ``cuda`` unless
 ``--mesh`` takes only ``none``: the device meshes come with the partitioned
 paths (ROADMAP.md queue 1 item 11). An MoE config raises: ``repro`` trains
 it with Adafactor acting on its stacked unit tensors, which the port does
-not have yet (queue 1 item 7).
+not have yet (queue 1 item 7b). The recurrent families (xlstm, zamba) raise
+too: their training, the backward through the scans, is queue 1 item 7c.
 """
 from __future__ import annotations
 
@@ -133,8 +134,13 @@ def main(argv=None):
         # the layers); AdamW would be a different result
         raise NotImplementedError(
             f"{cfg.name}: MoE training needs Adafactor on repro's stacked "
-            "unit tensors, not ported yet (ROADMAP.md, queue 1 item 7: MoE "
+            "unit tensors, not ported yet (ROADMAP.md, queue 1 item 7b: MoE "
             "training)")
+    if cfg.family in ("xlstm", "zamba"):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.family} training (the backward through its "
+            "scans) is not ported yet (ROADMAP.md, queue 1 item 7c: "
+            "recurrent-family training); the family serves")
     bundle = reg.build_bundle(cfg)
     optimizer = adamw()
     qat_policy = (QATPolicy(forward=args.qat_forward,

@@ -61,13 +61,13 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """``repro.models.common.ModelConfig`` for the attention families (lm
-    with its MoE layers, vlm, encdec). The SSM fields (``ssm_state``,
-    ``conv_width``, ``shared_attn_every``) wait for the xlstm and zamba
-    families (ROADMAP.md queue 1 item 7).
+    """``repro.models.common.ModelConfig`` for every family: the attention
+    families (lm with its MoE layers, vlm, encdec) and the recurrent ones
+    (xlstm, zamba; the SSM fields ``ssm_state``, ``conv_width``,
+    ``shared_attn_every``).
     """
     name: str
-    family: str                    # lm | vlm | encdec (registry.build_bundle)
+    family: str                    # lm | encdec | vlm | xlstm | zamba
     n_layers: int
     d_model: int
     n_heads: int
@@ -86,6 +86,10 @@ class ModelConfig:
     local_window: int = 0          # sliding-window size for local layers
     local_global_ratio: int = 0    # e.g. 5 -> 5 local : 1 global
     rope_theta: float = 1e4
+    # SSM / recurrent
+    ssm_state: int = 0
+    conv_width: int = 4
+    shared_attn_every: int = 0     # zamba: shared attention block period
     # modality frontend stubs
     n_frames: int = 0              # whisper encoder frames (post-conv stub)
     n_patches: int = 0             # paligemma image patches
@@ -118,6 +122,13 @@ class ModelConfig:
             + self.n_heads * self.dh * d
         dense_ffn = 3 * d * self.d_ff
         emb = v * d
+        if self.family == "xlstm":
+            per_layer = 8 * d * d // 2  # m/sLSTM projections (approx.)
+            return self.n_layers * per_layer + 2 * emb
+        if self.family == "zamba":
+            d_in = 2 * d
+            mamba = d * (2 * d_in + 2 * self.ssm_state + 32) + d_in * d
+            return self.n_layers * mamba + (attn + dense_ffn) + emb
         n_moe = self.n_layers // self.moe_interleave if self.n_experts else 0
         n_dense = self.n_layers - n_moe
         moe_ffn = n_moe * (self.n_experts * 3 * d * self.d_ff_expert

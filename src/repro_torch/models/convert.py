@@ -11,7 +11,11 @@ follows. An MoE layer's ``{"moe": {"router", "wi", "wg", "wo", "ln",
 "shared"}}`` holds bare arrays (stacked: ``(n_units, E, d, f)``), the vlm
 adds a top-level ``patch_proj``. :func:`encdec_params_from_jax` does the
 same for ``repro.models.encdec``'s ``{"embed", "enc", "dec"}``, whose
-``enc`` and ``dec`` are stacked over layers. Dtypes are kept (numpy's
+``enc`` and ``dec`` are stacked over layers; :func:`xlstm_params_from_jax`
+and :func:`zamba_params_from_jax` for the recurrent families' trees,
+``{"embed", "layers": [...]}`` and ``{"embed", "mamba": [...], "shared":
+{"attn", "ffn"}}``, whose layers are Python lists (not stacked). Dtypes are
+kept (numpy's
 ``bfloat16`` from ``ml_dtypes`` is read bit for bit).
 
 The other direction goes through a :class:`TreeLayout`: it maps the port's
@@ -36,7 +40,7 @@ from torch import nn
 
 from repro_torch.checkpoint.ckpt import tree_leaves, tree_map
 from repro_torch.models import common as cm
-from repro_torch.models import encdec, lm
+from repro_torch.models import encdec, lm, xlstm, zamba
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -131,6 +135,44 @@ def encdec_params_from_jax(cfg: cm.ModelConfig, tree: Dict[str, Any],
     dec = [encdec.DecLayer(_attn(d["self"], device, r), _attn(d["cross"], device, r),
                            _ffn(d["ffn"], device, r)) for r in range(cfg.n_layers)]
     return encdec.EncDec(_embed(tree["embed"], device), enc, dec)
+
+
+def xlstm_params_from_jax(cfg: cm.ModelConfig, tree: Dict[str, Any],
+                          device="cpu") -> xlstm.XLSTM:
+    """``repro``'s ``xlstm.init_params(cfg, key)`` tree ``{"embed",
+    "layers": [mLSTM dict, sLSTM dict, ...]}``, as numpy arrays, → the
+    port's :class:`~repro_torch.models.xlstm.XLSTM` on ``device``."""
+    if len(tree["layers"]) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: the tree holds {len(tree['layers'])} "
+                         f"layers, the config {cfg.n_layers}")
+    layers = []
+    for i, p in enumerate(tree["layers"]):
+        cls, leaves = ((xlstm.MLSTM, xlstm.MLSTM_LEAVES) if xlstm._kind(i) == "m"
+                       else (xlstm.SLSTM, xlstm.SLSTM_LEAVES))
+        if set(p) != {"ln", *leaves}:
+            raise ValueError(f"{cfg.name}: layer {i} holds {sorted(p)}, a "
+                             f"{cls.__name__} {sorted({'ln', *leaves})}")
+        layers.append(cls(_tensor(p["ln"], device),
+                          *(_dense(p[k], device) for k in leaves)))
+    return xlstm.XLSTM(_embed(tree["embed"], device), layers)
+
+
+def zamba_params_from_jax(cfg: cm.ModelConfig, tree: Dict[str, Any],
+                          device="cpu") -> zamba.Zamba:
+    """``repro``'s ``zamba.init_params(cfg, key)`` tree ``{"embed", "mamba":
+    [layer dicts], "shared": {"attn", "ffn"}}``, as numpy arrays, → the
+    port's :class:`~repro_torch.models.zamba.Zamba` on ``device``."""
+    if len(tree["mamba"]) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: the tree holds {len(tree['mamba'])} "
+                         f"mamba layers, the config {cfg.n_layers}")
+    layers = [zamba.Mamba(_tensor(p["ln"], device), _dense(p["in_proj"], device),
+                          *(_tensor(p[k], device)
+                            for k in ("conv_w", "a_log", "d_skip", "dt_bias")),
+                          _dense(p["out_proj"], device))
+              for p in tree["mamba"]]
+    shared = zamba.Shared(_attn(tree["shared"]["attn"], device),
+                          _ffn(tree["shared"]["ffn"], device))
+    return zamba.Zamba(_embed(tree["embed"], device), layers, shared)
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +321,39 @@ def encdec_layout(cfg: cm.ModelConfig) -> TreeLayout:
                            "dec": cfg.n_layers})
 
 
+class _ListLayout(TreeLayout):
+    """``<part>.{i}.*`` → ``<part>[i]`` of a Python list, for each part of
+    ``lists`` (its name → its length); other names one segment per level."""
+
+    def __init__(self, lists: Dict[str, int]):
+        self.lists = lists
+
+    def _skeleton(self) -> dict:
+        return {head: [{} for _ in range(n)] for head, n in self.lists.items()}
+
+    def _split(self, name):
+        head, _, rest = name.partition(".")
+        if head not in self.lists:
+            return super()._split(name)
+        idx, _, rest = rest.partition(".")
+        i = int(idx)
+        if not 0 <= i < self.lists[head]:
+            raise ValueError(f"{name}: layer {i} of {self.lists[head]}")
+        return (head, i) + tuple(rest.split(".")), None
+
+
+def xlstm_layout(cfg: cm.ModelConfig) -> TreeLayout:
+    """The layout of ``repro``'s ``xlstm.init_params(cfg, key)`` tree: a
+    list of ``layers``."""
+    return _ListLayout({"layers": cfg.n_layers})
+
+
+def zamba_layout(cfg: cm.ModelConfig) -> TreeLayout:
+    """The layout of ``repro``'s ``zamba.init_params(cfg, key)`` tree: a
+    list of ``mamba`` layers and the ``shared`` block's dicts."""
+    return _ListLayout({"mamba": cfg.n_layers})
+
+
 def named_leaves(params) -> Dict[str, torch.Tensor]:
     """A module's parameters by name (``named_parameters``), or a flat dict
     of tensors as it is: the leaves an optimizer updates."""
@@ -322,6 +397,18 @@ def encdec_params_to_jax(cfg: cm.ModelConfig,
                          params: encdec.EncDec) -> Dict[str, Any]:
     """The inverse of :func:`encdec_params_from_jax`."""
     return tree_map(encdec_layout(cfg).to_tree(named_leaves(params)), _numpy)
+
+
+def xlstm_params_to_jax(cfg: cm.ModelConfig,
+                        params: xlstm.XLSTM) -> Dict[str, Any]:
+    """The inverse of :func:`xlstm_params_from_jax`."""
+    return tree_map(xlstm_layout(cfg).to_tree(named_leaves(params)), _numpy)
+
+
+def zamba_params_to_jax(cfg: cm.ModelConfig,
+                        params: zamba.Zamba) -> Dict[str, Any]:
+    """The inverse of :func:`zamba_params_from_jax`."""
+    return tree_map(zamba_layout(cfg).to_tree(named_leaves(params)), _numpy)
 
 
 def adamw_state_to_jax(cfg: cm.ModelConfig, state: Dict[str, Any]) -> Dict[str, Any]:

@@ -1,13 +1,14 @@
 """Architecture registry: config → init / loss / prefill / decode builders.
 
-Counterpart of ``repro.models.registry`` for the attention families: every
-registered architecture (:mod:`repro_torch.configs`) resolves here by name,
-and :func:`build_bundle` binds a config to its family's model functions
-(``lm`` and ``vlm`` through :mod:`~repro_torch.models.lm`, ``encdec``
-through :mod:`~repro_torch.models.encdec`) and its substrate plan. The
-recurrent families (xlstm, zamba) raise until their slice is ported
-(ROADMAP.md queue 1 item 7); the dry-run's ``SHAPES`` / ``input_specs`` /
-``decode_state_specs`` / ``param_specs`` (item 12) are not ported.
+Counterpart of ``repro.models.registry``: every registered architecture
+(:mod:`repro_torch.configs`) resolves here by name, and :func:`build_bundle`
+binds a config to its family's model functions (``lm`` and ``vlm`` through
+:mod:`~repro_torch.models.lm`, ``encdec`` through
+:mod:`~repro_torch.models.encdec`, ``xlstm`` and ``zamba`` through
+:mod:`~repro_torch.models.xlstm` and :mod:`~repro_torch.models.zamba`) and
+its substrate plan. The dry-run's ``SHAPES`` / ``input_specs`` /
+``decode_state_specs`` / ``param_specs`` (ROADMAP.md queue 1 item 12) are
+not ported.
 ``bundle.layout`` maps the parameters' names to ``repro``'s tree, the
 layout checkpoints and plan bundles store.
 """
@@ -19,7 +20,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.models import common as cm
-from repro_torch.models import convert, encdec, lm
+from repro_torch.models import convert, encdec, lm, xlstm, zamba
 from repro_torch.nn import substrate as psub
 
 
@@ -75,6 +76,36 @@ def _encdec_bundle(cfg: cm.ModelConfig) -> ModelBundle:
     )
 
 
+def _xlstm_bundle(cfg: cm.ModelConfig) -> ModelBundle:
+    """xlstm: the decode state is per-layer recurrent state; ``max_len`` is
+    ignored, as in ``repro``."""
+    return ModelBundle(
+        cfg=cfg,
+        init_params=lambda gen, device=None: xlstm.init_params(cfg, gen, device),
+        loss_fn=lambda p, b: xlstm.loss_fn(cfg, p, b),
+        prefill=lambda p, b: xlstm.prefill(cfg, p, b["tokens"]),
+        decode_step=lambda p, s, b: xlstm.decode_step(cfg, p, s, b["token"],
+                                                      b["cache_len"]),
+        init_decode_state=lambda batch, max_len, device=None:
+            xlstm.init_decode_state(cfg, batch, device),
+        layout=convert.xlstm_layout(cfg),
+    )
+
+
+def _zamba_bundle(cfg: cm.ModelConfig) -> ModelBundle:
+    return ModelBundle(
+        cfg=cfg,
+        init_params=lambda gen, device=None: zamba.init_params(cfg, gen, device),
+        loss_fn=lambda p, b: zamba.loss_fn(cfg, p, b),
+        prefill=lambda p, b: zamba.prefill(cfg, p, b["tokens"]),
+        decode_step=lambda p, s, b: zamba.decode_step(cfg, p, s, b["token"],
+                                                      b["cache_len"]),
+        init_decode_state=lambda batch, max_len, device=None:
+            zamba.init_decode_state(cfg, batch, max_len, device),
+        layout=convert.zamba_layout(cfg),
+    )
+
+
 def _with_substrate(builder: Callable) -> Callable:
     """Wrap a family builder so the config's substrate plan resolves exactly
     once at bundle build (``get_substrate`` is lru-cached, so layers
@@ -96,6 +127,8 @@ _BUILDERS = {
     "lm": _with_substrate(_lm_bundle),
     "vlm": _with_substrate(_lm_bundle),
     "encdec": _with_substrate(_encdec_bundle),
+    "xlstm": _with_substrate(_xlstm_bundle),
+    "zamba": _with_substrate(_zamba_bundle),
 }
 
 
@@ -103,9 +136,8 @@ def build_bundle(cfg: cm.ModelConfig) -> ModelBundle:
     """Build a bundle from an explicit config (registered or reduced)."""
     builder = _BUILDERS.get(cfg.family)
     if builder is None:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            f"queue 1 item 7); ported: {', '.join(sorted(_BUILDERS))}")
+        raise KeyError(f"unknown model family {cfg.family!r}; known: "
+                       f"{', '.join(sorted(_BUILDERS))}")
     return builder(cfg)
 
 

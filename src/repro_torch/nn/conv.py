@@ -267,3 +267,17 @@ def psnr(ref, test, peak: float = 255.0) -> float:
     if float(mse) == 0:
         return float("inf")
     return float(10.0 * torch.log10(peak ** 2 / mse))
+
+
+def conv2d_float(x: Tensor, kernel) -> Tensor:
+    """Float reference conv ('same', zero pad) used by NN-layer tests: the
+    taps summed in ``repro``'s order, each ``kernel[di, dj] * window``."""
+    kernel = torch.as_tensor(kernel, device=x.device)
+    kh, kw = kernel.shape
+    xp = F.pad(x, (kw // 2, kw // 2, kh // 2, kh // 2))
+    h, w = x.shape
+    out = torch.zeros_like(x)
+    for di in range(kh):
+        for dj in range(kw):
+            out = out + kernel[di, dj] * xp[di:di + h, dj:dj + w]
+    return out

@@ -4,24 +4,29 @@ Counterpart of ``repro.serving.engine``. A single-process continuous-batching
 core: requests are padded into a fixed batch, prefilled token by token
 through ``decode_step`` (uniform code path — no separate prefill graph to
 keep per-request state simple), then decoded until EOS/max_tokens. Per-slot
-state lives in the model's KV caches; the queue/slot-refill bookkeeping is
+state lives in the model's decode state, which the engine treats as opaque
+(the bundle's ``init_decode_state`` makes it, ``decode_step`` returns the
+next); the queue/slot-refill bookkeeping is
 :class:`~repro_torch.serving.batcher.SlotScheduler`, and per-step occupancy
 plus per-request latency land in a
 :class:`~repro_torch.serving.metrics.ServingMetrics`. Sampling runs in numpy
 on the host, on the step's float32 logits.
 
-Every ported family serves: ``lm`` (its MoE configs too), ``vlm`` (text
-tokens only: no patch prefix reaches ``decode_step``) and ``encdec``, whose
-decode state carries ``enc_out``. As in ``repro``, the engine never runs
-the encoder: ``enc_out`` holds the zeros of the bundle's
-``init_decode_state``, and every decode step cross-attends to them.
+Every family serves: ``lm`` (its MoE configs too) with per-layer KV
+caches, ``vlm`` (text tokens only: no patch prefix reaches
+``decode_step``), ``encdec``, whose decode state carries ``enc_out``,
+``xlstm`` (a list of per-layer recurrent states) and ``zamba`` (a dict of
+lists of per-layer mamba states and the shared block's KV caches). As in
+``repro``, the engine never runs the encoder: ``enc_out`` holds the zeros of
+the bundle's ``init_decode_state``, and every decode step cross-attends to
+them.
 
 The engine runs on ``"cuda"`` unless the caller passes ``device="cpu"``
 (the plain versions of the kernels), and raises when no card is present;
 the parameters must lie on that device.
 
 ``generate(requests, workers=N)`` runs N concurrent decode loops in threads,
-each with its *own* KV caches, slot pool, sampling RNG
+each with its *own* decode state, slot pool, sampling RNG
 (``default_rng((seed, i))``) and, on the card, its own CUDA stream, all
 sharing the one parameter set and the one metrics instance
 (``serving_worker_*`` families labeled ``lm-0..N-1``). Requests split
@@ -32,7 +37,8 @@ exactly when its request is seated in the same slot beside the same
 requests — the first wave of one loop at ``workers=1`` and of the same loop
 at ``workers=N`` given the same requests in the same order. A request
 seated into a *refilled* slot also attends over the previous occupant's
-cache prefix (the shared ``cache_len``), as in ``repro``.
+cache prefix (the shared ``cache_len``), and in the recurrent families
+starts from the previous occupant's recurrent state, as in ``repro``.
 
 The engine accepts a ``substrate`` override — a
 :mod:`repro_torch.nn.substrate` spec, a registry instance, or a per-site
@@ -96,8 +102,10 @@ class ServingEngine:
                  max_len: int = 256, seed: int = 0, substrate=None,
                  metrics: Optional[ServingMetrics] = None, device=None):
         """bundle / params: a :class:`~repro_torch.models.registry.ModelBundle`
-        and its parameters (an :class:`~repro_torch.models.lm.LM` or
-        :class:`~repro_torch.models.encdec.EncDec`), on ``device``.
+        and its parameters (an :class:`~repro_torch.models.lm.LM`,
+        :class:`~repro_torch.models.encdec.EncDec`,
+        :class:`~repro_torch.models.xlstm.XLSTM` or
+        :class:`~repro_torch.models.zamba.Zamba`), on ``device``.
         substrate: optional override for the bundle's substrate assignment —
         a spec string (e.g. ``"int8"``, ``"approx_cuda:proposed@8"``), a
         registry substrate instance, or a
@@ -173,7 +181,7 @@ class ServingEngine:
         """Serve a list of requests with continuous slot refill.
 
         ``workers > 1`` runs that many concurrent decode loops, each with
-        its own KV caches, ``batch_size`` slots and CUDA stream (requests
+        its own decode state, ``batch_size`` slots and CUDA stream (requests
         split round-robin). See the module docstring for which outputs are
         identical at any worker count.
         """
@@ -220,7 +228,7 @@ class ServingEngine:
         # is handled by feeding pad tokens for idle slots (logits ignored).
         cache_len = 0
         served: set = set()                           # id(r) with metrics
-        state = self._init_state()                    # this loop's KV caches
+        state = self._init_state()                    # this loop's decode state
         cursor = np.zeros(self.batch, np.int64)       # prompt cursor
         while sched.busy and cache_len < self.max_len - 1:
             for i, r in sched.refill():

@@ -1142,3 +1142,64 @@ def test_moe_block_on_the_card_equals_the_cpu(dev, spec):
         want = cm.moe_block(cfg, p, x)
         got = cm.moe_block(cfg, p.to(dev), x.to(dev))
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+# the recurrent families: their dense shapes and a decode step
+# ---------------------------------------------------------------------------
+
+#: the (K, N) pairs the recurrent families add: xlstm-125m's projections and
+#: its mLSTM gates (N = 4), zamba2-1.2b's in_proj (N = 8352, no multiple of
+#: the rows design's 128-wide tile), out_proj and its shared block's FFN
+RECURRENT_SHAPES = [(768, 768), (768, 4), (2048, 8352), (4096, 2048),
+                    (2048, 8192), (8192, 2048)]
+
+
+@pytest.mark.parametrize("m", [8, 48, 512])
+@pytest.mark.parametrize("kn", RECURRENT_SHAPES,
+                         ids=[f"{k}x{n}" for k, n in RECURRENT_SHAPES])
+def test_decode_and_rows_designs_at_the_recurrent_shapes(dev, kn, m):
+    """``approx_matmul`` (proposed@8) at each new (K, N): M = 8 on the decode
+    design (N = 4: its 32-bit weight loads), M = 48 and 512 on the rows
+    design (N = 4: its byte-load path; N = 8352: a ragged last tile), each
+    equal to its plain twin."""
+    k, n = kn
+    w = _codes((1, k, n)).to(dev)
+    a = _codes((1, m, k)).to(dev)
+    if m <= blocking.DECODE_MAX_M:
+        got = _launched(closed_form_matmul.decode_launches,
+                        lambda: closed_form_matmul(a, w, "proposed@8"))
+        want = blocking.decode_matmul_plain(
+            a, w, am.closed_form_table16("proposed@8", dev), 8)
+    else:
+        got = _launched(closed_form_matmul.rows_launches,
+                        lambda: closed_form_matmul(a, w, "proposed@8"))
+        want = blocking.rows_matmul_plain(a, w, am.rows_decomposition("proposed@8"), 8)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-1.2b"])
+def test_recurrent_step_and_prefill_on_the_card_equal_the_table(dev, arch):
+    """A reduced model (d_model 64; zamba: 6 layers, the shared block after
+    the sixth) on the card: a decode step (logits and every state tensor)
+    and a 2 × 16 prefill under ``approx_cuda:proposed@8`` bit for bit the
+    same on ``approx_lut:proposed@8``."""
+    import dataclasses
+
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.models import registry as reg
+
+    small = dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab=512)
+    cfg = reg.get_config(arch, n_layers=6 if arch.startswith("zamba") else 2,
+                         ssm_state=8 if arch.startswith("zamba") else 0, **small)
+    params = reg.build_bundle(cfg).init_params(torch.Generator(dev).manual_seed(0), dev)
+    tok = torch.from_numpy(RNG.integers(0, 512, (4, 16))).to(dev)
+
+    def run(spec):
+        b = reg.build_bundle(dataclasses.replace(cfg, dot_plan=spec))
+        st = b.init_decode_state(4, 8, dev)
+        logits, st = b.decode_step(params, st, {"token": tok[:, :1], "cache_len": 0})
+        return [logits, b.prefill(params, {"tokens": tok})] + [
+            t for _, t in tree_leaves(st)]
+
+    for got, want in zip(run("approx_cuda:proposed@8"), run("approx_lut:proposed@8")):
+        assert got.dtype == want.dtype and torch.equal(got, want)

@@ -36,6 +36,19 @@ def _t(x):
     return torch.from_numpy(np.asarray(x))
 
 
+@pytest.mark.parametrize("kern", [jconv.LAPLACIAN.astype(np.float32),
+                                  np.arange(6, dtype=np.float32).reshape(2, 3) / 7,
+                                  np.linspace(-1, 1, 25, dtype=np.float32).reshape(5, 5)])
+def test_conv2d_float_matches_repro(kern):
+    """The float 'same' oracle, odd, even and 5×5 kernels: the same taps in
+    the same order, bit for bit."""
+    x = np.random.default_rng(5).normal(size=(11, 14)).astype(np.float32)
+    want = np.asarray(jconv.conv2d_float(x, kern))
+    got = conv.conv2d_float(_t(x), _t(kern))
+    assert got.dtype == torch.float32 and got.shape == (11, 14)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_procedural_images_identical():
     np.testing.assert_array_equal(timages.image_batch(3, 20, 24, seed=4),
                                   jimages.image_batch(3, 20, 24, seed=4))

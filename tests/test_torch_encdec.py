@@ -15,7 +15,8 @@ loss case, five (31, 34, 37, 42, 43) put a decoder activation under
 a few ulps apart, pick another int8 code and the logits differ by up to
 0.09; ``exact`` and ``approx_cuda`` agreed at every draw. Traced at draw
 31: fed the same float input, each decoder layer agrees to 1.1e-6. The
-case takes draw 32. The per-site plan reaches the encoder, the decoder's
+case takes draw 32; ``tests/test_torch_blockwise.py`` holds draws 31–44
+block by block. The per-site plan reaches the encoder, the decoder's
 self and cross attention and its cross K/V projections at ``repro``'s site
 names.
 """

@@ -13,11 +13,12 @@ import torch
 from repro.core import lut as jlut
 from repro.core import multiplier as jm
 from repro.kernels.fused_conv.ops import fused_conv2d as j_fused
+from repro.kernels.fused_conv.ref import laplacian_conv_ref as j_laplacian_ref
 from repro.nn import conv as jconv
 from repro.nn import substrate as jsub
 from repro_torch.kernels.fused_conv import ops as fc_ops
 from repro_torch.kernels.fused_conv.ops import fused_conv2d, fused_conv2d_plain
-from repro_torch.kernels.fused_conv.ref import fused_conv_ref
+from repro_torch.kernels.fused_conv.ref import fused_conv_ref, laplacian_conv_ref
 from repro_torch.nn import conv
 from repro_torch.nn import substrate as sub
 
@@ -79,6 +80,19 @@ def test_fused_conv_ragged_shapes(shape):
         fused_conv2d(_t(imgs), conv.LAPLACIAN, "proposed").numpy(), want)
     np.testing.assert_array_equal(
         fused_conv_ref(_t(imgs), conv.LAPLACIAN, "proposed").numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (9, 13)])
+def test_laplacian_conv_ref_matches_repro(shape):
+    """The single-image Laplacian oracle through the paper's multiplier, the
+    zero border multiplied: ``repro``'s integers, and the batched oracle's."""
+    img = _img(*shape)
+    want = np.asarray(j_laplacian_ref(img))
+    got = laplacian_conv_ref(_t(img))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        fused_conv_ref(_t(img)[None], conv.LAPLACIAN, "proposed")[0].numpy(), want)
 
 
 @pytest.mark.parametrize("kern", [np.ones((1, 1), np.int32),

@@ -1,5 +1,5 @@
-"""The port's LM model stack (lm with its MoE configs, vlm) against
-``repro``, on the CPU.
+"""The port's LM model stack (lm with its MoE configs, vlm) and every
+registered config against ``repro``, on the CPU.
 
 Sizes are ``tests/test_models_smoke.py``'s ``reduced`` configs at float32.
 ``repro`` draws the parameters from ``PRNGKey(0)`` and
@@ -36,19 +36,17 @@ from tests.test_models_smoke import reduced
 
 PORTED = ["edge-detect", "gemma3-27b", "internlm2-20b", "kimi-k2-1t-a32b",
           "llama4-maverick-400b-a17b", "minitron-8b", "paligemma-3b",
-          "qwen1.5-32b", "whisper-large-v3"]
+          "qwen1.5-32b", "whisper-large-v3", "xlstm-125m", "zamba2-1.2b"]
 LOGIT_ATOL = 1e-4
 PARAMS_MINITRON = 8_833_204_224
 RNG = np.random.default_rng(7)
 
 
 #: ``repro`` fields the port leaves out: XLA's cost-analysis switch
-#: (``cost_unroll``, with the roofline tools, ROADMAP.md queue 1 item 12),
-#: the deprecated ``dot_mode`` shim (its spec lands in ``dot_plan``), and the
-#: fields of the SSM families (xlstm, zamba; item 7). The ported configs
-#: hold ``repro``'s defaults there.
-DROPPED = {"cost_unroll", "dot_mode", "ssm_state", "conv_width",
-           "shared_attn_every"}
+#: (``cost_unroll``, with the roofline tools, ROADMAP.md queue 1 item 12)
+#: and the deprecated ``dot_mode`` shim (its spec lands in ``dot_plan``).
+#: The ported configs hold ``repro``'s defaults there.
+DROPPED = {"cost_unroll", "dot_mode"}
 
 
 def port_cfg(jcfg) -> cm.ModelConfig:
@@ -98,17 +96,15 @@ def test_param_counts_match_repro(arch):
     assert cfg.active_param_count() == jcfg.active_param_count()
 
 
+def test_build_bundle_raises_for_a_family_repro_lacks():
+    cfg = dataclasses.replace(reg.get_config("minitron-8b"), family="rwkv")
+    with pytest.raises(KeyError, match="family 'rwkv'"):
+        reg.build_bundle(cfg)
+
+
 def test_minitron_param_count_and_bf16_size():
     cfg = reg.get_config("minitron-8b")
     assert cfg.param_count() == PARAMS_MINITRON  # 2 bytes each: 17.7 GB
-
-
-@pytest.mark.parametrize("family", ["xlstm", "zamba"])
-def test_unported_configs_raise(family):
-    cfg = reg.get_config("minitron-8b")
-    with pytest.raises(NotImplementedError,
-                       match=f"family '{family}'.*queue 1 item 7"):
-        reg.build_bundle(dataclasses.replace(cfg, family=family))
 
 
 # ---------------------------------------------------------------------------
@@ -437,7 +433,8 @@ def test_moe_and_vlm_logits_and_loss_match_repro(family_pairs, arch, spec):
     loss under ``int8``, paligemma's prefill under ``approx_cuda``); XLA and
     torch round it 7e-7 apart, one int8 code moves, and the numbers differ
     by up to 0.1. Fed the same float input, each block agrees to 1e-6
-    (``tests/test_torch_moe.py``); every other draw agrees to 2e-6."""
+    (``tests/test_torch_moe.py``); every other draw agrees to 2e-6. Draws
+    20–31 are held block by block in ``tests/test_torch_blockwise_lm.py``."""
     rng = np.random.default_rng(22)
     jcfg, jparams, cfg, params = family_pairs(arch)
     jcfg = dataclasses.replace(jcfg, dot_plan=MODEL_SPECS[spec])
