@@ -123,8 +123,26 @@ recurrent state and cache) equals, bit for bit, the same on
 ``approx_lut:proposed@8``; an 8 × 64 prefill (M = 512) launches only the
 rows design and, at full depth for xlstm and at 6 layers for zamba, equals
 the table substrate's bit for bit; each new (K, N) is checked on the decode
-and rows designs against its plain twin and timed. Every phase prints one
-JSON line; the line before the last lists the kernels with their launches on
+and rows designs against its plain twin and timed.
+
+Then training of the MoE and recurrent families (``train_family_phases``),
+each run of TRAIN_STEPS QAT steps of ``TrainLoop`` at batch 8 × 32 (M = 256:
+the rows designs alone, at the counts each (K, N) requires) held, losses
+and every updated parameter, bit for bit to the same steps on
+``approx_lut``: llama4-maverick at its published widths cut to 4 layers
+(two stacked units of a dense and a top-1 MoE layer) and 16 experts, under
+``approx_cuda:proposed@8`` and under the LM plan, and kimi-k2 cut to 2
+layers and top-8 of 32 experts, with Adafactor on ``repro``'s stacked tree
+(phase ``moe_train_path``; one maverick step traced); a crash → restart at a
+reduced width with 4 experts, bit for bit, its checkpoint's optimizer
+state ``repro``'s Adafactor tree, the launchers' bundle served (phase
+``moe_train_restart``); xlstm-125m and zamba2-1.2b at full depth with AdamW
+(2 × 72 and 2 × 118 launches a step, each layer recomputed in the
+backward), xlstm held to the table substrate at full depth, zamba at 6
+layers (one shared block), one zamba step traced (phase
+``recurrent_train_path``); and the (M, K, N) these phases add, each
+checked against its plain twin and timed. Every phase prints one JSON
+line; the line before the last lists the kernels with their launches on
 the path that runs them (and, beside the rows of their design and shape,
 those of the new phases, counted by shape), their times and least-work
 bounds, and the last line is
@@ -257,6 +275,21 @@ REC_MAX_LEN = 32
 #: shared block (after layer 5): 6 layers of 38 (the plain gathers of a
 #: 38-layer prefill at M = 512 would take minutes)
 REC_IDENTITY_LAYERS = {"zamba2-1.2b": 6}
+#: the MoE and recurrent training phases: TRAIN_STEPS QAT steps of
+#: TRAIN_BATCH tokens (M = 256, the rows designs only). maverick cut to two
+#: units of (dense, MoE) and 16 experts, kimi-k2 to 2 layers and top-8 of
+#: 32 experts: every width published (the cuts keep the peak under the
+#: card's 80 GB: 128 experts of one layer are 64 GB of bf16 parameters and
+#: gradients)
+MOE_TRAIN_CUT = {"n_layers": 4, "n_experts": 16}
+TOPK_TRAIN_CUT = {"n_layers": 2, "n_experts": 32}
+#: the (K, N) of kimi-k2's dense sites (attention at 64 / 8 heads of 112,
+#: the shared expert at d_ff 2048) and their launches per layer-pass
+TOPK_SHAPES = {"attn.wq,wo": (7168, 7168, 2), "attn.wk,wv": (7168, 896, 2),
+               "moe.shared.ffn.wg,wi": (7168, 2048, 2),
+               "moe.shared.ffn.wo": (2048, 7168, 1)}
+#: the MoE crash/restart phase's cut: RESTART_SIZE at two units, 4 experts
+MOE_RESTART_SIZE = {**RESTART_SIZE, "n_layers": 4, "n_experts": 4}
 
 
 def emit(phase: str, **fields) -> None:
@@ -818,7 +851,7 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
     del params, caches, logits, pf_logits
     torch.cuda.empty_cache()
 
-    train = lm_train_phases(dev, card, out_dir, counters, reset, counts, only)
+    train = lm_train_phases(dev, card, out_dir, counters, only)
 
     # rows of the kernels line: each design of each kernel at each LM shape
     # it runs. M = 8 rows count ServingEngine's launches (the main path;
@@ -919,23 +952,16 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
                             b.reshape(-1).contiguous().view(torch.uint8)))
 
 
-def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, reset, counts,
-                    only) -> dict:
+def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, only) -> dict:
     """The training path: minitron-8b at its published widths, depth cut to
     LM_LAYERS, through TrainLoop on the card (phase lm_train_path), then a
     crash and restart at a reduced size with the launchers (phase
     lm_train_restart). Returns the launches of lm_train_path by design."""
     import shutil
 
-    from repro_torch.checkpoint import load_plan_bundle, unflatten_into
-    from repro_torch.data import SyntheticLMStream
-    from repro_torch.launch import serve as launch_serve
-    from repro_torch.launch import train as launch_train
     from repro_torch.models import convert
     from repro_torch.models import registry as reg
-    from repro_torch.nn import plan as plan_mod
     from repro_torch.optim import adamw
-    from repro_torch.train import QATPolicy, TrainLoop, TrainLoopConfig
     from torch.profiler import ProfilerActivity, profile
 
     work_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
@@ -945,42 +971,8 @@ def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, reset, counts
     batch, seq = TRAIN_BATCH
 
     def train(plan, steps: int) -> tuple:
-        """``steps`` TrainLoop steps of QAT under ``plan`` from the seeded
-        init: (params, readings). Per step: CUDA events around it (the loss
-        is read on the host at its end, which synchronises) and the kernel
-        launches by design, counted from 0 before the run."""
-        loop = TrainLoop(bundle.loss_fn, adamw(), TrainLoopConfig(
-            total_steps=steps, ckpt_every=steps + 1, lr=TRAIN_LR,
-            ckpt_dir=str(work_dir / "unused"), qat=QATPolicy(),
-            plan=plan_mod.as_plan(plan)), layout=bundle.layout)
-        params, opt_state, start = loop.init_or_restore(
-            lambda: bundle.init_params(torch.Generator(dev).manual_seed(0), dev))
-        stream = SyntheticLMStream(vocab=bundle.cfg.vocab, batch=batch,
-                                   seq_len=seq, seed=0)
-        events, per_step = [torch.cuda.Event(enable_timing=True)], []
-
-        def on_step(_step, _loss):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-            per_step.append(counts())
-            reset()
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset()
-        events[0].record()
-        loop.run(params, opt_state, stream, start, on_step=on_step)
-        torch.cuda.synchronize()
-        losses = loop.metrics["losses"]
-        require(len(losses) == steps and all(np.isfinite(losses)),
-                f"training losses {losses}")
-        del opt_state
-        return params, {
-            "loss_per_step": losses,
-            "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches_per_step": per_step}
+        return train_run(bundle, adamw(), plan, steps, dev, counters,
+                         work_dir / "unused")
 
     # -- lm_train_path: each plan on the kernels, then on the table
     # substrate (plain torch gathers, the same integers): the losses and
@@ -1056,12 +1048,50 @@ def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, reset, counts
          launches=r_tr["launches_per_step"][0], card=card)
 
     # -- lm_train_restart: crash -> restart bitwise at a reduced size
-    rcfg = reg.get_config(LM_ARCH, **RESTART_SIZE)
+    r = crash_restart_and_serve(LM_ARCH, RESTART_SIZE, lambda _: adamw(), dev,
+                                work_dir)
+    try:
+        r["run"]("b", plan="approx_cuda:proposed@8")
+        conflict = None
+    except ValueError as e:
+        conflict = str(e)
+    require(conflict is not None and "plan" in conflict,
+            "a conflicting plan was not refused")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    emit("lm_train_restart", arch=LM_ARCH,
+         reduced={k: [v, getattr(full, k)] for k, v in RESTART_SIZE.items()},
+         conflicting_plan_refused=conflict, card=card, **r["record"])
+    del r
+    torch.cuda.empty_cache()
+    return launches
+
+
+def crash_restart_and_serve(arch: str, size: dict, make_optimizer, dev,
+                            work_dir: Path) -> dict:
+    """``arch`` at ``size`` under LM_PLAN with QAT: 12 TrainLoop steps
+    uninterrupted, and a run crashed at step 10 then restarted with neither
+    plan nor policy configured (both adopted from the step-8 checkpoint)
+    must end bit for bit the same, parameters and optimizer state; then the
+    training launcher's ``--qat-out`` bundle holds the trained parameters
+    and ``launch/serve.py --plan`` serves it. Returns ``{"run": the loop
+    factory (name, fail_at, plan, qat) → (loop, params, state, start,
+    stream), "record": the readings}``."""
+    from repro_torch.checkpoint import load_plan_bundle, unflatten_into
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import convert
+    from repro_torch.models import registry as reg
+    from repro_torch.nn import plan as plan_mod
+    from repro_torch.train import QATPolicy, TrainLoop, TrainLoopConfig
+
+    rcfg = reg.get_config(arch, **size)
     rbundle = reg.build_bundle(rcfg)
+    batch, seq = TRAIN_BATCH
     rsteps, every, fail = 12, 4, 10
 
-    def restart_loop(name: str, fail_at=None, plan=LM_PLAN, qat=True):
-        loop = TrainLoop(rbundle.loss_fn, adamw(), TrainLoopConfig(
+    def run(name: str, fail_at=None, plan=LM_PLAN, qat=True):
+        loop = TrainLoop(rbundle.loss_fn, make_optimizer(rbundle), TrainLoopConfig(
             total_steps=rsteps, ckpt_every=every, ckpt_dir=str(work_dir / name),
             lr=1e-3, fail_at_step=fail_at, qat=QATPolicy() if qat else None,
             plan=None if plan is None else plan_mod.as_plan(plan)),
@@ -1071,17 +1101,18 @@ def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, reset, counts
         stream = SyntheticLMStream(vocab=rcfg.vocab, batch=batch, seq_len=seq, seed=0)
         return loop, params, opt_state, start, stream
 
-    loop_a, pa, oa, sa, stream_a = restart_loop("a")
+    loop_a, pa, oa, sa, stream_a = run("a")
     loop_a.run(pa, oa, stream_a, sa)
-    loop_b, pb, ob, sb, stream_b = restart_loop("b", fail_at=fail)
+    loop_b, pb, ob, sb, stream_b = run("b", fail_at=fail)
     try:
         loop_b.run(pb, ob, stream_b, sb)
         crashed = None
     except RuntimeError as e:
         crashed = str(e)
     require(crashed == f"injected failure at step {fail}", f"crash: {crashed}")
+    del pb, ob
     # the restart configures neither plan nor policy: both are adopted
-    loop_c, pc, oc, sc, stream_c = restart_loop("b", plan=None, qat=False)
+    loop_c, pc, oc, sc, stream_c = run("b", plan=None, qat=False)
     adopted = (loop_c.cfg.plan == plan_mod.as_plan(LM_PLAN)
                and loop_c.cfg.qat == QATPolicy())
     require(sc == 8 and loop_c.metrics["resumed_from"] == 8 and adopted,
@@ -1090,19 +1121,14 @@ def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, reset, counts
     la, lc = convert.named_leaves(pa), convert.named_leaves(pc)
     restart_same = (all(same_bits(la[k], lc[k]) for k in la)
                     and same_bits(oa["step"], oc["step"])
+                    and set(oa["mv"]) == set(oc["mv"])
                     and all(same_bits(oa["mv"][k][s], oc["mv"][k][s])
-                            for k in oa["mv"] for s in ("m", "v")))
+                            for k in oa["mv"] for s in oa["mv"][k]))
     require(restart_same, "restarted run differs from the uninterrupted one")
-    try:
-        restart_loop("b", plan="approx_cuda:proposed@8")
-        conflict = None
-    except ValueError as e:
-        conflict = str(e)
-    require(conflict is not None and "plan" in conflict,
-            "a conflicting plan was not refused")
+    del pa, oa, pc, oc
     # the launchers: --qat-out writes a bundle, serve --plan DIR serves it
-    flags = ["--arch", LM_ARCH, "--device", "cuda"] + [
-        a for k, v in RESTART_SIZE.items() for a in (f"--{k.replace('_', '-')}", str(v))]
+    flags = ["--arch", arch, "--device", "cuda"] + [
+        a for k, v in size.items() for a in (f"--{k.replace('_', '-')}", str(v))]
     bundle_dir = work_dir / "bundle"
     _, trained = launch_train.main(flags + [
         "--steps", "4", "--batch", str(batch), "--seq-len", str(seq),
@@ -1115,25 +1141,21 @@ def lm_train_phases(dev, card: str, out_dir: Path, counters: dict, reset, counts
     bundle_same = plan_b == plan_mod.as_plan(LM_PLAN) and all(
         same_bits(t.cpu(), shipped[k]) for k, t in convert.named_leaves(trained).items())
     require(bundle_same, "the bundle differs from the trained params")
+    del trained
     served = launch_serve.main(flags + ["--plan", str(bundle_dir), "--requests", "4",
                                         "--batch", "4", "--max-tokens", "4"])
     require(len(served) == 4 and all(r.done and len(r.output) == 4 for r in served),
             "serving from the bundle")
-    shutil.rmtree(work_dir, ignore_errors=True)
-    emit("lm_train_restart", arch=LM_ARCH,
-         reduced={k: [v, getattr(full, k)] for k, v in RESTART_SIZE.items()},
-         steps=rsteps, ckpt_every=every, fail_at_step=fail, crashed=crashed,
-         resumed_from=loop_c.metrics["resumed_from"], adopted_plan_and_policy=adopted,
-         params_and_optimizer_state_bit_identical=restart_same,
-         conflicting_plan_refused=conflict,
-         bundle={"arrays": len(flat_b), "plan": plan_b.to_dict(),
-                 "params_bit_identical": bundle_same,
-                 "served_requests": len(served)},
-         losses_uninterrupted=loop_a.metrics["losses"],
-         losses_restarted=loop_c.metrics["losses"], card=card)
-    del pa, oa, pb, ob, pc, oc, trained
-    torch.cuda.empty_cache()
-    return launches
+    return {"run": run, "record": {
+        "steps": rsteps, "ckpt_every": every, "fail_at_step": fail,
+        "crashed": crashed, "resumed_from": loop_c.metrics["resumed_from"],
+        "adopted_plan_and_policy": adopted,
+        "params_and_optimizer_state_bit_identical": restart_same,
+        "bundle": {"arrays": len(flat_b), "plan": plan_b.to_dict(),
+                   "params_bit_identical": bundle_same,
+                   "served_requests": len(served)},
+        "losses_uninterrupted": loop_a.metrics["losses"],
+        "losses_restarted": loop_c.metrics["losses"]}}
 
 
 def edge_qat_phase(dev, tiles: list, planned_maps: list, counters: dict) -> dict:
@@ -2053,6 +2075,395 @@ def recurrent_phases(dev, card: str) -> tuple:
     return rows, work
 
 
+def train_run(bundle, optimizer, plan, steps: int, dev, counters: dict,
+              ckpt_dir: Path, around=None) -> tuple:
+    """``steps`` QAT TrainLoop steps of ``bundle`` under ``plan`` with
+    ``optimizer``, from the seeded init on the card: (params, readings). Per
+    step: CUDA events between step ends (the loss is read on the host at a
+    step's end, which synchronises) and the contraction launches by design
+    and by shape, counted from 0 before each step. ``around``, a context
+    manager, is entered around the steps alone (not the init)."""
+    import contextlib
+
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.nn import plan as plan_mod
+    from repro_torch.train import QATPolicy, TrainLoop, TrainLoopConfig
+
+    batch, seq = TRAIN_BATCH
+    loop = TrainLoop(bundle.loss_fn, optimizer, TrainLoopConfig(
+        total_steps=steps, ckpt_every=steps + 1, lr=TRAIN_LR,
+        ckpt_dir=str(ckpt_dir), qat=QATPolicy(), plan=plan_mod.as_plan(plan)),
+        layout=bundle.layout)
+    params, opt_state, start = loop.init_or_restore(
+        lambda: bundle.init_params(torch.Generator(dev).manual_seed(0), dev))
+    stream = SyntheticLMStream(vocab=bundle.cfg.vocab, batch=batch, seq_len=seq,
+                               seed=0)
+    events, per_step, by_step = [torch.cuda.Event(enable_timing=True)], [], []
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    def on_step(_step, _loss):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        per_step.append({name: c.value for name, c in counters.items()})
+        by_step.append({name: {"x".join(map(str, sh)): v
+                               for sh, v in c.by_shape().items()}
+                        for name, c in counters.items() if c.value})
+        reset()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    with around or contextlib.nullcontext():
+        events[0].record()
+        loop.run(params, opt_state, stream, start, on_step=on_step)
+        torch.cuda.synchronize()
+    losses = loop.metrics["losses"]
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"training losses {losses}")
+    del opt_state
+    return params, {
+        "loss_per_step": losses,
+        "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": per_step, "launches_by_shape_per_step": by_step}
+
+
+def per_step_by_shape(shapes: dict, layers: int, m: int) -> dict:
+    """Rows launches a training step makes by shape ``"1xMxKxN"``: each
+    (K, N) of ``shapes`` (its launches per layer-pass third) in every one of
+    ``layers`` layers, in the forward and in the recompute."""
+    out: dict = {}
+    for k, n, per in shapes.values():
+        key = f"1x{m}x{k}x{n}"
+        out[key] = out.get(key, 0) + 2 * per * layers
+    return out
+
+
+def rows_shape_check(kind: str, m: int, k: int, n: int, dtype, gen, dev,
+                     counters: dict) -> dict:
+    """One (m × k) @ (k × n) contraction on the rows design through the
+    public entry point ``dense`` calls, on int8 codes as ``dense`` quantizes
+    them: ``kind`` ``closed_form`` (proposed@8) or ``lut`` (the ``exact``
+    table, also against ``torch._int_mm``), held exactly to its plain twin,
+    timed beside it (and the library call for ``exact``)."""
+    from repro_torch.kernels import blocking
+    from repro_torch.kernels.approx_matmul import ops as am
+    from repro_torch.kernels.approx_matmul.ops import closed_form_matmul
+    from repro_torch.kernels.lut_matmul import ops as lm
+    from repro_torch.kernels.lut_matmul.ops import device_table, lut_matmul
+    from repro_torch.nn import substrate as sub
+
+    q = sub.QuantPolicy()
+    x = torch.randn((1, m, k), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((1, k, n), generator=gen, device=dev) / k ** 0.5).to(dtype)
+    qa, _ = sub._quantize_operand(x, q.x_mode, None, 2, 8, q.eps)
+    qb, _ = sub._quantize_operand(w, q.w_mode, None, 1, 8, q.eps)
+    if kind == "closed_form":
+        planes = am.rows_decomposition("proposed@8")
+        fn = lambda: closed_form_matmul(qa, qb, "proposed@8")  # noqa: E731
+        wk = rows_contraction_work(m, k, n, planes.planes)
+    else:
+        t_exact = device_table("exact", dev)
+        planes = lm.rows_decomposition(t_exact)
+        fn = lambda: lut_matmul(qa, qb, t_exact)  # noqa: E731
+        wk = exact_contraction_work(m, k, n)
+    plain, plain_ms = timed_once(lambda: blocking.rows_matmul_plain(qa, qb, planes, 8))
+    got, c, _ = count_launches(counters, fn)
+    require(c == {name: int(name == f"{kind}_rows") for name in counters},
+            f"({m} x {k}) @ ({k} x {n}) {kind}: designs launched {c}")
+    err = max_abs_err(got, plain)
+    library_ms = None
+    if kind == "lut":
+        a2, b2 = qa[0], qb[0].contiguous()
+        err = max(err, max_abs_err(got[0], torch._int_mm(a2, b2)))
+        library_ms = time_ms(lambda: torch._int_mm(a2, b2))
+    require(err == 0, f"rows design {kind} at ({m} x {k}) @ ({k} x {n}): {err}")
+    return {"err": err, "ms": time_ms(fn), "plain_ms": plain_ms, "work": wk,
+            "library_ms": library_ms, "shape": [1, m, k, n]}
+
+
+def train_family_phases(dev, card: str) -> tuple:
+    """Training of the MoE and recurrent families on the card: phases
+    ``moe_train_path`` (llama4-maverick cut to MOE_TRAIN_CUT under
+    proposed@8 and under LM_PLAN, kimi-k2 cut to TOPK_TRAIN_CUT under
+    proposed@8; Adafactor on repro's stacked tree, as repro's launcher
+    trains MoE configs), ``moe_train_restart`` (crash → restart bit for bit
+    at MOE_RESTART_SIZE, the launchers' bundle served) and
+    ``recurrent_train_path`` (xlstm-125m and zamba2-1.2b at full depth with
+    AdamW). Each run: TRAIN_STEPS QAT steps of TrainLoop on the kernels,
+    the same steps on the table substrate, the losses and every updated
+    parameter bit for bit, the rows designs alone at their required counts
+    by shape; one maverick and one zamba step traced. Returns (rows of the
+    kernels line for the new (M, K, N), least work by row name, the
+    phases' rows launches by kind and shape)."""
+    import shutil
+
+    from repro_torch.models import convert, lm
+    from repro_torch.models import registry as reg
+    from repro_torch.models import zamba
+    from repro_torch.optim import adafactor, adamw
+    from torch.profiler import ProfilerActivity, profile
+
+    counters = contraction_counters()
+    work_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_family_train"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    kern, table = "approx_cuda:proposed@8", "approx_lut:proposed@8"
+    m = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    gen = torch.Generator(dev).manual_seed(9)
+    launched: dict = {}  # kind -> "1xMxKxN" -> launches in these phases
+
+    def only(**n) -> dict:
+        return {name: n.get(name, 0) for name in counters}
+
+    def optimizer(bundle):
+        return adafactor(bundle.layout) if bundle.cfg.n_experts else adamw()
+
+    def widths(cfg) -> dict:
+        return {k: getattr(cfg, k) for k in (
+            "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "d_ff_expert",
+            "vocab", "n_experts", "top_k", "moe_interleave", "shared_expert",
+            "ssm_state", "conv_width", "shared_attn_every")}
+
+    def held(name: str, bundle, plans: tuple, expect: dict, steps: int = TRAIN_STEPS):
+        """``steps`` on the kernels under plans[0] and on the table substrate
+        under plans[1]: the losses and every parameter bit for bit; each
+        kernel step launches exactly ``expect`` ({kind: {shape: n}})."""
+        free_card()
+        p_k, r_k = train_run(bundle, optimizer(bundle), plans[0], steps, dev,
+                             counters, work_dir / "unused")
+        want = only(**{kind: sum(by.values()) for kind, by in expect.items()})
+        require(all(c == want for c in r_k["launches_per_step"])
+                and all(by == expect for by in r_k["launches_by_shape_per_step"]),
+                f"{name}: launches per step {r_k['launches_by_shape_per_step']}, "
+                f"expected {expect}")
+        for by in r_k["launches_by_shape_per_step"]:
+            for kind, shapes in by.items():
+                for sh, v in shapes.items():
+                    launched.setdefault(kind, {})[sh] = \
+                        launched.setdefault(kind, {}).get(sh, 0) + v
+        kern_params = {k: t.detach().cpu() for k, t in
+                       convert.named_leaves(p_k).items()}
+        n_params = sum(t.numel() for t in kern_params.values())
+        del p_k
+        free_card()
+        p_t, r_t = train_run(bundle, optimizer(bundle), plans[1], steps, dev,
+                             counters, work_dir / "unused")
+        require(all(c == only() for c in r_t["launches_per_step"]),
+                f"the table substrate launched {r_t['launches_per_step']}")
+        plain_params = convert.named_leaves(p_t)
+        same_loss = r_k["loss_per_step"] == r_t["loss_per_step"]
+        differ = [k for k, t in kern_params.items()
+                  if not same_bits(t, plain_params[k].cpu())]
+        del p_t, plain_params, kern_params
+        free_card()
+        require(same_loss and not differ,
+                f"{name}: losses {r_k['loss_per_step']} vs {r_t['loss_per_step']}, "
+                f"params that differ: {differ[:8]}")
+        return {"plan": plans[0], "kernels": {k: v for k, v in r_k.items()
+                                              if k != "launches_per_step"},
+                "against": plans[1],
+                "plain": {k: r_t[k] for k in ("loss_per_step", "step_ms",
+                                              "peak_memory_gb")},
+                "params": n_params, "losses_bit_identical": same_loss,
+                "params_bit_identical": not differ}
+
+    def traced(name: str, bundle, plan) -> dict:
+        """One step (the first from the init) under torch.profiler: where
+        its device time goes. The Chrome trace is read and removed (it
+        would not fit the run's output directory)."""
+        free_card()
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        p_tr, r_tr = train_run(bundle, optimizer(bundle), plan, 1, dev, counters,
+                               work_dir / "unused", around=prof)
+        del p_tr
+        free_card()
+        work_dir.mkdir(parents=True, exist_ok=True)
+        path = work_dir / f"{name}_train_trace.json"
+        prof.export_chrome_trace(str(path))
+        busy_us, by_name = device_busy(path)
+        trace_mb = path.stat().st_size / 1e6
+        path.unlink()
+        return {"trace_mb_not_kept": trace_mb, "steps": 1,
+                "step_ms": r_tr["step_ms"][0], "device_busy_ms": busy_us / 1e3,
+                "device_ms_by_name": {k: v / 1e3 for k, v in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:12]},
+                "rows_kernels_ms": sum(v for k, v in by_name.items()
+                                       if "rows_matmul_kernel" in k) / 1e3,
+                "launches": r_tr["launches_per_step"][0]}
+
+    t_phase = time.perf_counter()
+    # -- moe_train_path -----------------------------------------------------
+    full = reg.get_config(MOE_ARCH)
+    bundle = reg.get_bundle(MOE_ARCH, **MOE_TRAIN_CUT)
+    layers = bundle.cfg.n_layers
+    require(layers // lm.unit_period(bundle.cfg) == 2,
+            "maverick's cut keeps two stacked units")
+    all_rows = per_step_by_shape(MOE_SHAPES, layers, m)
+    layer0 = per_step_by_shape(MOE_SHAPES, 1, m)
+    cases = {
+        "maverick approx_cuda:proposed@8": held(
+            "maverick proposed@8", bundle, (kern, table),
+            {"closed_form_rows": all_rows}),
+        "maverick lm_plan": held(
+            "maverick lm_plan", bundle, (LM_PLAN, LM_PLAN_TABLE),
+            {"closed_form_rows": {k: v - layer0[k] for k, v in all_rows.items()},
+             "lut_rows": layer0}),
+    }
+    mav_trace = traced("moe", bundle, kern)
+    tbundle = reg.get_bundle(TOPK_ARCH, **TOPK_TRAIN_CUT)
+    cases["kimi-k2 approx_cuda:proposed@8"] = held(
+        "kimi-k2 proposed@8", tbundle, (kern, table),
+        {"closed_form_rows": per_step_by_shape(TOPK_SHAPES, tbundle.cfg.n_layers, m)})
+    tfull = reg.get_config(TOPK_ARCH)
+    emit("moe_train_path", entry_point="TrainLoop.run",
+         optimizer="adafactor(bundle.layout): repro's rule on its stacked tree",
+         archs={MOE_ARCH: {"widths": widths(full), "reduced": {
+                    k: [v, getattr(full, k)] for k, v in MOE_TRAIN_CUT.items()},
+                           "param_count": bundle.cfg.param_count()},
+                TOPK_ARCH: {"widths": widths(tfull), "reduced": {
+                    k: [v, getattr(tfull, k)] for k, v in TOPK_TRAIN_CUT.items()},
+                            "param_count": tbundle.cfg.param_count()}},
+         batch=TRAIN_BATCH[0], seq_len=TRAIN_BATCH[1], rows_m=m, steps=TRAIN_STEPS,
+         lr=TRAIN_LR, qat="bitexact", remat=bundle.cfg.remat,
+         launches_expected="per step: 7 rows launches per layer in the forward "
+                           "+ 7 in the recompute (4 attention + the dense FFN "
+                           "or the shared expert); layer 0 on lut_matmul under "
+                           "the LM plan; rows designs only",
+         cases=cases, trace=mav_trace, seconds=time.perf_counter() - t_phase,
+         card=card)
+    del bundle, tbundle
+    free_card()
+
+    # -- moe_train_restart: crash -> restart bit for bit, Adafactor's state
+    # through repro's tree on disk, and the launchers
+    t_phase = time.perf_counter()
+    r = crash_restart_and_serve(MOE_ARCH, MOE_RESTART_SIZE, optimizer, dev, work_dir)
+    # the step-8 checkpoint's optimizer state is repro's Adafactor tree: a
+    # stacked norm scale's statistics factored, vc shared by the layers
+    with np.load(work_dir / "b" / "step_0000000008" / "arrays.npz") as z:
+        stats = {k: tuple(z[k].shape) for k in z.files if k.startswith("opt/")}
+    d, n_units = MOE_RESTART_SIZE["d_model"], MOE_RESTART_SIZE["n_layers"] // 2
+    tree_ok = (stats.get("opt/mv/unit/0/attn/ln/vr") == (n_units,)
+               and stats.get("opt/mv/unit/0/attn/ln/vc") == (d,)
+               and stats.get("opt/mv/unit/1/moe/wi/vr") == (
+                   n_units, MOE_RESTART_SIZE["n_experts"], d)
+               and "opt/mv/embed/ln_f/v" in stats and "opt/step" in stats)
+    require(tree_ok, f"the checkpoint's Adafactor state: {sorted(stats)[:12]}")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    emit("moe_train_restart", arch=MOE_ARCH,
+         reduced={k: [v, getattr(full, k)] for k, v in MOE_RESTART_SIZE.items()},
+         optimizer="adafactor(bundle.layout)",
+         checkpoint_opt_is_repros_adafactor_tree=tree_ok,
+         checkpoint_opt_arrays=len(stats), seconds=time.perf_counter() - t_phase,
+         card=card, **r["record"])
+    del r
+    free_card()
+
+    # -- recurrent_train_path: xlstm and zamba at full depth, AdamW ----------
+    t_phase = time.perf_counter()
+    records = {}
+    for arch in REC_ARCHS:
+        bundle = reg.get_bundle(arch)
+        cfg = bundle.cfg
+        shapes = zamba_shapes(cfg) if cfg.family == "zamba" else REC_SHAPES[arch]
+        require(shapes == REC_SHAPES[arch], f"{arch}: dense sites {shapes}")
+        expect = {"closed_form_rows": per_step_by_shape(shapes, 1, m)}
+        cut_layers = REC_IDENTITY_LAYERS.get(arch, cfg.n_layers)
+        if cut_layers == cfg.n_layers:
+            record = held(arch, bundle, (kern, table), expect)
+        else:
+            # the timed run at full depth on the kernels; the identity at a
+            # cut depth that keeps one shared block
+            free_card()
+            p_k, r_k = train_run(bundle, adamw(), kern, TRAIN_STEPS, dev, counters,
+                                 work_dir / "unused")
+            require(all(by == expect for by in r_k["launches_by_shape_per_step"])
+                    and all(sum(c.values()) == c["closed_form_rows"]
+                            for c in r_k["launches_per_step"]),
+                    f"{arch}: launches per step {r_k['launches_by_shape_per_step']}")
+            for by in r_k["launches_by_shape_per_step"]:
+                for sh, v in by.get("closed_form_rows", {}).items():
+                    launched.setdefault("closed_form_rows", {})[sh] = \
+                        launched.setdefault("closed_form_rows", {}).get(sh, 0) + v
+            del p_k
+            cut_bundle = reg.get_bundle(arch, n_layers=cut_layers)
+            require(zamba._shared_positions(cut_bundle.cfg) == [cut_layers - 1],
+                    f"{arch} cut keeps one shared block")
+            cut_expect = {"closed_form_rows": per_step_by_shape(
+                zamba_shapes(cut_bundle.cfg), 1, m)}
+            identity = held(f"{arch} at {cut_layers} layers", cut_bundle,
+                            (kern, table), cut_expect)
+            record = {"plan": kern, "kernels": {k: v for k, v in r_k.items()
+                                                if k != "launches_per_step"},
+                      "identity": {"reduced": {"n_layers": [cut_layers, cfg.n_layers]},
+                                   **identity}}
+        records[arch] = {"widths": widths(cfg), "layers": cfg.n_layers,
+                         "param_count": cfg.param_count(),
+                         "launches_expected_per_step": expect, **record}
+    zamba_trace = traced("zamba", reg.get_bundle("zamba2-1.2b"), kern)
+    emit("recurrent_train_path", entry_point="TrainLoop.run", optimizer="adamw",
+         batch=TRAIN_BATCH[0], seq_len=TRAIN_BATCH[1], rows_m=m, steps=TRAIN_STEPS,
+         lr=TRAIN_LR, qat="bitexact",
+         launches_expected="per step: every dense site in the forward and in "
+                           "the recompute of each remat region (each layer, "
+                           "zamba's shared block at each place): 2 x 72 "
+                           "(xlstm), 2 x 118 (zamba); rows designs only",
+         archs=records, trace=zamba_trace, seconds=time.perf_counter() - t_phase,
+         card=card)
+    free_card()
+
+    # -- the new (M, K, N) on the rows design: kimi-k2's shapes, the
+    # recurrent shapes at M = 256, and maverick's under the LM plan's exact
+    # layer (lut_matmul), each checked against its plain twin and timed
+    rows, work = [], {}
+    news = ([("closed_form", TOPK_ARCH, site, kn) for site, kn in TOPK_SHAPES.items()]
+            + [("closed_form", arch, site, kn) for arch in REC_ARCHS
+               for site, kn in REC_SHAPES[arch].items()]
+            + [("lut", MOE_ARCH, site, kn) for site, kn in MOE_SHAPES.items()])
+    for kind, arch, site, (k, n, _) in news:
+        r = rows_shape_check(kind, m, k, n, torch.bfloat16, gen, dev, counters)
+        name = (f"{'closed_form_matmul' if kind == 'closed_form' else 'lut_matmul'}"
+                f"[rows,{site},M={m},{arch}]")
+        b_ms, b_by = bound_ms(*r["work"], INT8_TC_OPS_PER_S)
+        lut = kind == "lut"
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/" + (
+                         "lut_matmul.cu" if lut else "approx_matmul.cu"),
+                     "replaces": "src/repro/kernels/" + (
+                         "lut_matmul/kernel.py:74" if lut
+                         else "approx_matmul/kernel.py:59"),
+                     "launches": launched.get(f"{kind}_rows", {}).get(
+                         "x".join(map(str, r["shape"])), 0),
+                     "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["library_ms"],
+                     "shape": r["shape"], "mult": "exact" if lut else "proposed@8",
+                     "design": "rows",
+                     "launches_on": "moe_train_path" if arch in (MOE_ARCH, TOPK_ARCH)
+                     else "recurrent_train_path", "entry_point": "TrainLoop.run"})
+        work[name] = r["work"]
+        emit("train_kernel_shapes", name=name, shape=r["shape"], max_abs_err=r["err"],
+             tolerance=0, ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms,
+             library_ms=r["library_ms"])
+    return rows, work, launched
+
+
+def zamba_shapes(cfg) -> dict:
+    """``REC_SHAPES["zamba2-1.2b"]`` at ``cfg``'s depth: the mamba sites once
+    a layer, the shared block's at each place it runs."""
+    from repro_torch.models import zamba
+
+    places = len(zamba._shared_positions(cfg))
+    per = {"mamba.in_proj": cfg.n_layers, "mamba.out_proj": cfg.n_layers,
+           "shared.attn.wq,wk,wv,wo": 4 * places, "shared.ffn.wg,wi": 2 * places,
+           "shared.ffn.wo": places}
+    return {site: (k, n, per[site])
+            for site, (k, n, _) in REC_SHAPES["zamba2-1.2b"].items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -2825,6 +3236,7 @@ def main() -> int:
     tool_shapes = tools_phases(dev, card, tiles, out_dir)
     family_rows, family_work = family_phases(dev, card)
     rec_rows, rec_work = recurrent_phases(dev, card)
+    train_rows, train_work, train_launched = train_family_phases(dev, card)
 
     def at_kn(by_shape: dict, k: int, n: int) -> dict:
         """The counted launches ("BxMxKxN" -> n) whose K and N are k and n."""
@@ -2846,6 +3258,18 @@ def main() -> int:
             row["launches_autotune_lm_path"] = at_kn(
                 tool_shapes["autotune_lm_path"]["closed_form_rows"], *row["shape"][2:])
     kernels += family_rows + rec_rows
+    # the training phases' launches beside the rows of their design and
+    # shape (maverick's at M = 256 under proposed@8); their new shapes
+    # follow as rows of their own
+    for row in kernels:
+        kind = row["name"].split("[")[0].replace("closed_form_matmul", "closed_form") \
+            .replace("lut_matmul", "lut")
+        if row.get("design") == "rows":
+            n_train = train_launched.get(f"{kind}_rows", {}).get(
+                "x".join(map(str, row["shape"])), 0)
+            if n_train:
+                row["launches_moe_train_path"] = n_train
+    kernels += train_rows
     # every row exact; launched on its path, except the tile designs at the
     # decode step's M = 8, which the served path must not launch at all
     require(all(k["max_abs_err"] == 0 and (k["launches"] == 0 if k.get("off_path")
@@ -2861,7 +3285,7 @@ def main() -> int:
             "closed_form_matmul[ring,narrow]": (mr_bytes, mr_ops),
             "lut_matmul": (lm_bytes, lm_ops), "lut_matmul[narrow]": (lm_bytes, lm_ops),
             "approx_mul": (am_bytes, am_ops), **lm_work, **family_work,
-            **rec_work}
+            **rec_work, **train_work}
     emit("kernel_times", card=card, int32_peak_ops_per_s=INT32_OPS_PER_S,
          int8_tensor_core_peak_ops_per_s=INT8_TC_OPS_PER_S,
          hbm_bytes_per_s=HBM_BYTES_PER_S, tf32={

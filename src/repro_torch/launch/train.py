@@ -1,8 +1,10 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
 Counterpart of ``repro.launch.train``: config (reduced with the
-``--n-layers`` ... ``--dot-plan`` overrides) → model bundle → AdamW →
-:class:`~repro_torch.train.TrainLoop` over the synthetic LM stream, with
+``--n-layers`` ... ``--dot-plan`` overrides) → model bundle → optimizer
+(Adafactor on ``repro``'s stacked tree for MoE configs, AdamW for the rest,
+as ``repro`` chooses) → :class:`~repro_torch.train.TrainLoop` over the
+synthetic LM stream, with
 checkpoint/restart in ``--ckpt-dir``, QAT (``--qat``, ``--qat-forward``,
 ``--qat-moment``) and a final plan bundle (``--qat-out DIR``, which
 ``python -m repro_torch.launch.serve --plan DIR`` serves). Random weights
@@ -15,11 +17,18 @@ come from a seeded ``torch.Generator`` on ``--device``: ``cuda`` unless
         --n-layers 2 --d-model 32 --d-ff 64 --vocab 64 --n-heads 2 \\
         --n-kv-heads 2 --batch 4 --seq-len 16 --steps 8 --qat-out bundle
 
+Every family ``repro`` trains trains here: dense, MoE (``--n-experts``
+overrides the expert count), vlm, encdec, xlstm and zamba::
+
+    python -m repro_torch.launch.train --arch llama4-maverick-400b-a17b \
+        --device cpu --n-layers 4 --d-model 64 --d-ff 128 --vocab 512 \
+        --n-heads 4 --n-kv-heads 2 --n-experts 4 --batch 2 --seq-len 16 --steps 4
+    python -m repro_torch.launch.train --arch zamba2-1.2b --device cpu \
+        --n-layers 6 --d-model 64 --d-ff 128 --vocab 512 --n-heads 4 \
+        --n-kv-heads 4 --batch 2 --seq-len 16 --steps 4
+
 ``--mesh`` takes only ``none``: the device meshes come with the partitioned
-paths (ROADMAP.md queue 1 item 11). An MoE config raises: ``repro`` trains
-it with Adafactor acting on its stacked unit tensors, which the port does
-not have yet (queue 1 item 7b). The recurrent families (xlstm, zamba) raise
-too: their training, the backward through the scans, is queue 1 item 7c.
+paths (ROADMAP.md queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ from repro_torch.data import SyntheticLMStream
 from repro_torch.models import convert
 from repro_torch.models import registry as reg
 from repro_torch.nn import plan as plan_mod
-from repro_torch.optim import adamw, warmup_cosine
+from repro_torch.optim import adafactor, adamw, warmup_cosine
 from repro_torch.train import QATPolicy, TrainLoop, TrainLoopConfig
 
 
@@ -128,21 +137,9 @@ def main(argv=None):
     device = resolve_device(args.device)
     overrides = overrides_from(args)
     cfg = reg.get_config(args.arch, **overrides)
-    if cfg.n_experts:
-        # repro trains MoE configs with Adafactor on its stacked unit tensors
-        # (a norm scale stacked over units is factored, the update clip spans
-        # the layers); AdamW would be a different result
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training needs Adafactor on repro's stacked "
-            "unit tensors, not ported yet (ROADMAP.md, queue 1 item 7b: MoE "
-            "training)")
-    if cfg.family in ("xlstm", "zamba"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} training (the backward through its "
-            "scans) is not ported yet (ROADMAP.md, queue 1 item 7c: "
-            "recurrent-family training); the family serves")
     bundle = reg.build_bundle(cfg)
-    optimizer = adamw()
+    # as repro chooses: Adafactor on its stacked tree for the MoE configs
+    optimizer = adafactor(bundle.layout) if cfg.n_experts else adamw()
     qat_policy = (QATPolicy(forward=args.qat_forward,
                             moment_correction=args.qat_moment)
                   if args.qat else None)

@@ -529,6 +529,13 @@ def _dispatch_local(cfg: ModelConfig, xn: Tensor, router: Tensor):
     capacity ``C = max(1, ceil(t · k · capacity_factor / E))`` are dropped
     and scattered to the discarded row ``E · C``, which several may write
     and nothing reads.
+
+    Under autograd, as ``jax.grad`` of ``repro``'s: the gradient reaches
+    the router through the softmax, the sort's selection and the
+    renormalised ``topw``, and ``xn`` through the scatter into ``buf``,
+    whose backward gathers each choice's row of the gradient (a dropped
+    choice reads the discarded row, which nothing downstream reads: zero).
+    The ranks and slots are integers and carry none.
     """
     t, d = xn.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -547,9 +554,10 @@ def _dispatch_local(cfg: ModelConfig, xn: Tensor, router: Tensor):
     keep = my_rank < cap
     slot = torch.where(keep, flat_e * cap + my_rank,
                        torch.full_like(my_rank, e * cap))
-    tok_idx = torch.arange(t, device=dev).repeat_interleave(k)
     buf = torch.zeros((e * cap + 1, d), dtype=xn.dtype, device=dev)
-    buf[slot] = xn[tok_idx]
+    # xn[repeat(arange(t), k)] as a broadcast: its gradient is a reduction
+    # over each token's k choices, not a scatter-add into xn
+    buf[slot] = xn[:, None, :].expand(t, k, d).reshape(t * k, d)
     return buf[:e * cap].reshape(e, cap, d), (slot, topw, keep, cap)
 
 

@@ -24,10 +24,14 @@ flat parameter names (``module.named_parameters()``: ``embed.emb``,
 unstacking the unit repeats. A name may carry extra segments after the
 parameter's own (``layers.5.attn.wq.w.m``), which land below it in the tree:
 that is how an optimizer's per-parameter statistics ``{"m", "v"}`` (AdamW)
-take ``repro``'s layout ``{"step", "mv": tree of {"m", "v"}}``. Checkpoints
-and plan bundles of the port store these trees, so files written by either
-package restore in the other. :func:`lm_params_to_jax` and
-:func:`adamw_state_to_jax` give the same trees as numpy arrays (a bfloat16
+take ``repro``'s layout ``{"step", "mv": tree of {"m", "v"}}``. An
+optimizer state keyed by tree path instead (Adafactor on ``repro``'s
+stacked leaves, whose statistics belong to a whole stack:
+:func:`keyed_by_path`) goes into the tree as it is (``state_to_tree``), and
+:meth:`TreeLayout.groups` lists the layers each stacked leaf holds.
+Checkpoints and plan bundles of the port store these trees, so files
+written by either package restore in the other. :func:`lm_params_to_jax`
+and :func:`state_to_jax` give the same trees as numpy arrays (a bfloat16
 leaf as ``ml_dtypes.bfloat16``, which every ``repro`` installation has).
 """
 from __future__ import annotations
@@ -222,19 +226,53 @@ class TreeLayout:
         return {name: leaf for path, t in tree_leaves(tree)
                 for name, leaf in self._join(path, t)}
 
+    def groups(self, names) -> Dict[Tuple, Tuple[list, bool]]:
+        """The tree's leaves that ``names`` form: {tree path: (the names of
+        its parts, in stack order, and whether it is their stack)}. An
+        unstacked leaf has one part, itself."""
+        parts: Dict[Tuple, Dict[Optional[int], str]] = {}
+        for name in names:
+            path, r = self._split(name)
+            parts.setdefault(path, {})[r] = name
+        return {path: ([d[None]], False) if None in d
+                else ([d[r] for r in sorted(d)], True)
+                for path, d in parts.items()}
+
     def state_to_tree(self, state: Dict[str, Any]) -> dict:
-        """Optimizer state ``{"step", "mv": {name: {stat: tensor}}}`` → the
+        """Optimizer state ``{"step", "mv": {key: {stat: tensor}}}`` → the
         same with ``mv`` in the tree layout, a ``{stat: ...}`` dict at each
-        parameter's place."""
+        leaf's place. A key is a parameter's name (its statistics are
+        stacked with the other repeats', as the parameter is) or a tree path
+        (:func:`keyed_by_path`: the statistics of that leaf as a whole, put
+        there as they are)."""
+        if keyed_by_path(state):
+            mv = self._skeleton()
+            for path, d in state["mv"].items():
+                _put(mv, path, dict(d))
+            return {"step": state["step"], "mv": mv}
         return {"step": state["step"], "mv": self.to_tree(
             {f"{n}.{k}": t for n, d in state["mv"].items() for k, t in d.items()})}
 
-    def state_from_tree(self, tree) -> Dict[str, Any]:
-        mv: Dict[str, Dict[str, Any]] = {}
+    def state_from_tree(self, tree, by_path: bool = False) -> Dict[str, Any]:
+        """The inverse of :meth:`state_to_tree`: ``mv`` keyed by parameter
+        name, or by tree path where ``by_path``."""
+        if by_path:
+            mv: Dict[Any, Dict[str, Any]] = {}
+            for path, t in tree_leaves(tree["mv"]):
+                mv.setdefault(path[:-1], {})[path[-1]] = t
+            return {"step": tree["step"], "mv": mv}
+        mv = {}
         for name, t in self.from_tree(tree["mv"]).items():
             param, _, stat = name.rpartition(".")
             mv.setdefault(param, {})[stat] = t
         return {"step": tree["step"], "mv": mv}
+
+
+def keyed_by_path(state: Dict[str, Any]) -> bool:
+    """Whether an optimizer state's ``mv`` is keyed by tree path (a tuple,
+    :func:`repro_torch.optim.adafactor`'s given a layout) and not by
+    parameter name."""
+    return any(isinstance(k, tuple) for k in state["mv"])
 
 
 class _LMLayout(TreeLayout):
@@ -411,10 +449,17 @@ def zamba_params_to_jax(cfg: cm.ModelConfig,
     return tree_map(zamba_layout(cfg).to_tree(named_leaves(params)), _numpy)
 
 
+def state_to_jax(layout: TreeLayout, state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's optimizer state of a model with ``layout`` (AdamW's keyed
+    by parameter name, Adafactor's by ``repro``'s leaf) as ``repro``'s
+    ``{"step", "mv"}`` tree of numpy arrays."""
+    return tree_map(layout.state_to_tree(state), _numpy)
+
+
 def adamw_state_to_jax(cfg: cm.ModelConfig, state: Dict[str, Any]) -> Dict[str, Any]:
     """The port's AdamW state of an LM (``repro_torch.optim.adamw``) as
     ``repro``'s ``{"step", "mv": tree of {"m", "v"}}`` of numpy arrays."""
-    return tree_map(lm_layout(cfg).state_to_tree(state), _numpy)
+    return state_to_jax(lm_layout(cfg), state)
 
 
 def adamw_state_from_jax(cfg: cm.ModelConfig, tree: Dict[str, Any],

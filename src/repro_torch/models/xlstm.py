@@ -19,10 +19,16 @@ The decode state is a list of per-layer float32 tensors: (B, H, dh, dh)
 for an mLSTM layer, (B, d) for an sLSTM layer. :func:`decode_step` returns
 a new list, as ``repro`` does; it ignores ``cache_len``.
 
-``repro``'s ``jax.checkpoint`` around the chunk body and the layers changes
-no value; serving runs under ``torch.no_grad`` and has no counterpart.
-Training this family is not ported (ROADMAP.md, queue 1: recurrent-family
-training); :func:`loss_fn` is here because the bundle carries it.
+Training differentiates :func:`loss_fn` with autograd, through both
+scans: the sLSTM's :func:`associative_scan` writes its outputs into slices
+of a fresh tensor, which autograd records as copies into those slices.
+Under ``cfg.remat`` (and only while autograd records) each layer is a
+checkpointed region (``lm._maybe_remat``, ``repro``'s ``jax.checkpoint``
+per layer), recomputed in the backward under the forward's site stack,
+plan and contraction override, so a training step runs each dense twice.
+``repro``'s ``jax.checkpoint`` around ``mlstm_scan``'s chunk body inside a
+layer changes no value and saves memory only within the layer's
+recompute; it has no counterpart here.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import common as cm
+from repro_torch.models import lm
 from repro_torch.nn import plan as splan
 
 Tensor = torch.Tensor
@@ -269,7 +276,8 @@ def forward(cfg: cm.ModelConfig, params: XLSTM, tokens: Tensor) -> Tensor:
     for i, layer in enumerate(params.layers):
         block, kind = _block(i)
         with splan.site_scope(f"layer.{i}", kind):
-            x, _ = block(cfg, layer, x)
+            x = lm._maybe_remat(cfg, lambda xx, layer=layer, block=block:
+                                block(cfg, layer, xx)[0])(x)
     return x
 
 

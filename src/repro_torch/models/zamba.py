@@ -22,10 +22,15 @@ float32, conv state (B, W-1, d_inner) in ``cfg.dtype``), "shared_kv":
 place has tensors of its own; :func:`decode_step` writes them in place and
 returns the new mamba states in a new dict.
 
-``repro``'s ``jax.checkpoint`` around the chunk body and the layers changes
-no value and has no counterpart here. Training this family is not ported
-(ROADMAP.md, queue 1: recurrent-family training); :func:`loss_fn` is here
-because the bundle carries it.
+Training differentiates :func:`loss_fn` with autograd. Under ``cfg.remat``
+(and only while autograd records) each mamba layer and each run of the
+shared block is a checkpointed region (``lm._maybe_remat``, ``repro``'s
+``jax.checkpoint`` around both), recomputed in the backward under the
+forward's site stack, plan and contraction override. The shared block's
+gradient sums over the places it runs, in autograd's order. The training
+forward passes no KV cache, so it never reaches the serving path's
+in-place cache writes. ``repro``'s ``jax.checkpoint`` around
+``mamba_scan``'s chunk body changes no value and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import common as cm
+from repro_torch.models import lm
 from repro_torch.nn import plan as splan
 
 Tensor = torch.Tensor
@@ -181,7 +187,10 @@ def mamba_scan(xh: Tensor, dt: Tensor, B: Tensor, C: Tensor, a: Tensor,
         la = ddt * a[None, None, :]                           # log decay (< 0)
         lcum = torch.cumsum(la, dim=1)                        # (B, C, H)
         scores = torch.einsum("btn,bun->btu", cc, bb)
-        decay = torch.exp(lcum[:, :, None, :] - lcum[:, None, :, :])  # (B,t,u,H)
+        # (B, t, u, H): exp(lcum_t - lcum_u) for u <= t, 1 above the diagonal
+        # (where the product is masked anyway)
+        decay = torch.exp(torch.where(mask[None, :, :, None],
+                                      lcum[:, :, None, :] - lcum[:, None, :, :], 0.0))
         w = torch.where(mask[None, :, :, None], scores[..., None] * decay, 0.0)
         y_intra = torch.einsum("btuh,buhd->bthd", w, ddt[..., None] * xx)
         y_inter = torch.einsum("bthn,bhdn->bthd",
@@ -254,9 +263,10 @@ def forward(cfg: cm.ModelConfig, params: Zamba, tokens: Tensor) -> Tensor:
     shared_at = set(_shared_positions(cfg))
     for i, p in enumerate(params.mamba):
         with splan.site_scope(f"layer.{i}", "mamba"):
-            x, _ = mamba_block(cfg, p, x)
+            x = lm._maybe_remat(cfg, lambda xx, p=p: mamba_block(cfg, p, xx)[0])(x)
         if i in shared_at:
-            x, _ = _shared_block(cfg, params.shared, x, positions)
+            x = lm._maybe_remat(cfg, lambda xx: _shared_block(
+                cfg, params.shared, xx, positions)[0])(x)
     return x
 
 

@@ -10,7 +10,9 @@ the data-parallel step with an int8 all-reduce: ROADMAP.md queue 1 item
   that step, so a resumed run is bitwise the uninterrupted one.
   Checkpoints hold ``{"params", "opt"}`` in ``repro``'s tree layout (the
   ``layout`` given, :func:`repro_torch.models.convert.lm_layout` for an LM
-  bundle), so either package restores the other's.
+  bundle), so either package restores the other's; an optimizer state
+  keyed by tree path (Adafactor on ``repro``'s stacked leaves) is stored
+  as it is.
 * **failure injection** — ``fail_at_step`` raises at that step.
 * **stragglers** — a step slower than ``straggler_factor`` × the step-time
   EWMA is counted in ``metrics["straggler_steps"]``.
@@ -62,8 +64,12 @@ class TrainLoopConfig:
 
 
 def _flat_state(state) -> Dict[str, torch.Tensor]:
-    """Optimizer state as one flat dict of its tensors."""
-    return {"step": state["step"], **{f"{k}.{s}": t for k, d in state["mv"].items()
+    """Optimizer state as one flat dict of its tensors; ``mv`` keyed by
+    parameter name or by tree path (Adafactor's stacked leaves)."""
+    def key(k):
+        return k if isinstance(k, str) else "/".join(map(str, k))
+    return {"step": state["step"], **{f"{key(k)}.{s}": t
+                                      for k, d in state["mv"].items()
                                       for s, t in d.items()}}
 
 
@@ -162,8 +168,9 @@ class TrainLoop:
                                   tree_map(opt_state, lambda t: t.to("meta")))
             tree, step, extra = self.ckpt.restore(template, device="cpu")
             convert.assign_(params, self.layout.from_tree(tree["params"]))
-            convert.assign_(_flat_state(opt_state),
-                            _flat_state(self.layout.state_from_tree(tree["opt"])))
+            convert.assign_(_flat_state(opt_state), _flat_state(
+                self.layout.state_from_tree(
+                    tree["opt"], by_path=convert.keyed_by_path(opt_state))))
             start_step = step
             self.metrics["resumed_from"] = step
             self._check_numerics(extra or {})

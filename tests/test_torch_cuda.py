@@ -1203,3 +1203,81 @@ def test_recurrent_step_and_prefill_on_the_card_equal_the_table(dev, arch):
 
     for got, want in zip(run("approx_cuda:proposed@8"), run("approx_lut:proposed@8")):
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# MoE and recurrent training on the card, against the table substrate
+# ---------------------------------------------------------------------------
+
+
+def _train_on_the_card(dev, tmp_path, bundle, spec, steps=2):
+    """``steps`` QAT TrainLoop steps under ``spec`` with the launcher's
+    optimizer (Adafactor on repro's stacked tree for MoE configs, else
+    AdamW) → (losses, rows launches of both kernels, params on the CPU)."""
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.models import convert
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.train import QATPolicy, TrainLoop, TrainLoopConfig
+
+    optimizer = adafactor(bundle.layout) if bundle.cfg.n_experts else adamw()
+    loop = TrainLoop(bundle.loss_fn, optimizer, TrainLoopConfig(
+        total_steps=steps, ckpt_every=100, ckpt_dir=str(tmp_path), lr=1e-3,
+        qat=QATPolicy(), plan=spec), layout=bundle.layout)
+    params, opt, start = loop.init_or_restore(
+        lambda: bundle.init_params(torch.Generator(dev).manual_seed(0), dev))
+    before = (closed_form_matmul.rows_launches.value, lut_matmul.rows_launches.value)
+    loop.run(params, opt, SyntheticLMStream(vocab=bundle.cfg.vocab, batch=4,
+                                            seq_len=16, seed=0), start)
+    torch.cuda.synchronize()
+    launched = (closed_form_matmul.rows_launches.value - before[0],
+                lut_matmul.rows_launches.value - before[1])
+    return (loop.metrics["losses"], launched,
+            {k: t.cpu() for k, t in convert.named_leaves(params).items()})
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("llama4-maverick-400b-a17b", dict(n_layers=4, n_experts=4)),
+    ("kimi-k2-1t-a32b", dict(n_layers=2, n_experts=16, top_k=8))],
+    ids=["maverick-top1", "kimi-k2-top8"])
+def test_moe_training_on_the_card_kernels_equal_the_table(dev, tmp_path, arch, over):
+    """Two QAT steps of an MoE config with Adafactor on repro's stacked tree
+    (d_model 256; the rows design at M = 64, forward and recompute): the
+    losses and every updated parameter bit for bit those of approx_lut on
+    the card. kimi-k2 at top-8 gathers each token 8 times in the dispatch,
+    whose backward sums them."""
+    from repro_torch.models import registry as reg
+
+    bundle = reg.get_bundle(arch, d_model=256, d_ff=512, vocab=512, n_heads=4,
+                            n_kv_heads=2, **over)
+    losses_k, launched, pk = _train_on_the_card(dev, tmp_path / "k", bundle,
+                                                "approx_cuda:proposed@8")
+    losses_t, none, pt = _train_on_the_card(dev, tmp_path / "t", bundle,
+                                            "approx_lut:proposed@8")
+    assert launched == (2 * 2 * 7 * bundle.cfg.n_layers, 0) and none == (0, 0)
+    assert losses_k == losses_t and all(np.isfinite(losses_k))
+    for k in pk:
+        assert torch.equal(pk[k], pt[k]), k
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-1.2b"])
+def test_recurrent_training_on_the_card_kernels_equal_the_table(dev, tmp_path, arch):
+    """Two QAT steps with AdamW through the scans, each layer (and zamba's
+    shared block) recomputed in the backward: the losses and every updated
+    parameter bit for bit those of approx_lut on the card."""
+    from repro_torch.models import registry as reg
+    from repro_torch.models import zamba
+
+    zam = arch.startswith("zamba")
+    bundle = reg.get_bundle(arch, n_layers=6 if zam else 2, d_model=64, n_heads=4,
+                            n_kv_heads=4, d_ff=128, vocab=512,
+                            **(dict(ssm_state=8, shared_attn_every=3) if zam else {}))
+    losses_k, launched, pk = _train_on_the_card(dev, tmp_path / "k", bundle,
+                                                "approx_cuda:proposed@8")
+    losses_t, none, pt = _train_on_the_card(dev, tmp_path / "t", bundle,
+                                            "approx_lut:proposed@8")
+    per_pass = (2 * 6 + 7 * len(zamba._shared_positions(bundle.cfg)) if zam
+                else 7 + 5)
+    assert launched == (2 * 2 * per_pass, 0) and none == (0, 0)
+    assert losses_k == losses_t and all(np.isfinite(losses_k))
+    for k in pk:
+        assert torch.equal(pk[k], pt[k]), k

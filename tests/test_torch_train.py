@@ -28,6 +28,7 @@ from repro import checkpoint as jckpt
 from repro.data import SyntheticLMStream as JStream
 from repro.models import registry as jreg
 from repro.nn import plan as jplan
+from repro.optim import adafactor as jadafactor
 from repro.optim import adamw as jadamw
 from repro.train import QATPolicy as JPolicy
 from repro.train import TrainLoop as JLoop
@@ -38,9 +39,10 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import convert
 from repro_torch.models import registry as reg
 from repro_torch.nn import plan as splan
-from repro_torch.optim import adamw, warmup_cosine
+from repro_torch.optim import adafactor, adamw, warmup_cosine
 from repro_torch.train import QATPolicy, TrainLoop, TrainLoopConfig, qat_scope
 from tests.test_torch_models import port_cfg
+from tests.test_torch_xlstm import one_torch_thread  # noqa: F401  (autouse)
 
 RNG_T = np.random.default_rng(21)
 SMALL = dict(n_layers=2, d_model=32, d_ff=64, vocab=64, n_heads=2, n_kv_heads=2)
@@ -143,10 +145,14 @@ _PLAN = splan.SubstratePlan.uniform("approx_stat:proposed@8")
 
 
 def _loop(tmp_path, total_steps=12, fail_at=None, plan=_PLAN,
-          policy=QATPolicy(forward="stat"), **cfg_extra):
-    bundle = reg.get_bundle("minitron-8b", **SMALL, **cfg_extra)
+          policy=QATPolicy(forward="stat"), arch="minitron-8b", **cfg_extra):
+    """A TrainLoop of ``arch`` at ``SMALL`` (``cfg_extra`` overriding it),
+    with the launcher's optimizer: Adafactor on repro's stacked tree for an
+    MoE config, else AdamW."""
+    bundle = reg.get_bundle(arch, **{**SMALL, **cfg_extra})
     loop = TrainLoop(
-        bundle.loss_fn, adamw(weight_decay=0.0),
+        bundle.loss_fn, adafactor(bundle.layout) if bundle.cfg.n_experts
+        else adamw(weight_decay=0.0),
         TrainLoopConfig(total_steps=total_steps, ckpt_every=4,
                         ckpt_dir=str(tmp_path / "ckpt"), lr=5e-3,
                         fail_at_step=fail_at, async_ckpt=fail_at is None,
@@ -172,28 +178,40 @@ def test_train_loss_decreases(tmp_path):
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1, losses
 
 
-@pytest.mark.parametrize("plan,policy", [(None, None), (_PLAN, QATPolicy(forward="stat")),
-                                         ("approx_lut:proposed@8", QATPolicy())])
-def test_crash_restart_bitwise(tmp_path, plan, policy):
-    loop_a, stream_a, init = _loop(tmp_path / "a", plan=plan, policy=policy)
+#: llama4-maverick at SMALL widths, 4 layers: 2 stacked units of a dense and
+#: a top-1 MoE layer of 4 experts (Adafactor on repro's stacked tree)
+MOE_SMALL = dict(arch="llama4-maverick-400b-a17b", n_layers=4, n_experts=4)
+
+
+@pytest.mark.parametrize("plan,policy,model", [
+    (None, None, {}), (_PLAN, QATPolicy(forward="stat"), {}),
+    ("approx_lut:proposed@8", QATPolicy(), {}),
+    ("approx_lut:proposed@8", QATPolicy(), MOE_SMALL)],
+    ids=["None-None", "plan1-policy1", "approx_lut:proposed@8-policy2",
+         "moe-adafactor"])
+def test_crash_restart_bitwise(tmp_path, plan, policy, model):
+    loop_a, stream_a, init = _loop(tmp_path / "a", plan=plan, policy=policy, **model)
     pa, oa, sa = loop_a.init_or_restore(init)
     pa, oa, _ = loop_a.run(pa, oa, stream_a, sa)
 
     loop_b, stream_b, init_b = _loop(tmp_path / "b", fail_at=10, plan=plan,
-                                     policy=policy)
+                                     policy=policy, **model)
     pb, ob, sb = loop_b.init_or_restore(init_b)
     with pytest.raises(RuntimeError, match="injected failure"):
         loop_b.run(pb, ob, stream_b, sb)
 
-    loop_c, stream_c, init_c = _loop(tmp_path / "b", plan=plan, policy=policy)
+    loop_c, stream_c, init_c = _loop(tmp_path / "b", plan=plan, policy=policy, **model)
     pc, oc, sc = loop_c.init_or_restore(init_c)
     assert sc == 8 and loop_c.metrics["resumed_from"] == 8
     pc, oc, _ = loop_c.run(pc, oc, stream_c, sc)
     _same(pa, pc)
     assert torch.equal(oa["step"], oc["step"])
+    assert set(oa["mv"]) == set(oc["mv"])
+    assert convert.keyed_by_path(oa) == bool(model)  # Adafactor: repro's leaves
     for k in oa["mv"]:
-        assert torch.equal(oa["mv"][k]["m"], oc["mv"][k]["m"])
-        assert torch.equal(oa["mv"][k]["v"], oc["mv"][k]["v"])
+        assert set(oa["mv"][k]) == set(oc["mv"][k])
+        for stat in oa["mv"][k]:
+            assert torch.equal(oa["mv"][k][stat], oc["mv"][k][stat]), (k, stat)
 
 
 def test_grad_accum_matches_full_batch(tmp_path):
@@ -263,36 +281,53 @@ def test_repro_checkpoint_resumes_in_the_port(tmp_path):
     """repro's TrainLoop checkpoint (params + AdamW state, bf16) restores
     in the port's TrainLoop bit for bit, with its plan and policy adopted;
     and the port's next checkpoint restores in repro's TrainLoop."""
-    jcfg = jreg.get_config("minitron-8b", **SMALL)
-    jb = jreg._BUILDERS["lm"](jcfg)
-    plan = "approx_bitexact:proposed@8"
-    jloop = JLoop(jb.loss_fn, jadamw(), JConfig(
+    _resume_both_ways(tmp_path, "minitron-8b", {}, "approx_bitexact:proposed@8")
+
+
+def test_repro_moe_adafactor_checkpoint_resumes_in_the_port(tmp_path):
+    """The same for an MoE config with the launcher's optimizer, Adafactor
+    on repro's stacked tree: its state in repro's ``{"step", "mv"}`` tree
+    leaf for leaf (a stacked norm scale's shared ``vc`` included), both
+    ways."""
+    _resume_both_ways(tmp_path, MOE_SMALL["arch"], dict(n_layers=4, n_experts=4),
+                      "approx_lut:proposed@8")
+
+
+def _resume_both_ways(tmp_path, arch, over, plan):
+    jcfg = jreg.get_config(arch, **{**SMALL, **over})
+    jb = jreg.build_bundle(jcfg)
+    b = reg.build_bundle(port_cfg(jcfg))
+    moe = bool(jcfg.n_experts)
+    jopt = jadafactor if moe else jadamw
+    jloop = JLoop(jb.loss_fn, jopt(), JConfig(
         total_steps=4, ckpt_every=4, ckpt_dir=str(tmp_path), async_ckpt=False,
         qat=JPolicy(), plan=jplan.as_plan(plan)))
     jp, jo, js = jloop.init_or_restore(lambda: jb.init_params(jax.random.PRNGKey(1)))
     jp, jo, _ = jloop.run(jp, jo, JStream(vocab=64, batch=4, seq_len=16, seed=0), js)
 
-    b = reg.build_bundle(port_cfg(jcfg))
-    loop = TrainLoop(b.loss_fn, adamw(), TrainLoopConfig(
+    loop = TrainLoop(b.loss_fn, adafactor(b.layout) if moe else adamw(), TrainLoopConfig(
         total_steps=5, ckpt_every=5, ckpt_dir=str(tmp_path), async_ckpt=False),
         layout=b.layout)
     p, o, start = loop.init_or_restore(lambda: b.init_params(torch.Generator().manual_seed(0)))
     assert start == 4 and loop.cfg.plan == splan.as_plan(plan)
     assert loop.cfg.qat == QATPolicy()
     assert p.embed.emb.dtype == torch.bfloat16
+    assert convert.keyed_by_path(o) == moe
     got = {"params": convert.lm_params_to_jax(b.cfg, p),
-           "opt": convert.adamw_state_to_jax(b.cfg, o)}
+           "opt": convert.state_to_jax(b.layout, o)}
     want = {"params": jp, "opt": jo}
+    assert jax.tree.structure(jax.tree.map(np.asarray, want)) == \
+        jax.tree.structure(got)
     for a, c in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
         np.testing.assert_array_equal(_bytes(a), _bytes(c))
     p, o, _ = loop.run(p, o, SyntheticLMStream(vocab=64, batch=4, seq_len=16, seed=0),
                        start)
-    jloop2 = JLoop(jb.loss_fn, jadamw(), JConfig(total_steps=5, ckpt_dir=str(tmp_path)))
+    jloop2 = JLoop(jb.loss_fn, jopt(), JConfig(total_steps=5, ckpt_dir=str(tmp_path)))
     jp5, jo5, js5 = jloop2.init_or_restore(lambda: jb.init_params(jax.random.PRNGKey(2)))
     assert js5 == 5 and jloop2.cfg.plan == jplan.as_plan(plan)
     for a, c in zip(jax.tree.leaves({"params": jp5, "opt": jo5}), jax.tree.leaves(
             {"params": convert.lm_params_to_jax(b.cfg, p),
-             "opt": convert.adamw_state_to_jax(b.cfg, o)})):
+             "opt": convert.state_to_jax(b.layout, o)})):
         np.testing.assert_array_equal(_bytes(a), _bytes(c))
 
 
@@ -322,12 +357,39 @@ def _grads(bundle, params, batch, plan, policy, thread=False):
 
 
 def test_remat_changes_no_number_and_recomputes_under_the_forwards_scopes():
+    _remat_check("minitron-8b", SMALL)
+
+
+#: the recurrent families at tests/test_models_smoke.py's reduced sizes (zamba:
+#: 6 layers, the shared block after layers 2 and 5)
+RECURRENT_SMALL = {
+    "xlstm-125m": dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, d_ff=128,
+                       vocab=64),
+    "zamba2-1.2b": dict(n_layers=6, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
+                        vocab=64, shared_attn_every=3, ssm_state=8)}
+
+
+@pytest.mark.parametrize("arch", list(RECURRENT_SMALL))
+def test_recurrent_remat_changes_no_number_and_recomputes_under_the_forwards_scopes(
+        arch):
+    """The same for xlstm (each layer a checkpointed region) and zamba (each
+    mamba layer and each run of the shared block, which a plan rule puts on
+    its own substrate)."""
+    _remat_check(arch, RECURRENT_SMALL[arch])
+
+
+def _remat_check(arch, size):
+    """Gradients with and without remat, the backward on this thread and on
+    another (where the scopes are not set): all bit for bit equal, under a
+    plan that gives layer 1 (and zamba's shared FFN) other substrates."""
     plan = splan.as_plan({"version": 1, "default": "approx_bitexact:proposed@8",
-                          "rules": [{"site": "layer.1.*", "spec": "approx_lut:csp_axc1@6"}]})
+                          "rules": [{"site": "layer.1.*", "spec": "approx_lut:csp_axc1@6"},
+                                    {"site": "shared.ffn.*",
+                                     "spec": "approx_lut:csp_axc5@7"}]})
     batch = {k: torch.from_numpy(v).long() for k, v in _batch().items()}
     runs = {}
     for remat in (False, True):
-        bundle = reg.get_bundle("minitron-8b", **SMALL, remat=remat)
+        bundle = reg.get_bundle(arch, **size, remat=remat)
         params = bundle.init_params(torch.Generator().manual_seed(3))
         for thread in (False, True):
             runs[remat, thread] = _grads(bundle, params, batch, plan, QATPolicy(),
@@ -444,6 +506,21 @@ def test_train_launcher_refuses_without_a_card_and_meshes(tmp_path):
             launch_train.main(FLAGS + ["--ckpt-dir", str(tmp_path)])
 
 
+def _repro_restores(ckpt_dir, jcfg, jopt):
+    """repro's ``load_checkpoint`` of the newest step into its own template
+    (its params and ``jopt``'s state, as shapes), which raises on a missing
+    leaf or a shape that differs; returns the restored tree after checking
+    that the checkpoint holds no leaf the template lacks."""
+    jb = jreg.build_bundle(jcfg)
+    params = jax.eval_shape(jb.init_params, jax.random.PRNGKey(0))
+    template = {"params": params, "opt": jax.eval_shape(jopt.init, params)}
+    tree, step, _ = jckpt.load_checkpoint(str(ckpt_dir), template)
+    step_dir = ckpt_dir / f"step_{step:010d}"
+    with np.load(step_dir / "arrays.npz") as z:
+        assert len(z.files) == len(jax.tree.leaves(template))
+    return tree
+
+
 @pytest.mark.parametrize("flags", [
     ["--arch", "llama4-maverick-400b-a17b", "--n-layers", "2", "--d-model", "32",
      "--d-ff", "64", "--vocab", "64", "--n-heads", "2", "--n-kv-heads", "2",
@@ -451,13 +528,53 @@ def test_train_launcher_refuses_without_a_card_and_meshes(tmp_path):
     FLAGS + ["--n-experts", "4"],
 ], ids=["llama4-maverick", "minitron-with-experts"])
 def test_train_launcher_refuses_moe_configs(tmp_path, flags):
-    """repro trains an MoE config with Adafactor on its stacked unit
-    tensors; the port raises rather than train it with AdamW, before any
-    parameter is drawn or checkpoint written."""
-    with pytest.raises(NotImplementedError, match="Adafactor.*queue 1 item 7"):
-        launch_train.main(flags + ["--device", "cpu", "--ckpt-dir",
-                                   str(tmp_path / "ckpt")])
-    assert not (tmp_path / "ckpt").exists()
+    """The launcher trains MoE configs (it once refused them) with repro's
+    choice of optimizer, Adafactor on repro's stacked tree: the checkpoint
+    it writes restores in repro's loader into repro's template of the
+    params and ``adafactor()``'s state, leaf for leaf, a stacked norm
+    scale's statistics factored."""
+    loop, params = launch_train.main(flags + [
+        "--device", "cpu", "--batch", "2", "--seq-len", "16", "--steps", "2",
+        "--ckpt-every", "2", "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert len(loop.metrics["losses"]) == 2 and all(
+        np.isfinite(loop.metrics["losses"]))
+    n_layers = int(flags[flags.index("--n-layers") + 1])
+    jcfg = jreg.get_config(flags[1], **{
+        k: int(flags[flags.index(f"--{k.replace('_', '-')}") + 1])
+        for k in ("n_layers", "d_model", "d_ff", "vocab", "n_heads", "n_kv_heads",
+                  "n_experts")})
+    tree = _repro_restores(tmp_path / "ckpt", jcfg, jadafactor())
+    period = len(tree["params"]["unit"])
+    ln = tree["opt"]["mv"]["unit"][0]["attn"]["ln"]
+    assert set(ln) == {"vr", "vc"} and ln["vr"].shape == (n_layers // period,)
+    want = convert.named_leaves(params)
+    back = loop.layout.from_tree(jax.tree.map(
+        lambda a: torch.from_numpy(np.asarray(a, np.float32)), tree["params"]))
+    assert all(torch.equal(want[k].float(), back[k]) for k in want)
+
+
+@pytest.mark.parametrize("arch", list(RECURRENT_SMALL))
+def test_train_launcher_trains_the_recurrent_families(tmp_path, arch):
+    """xlstm and zamba train through the launcher with AdamW, as repro's
+    launcher trains them; the checkpoint restores in repro's loader into
+    repro's template, the parameters bit for bit."""
+    size = RECURRENT_SMALL[arch]
+    flags = ["--arch", arch] + [a for k in ("n_layers", "d_model", "n_heads",
+                                            "n_kv_heads", "d_ff", "vocab")
+                                for a in (f"--{k.replace('_', '-')}", str(size[k]))]
+    loop, params = launch_train.main(flags + [
+        "--device", "cpu", "--batch", "2", "--seq-len", "16", "--steps", "2",
+        "--ckpt-every", "2", "--ckpt-dir", str(tmp_path / "ckpt")])
+    assert len(loop.metrics["losses"]) == 2 and all(
+        np.isfinite(loop.metrics["losses"]))
+    jcfg = jreg.get_config(arch, **{k: size[k] for k in (
+        "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab")})
+    tree = _repro_restores(tmp_path / "ckpt", jcfg, jadamw())
+    want = convert.named_leaves(params)
+    back = loop.layout.from_tree(jax.tree.map(
+        lambda a: torch.from_numpy(np.asarray(a, np.float32)), tree["params"]))
+    assert set(back) == set(want)
+    assert all(torch.equal(want[k].float(), back[k]) for k in want)
 
 
 def test_parse_plan_arg_cli_forms(tmp_path):

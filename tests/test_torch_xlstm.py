@@ -359,13 +359,15 @@ def test_init_and_decode_state_shapes_match_repro():
     assert all(t.dtype == torch.float32 and not t.any() for t in st)
 
 
-def test_launchers():
-    """``launch/serve.py`` serves the family on the CPU; ``launch/train.py``
-    refuses it (recurrent-family training, ROADMAP.md queue 1 item 7c)."""
+def test_launchers(tmp_path):
+    """``launch/serve.py`` serves the family on the CPU, and
+    ``launch/train.py`` trains it (AdamW, as ``repro``'s launcher)."""
     small = ["--device", "cpu", "--n-layers", "2", "--d-model", "32",
              "--vocab", "64", "--n-heads", "2", "--n-kv-heads", "2"]
     out = launch_serve.main(["--arch", ARCH, "--requests", "3", "--max-tokens",
                              "3", *small])
     assert [len(r.output) for r in out] == [3, 3, 3]
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        launch_train.main(["--arch", ARCH, "--steps", "1", *small])
+    loop, _ = launch_train.main(["--arch", ARCH, "--steps", "2", "--batch", "2",
+                                 "--seq-len", "16", "--ckpt-dir", str(tmp_path), *small])
+    assert len(loop.metrics["losses"]) == 2 and all(
+        np.isfinite(loop.metrics["losses"]))

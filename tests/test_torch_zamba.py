@@ -255,14 +255,16 @@ def test_init_params_match_repros_tree():
         jax.tree.map(lambda a: (a.shape, np.dtype(a.dtype).name), want)
 
 
-def test_launchers():
+def test_launchers(tmp_path):
     """``launch/serve.py`` serves zamba on the CPU (6 layers at d_model 32:
-    the shared block after the sixth, at the published period);
-    ``launch/train.py`` refuses it."""
+    the shared block after the sixth, at the published period), and
+    ``launch/train.py`` trains it (AdamW, as ``repro``'s launcher)."""
     small = ["--device", "cpu", "--n-layers", "6", "--d-model", "32",
              "--d-ff", "64", "--vocab", "64", "--n-heads", "2", "--n-kv-heads", "2"]
     out = launch_serve.main(["--arch", ARCH, "--requests", "3", "--max-tokens",
                              "3", *small])
     assert [len(r.output) for r in out] == [3, 3, 3]
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        launch_train.main(["--arch", ARCH, "--steps", "1", *small])
+    loop, _ = launch_train.main(["--arch", ARCH, "--steps", "2", "--batch", "2",
+                                 "--seq-len", "16", "--ckpt-dir", str(tmp_path), *small])
+    assert len(loop.metrics["losses"]) == 2 and all(
+        np.isfinite(loop.metrics["losses"]))
