@@ -141,9 +141,22 @@ state ``repro``'s Adafactor tree, the launchers' bundle served (phase
 backward), xlstm held to the table substrate at full depth, zamba at 6
 layers (one shared block), one zamba step traced (phase
 ``recurrent_train_path``); and the (M, K, N) these phases add, each
-checked against its plain twin and timed. Every phase prints one JSON
-line; the line before the last lists the kernels with their launches on
-the path that runs them (and, beside the rows of their design and shape,
+checked against its plain twin and timed.
+
+Last, the drivers (phase ``drivers_path``): every torch example
+(``examples/torch_*.py``, ``torch_train_lm.py`` with ``--full``) and ``python
+-m benchmarks.torch_run`` (all ten benches, not a dry run), each a
+subprocess on the card at its full size that must exit 0 (their own asserts
+are the gates), its JSON in ``chiprun_out/drivers/``, its headline numbers
+read from the JSON it writes (the benches) or prints last (the examples);
+each child's kernel launch counters start at 0 and are read at its end, by
+shape, and every kernel must have launched in the phase. Then each kernel,
+kind and design is held exactly to its plain version at every shape the
+drivers launched it (phase ``drivers_path_shapes``), and each kernel row
+gets the drivers' launches at its own design and shape
+(``launches_drivers_path``). Every phase prints one JSON line; the line
+before the last lists the kernels with their launches on the path that
+runs them (and, beside the rows of their design and shape,
 those of the new phases, counted by shape), their times and least-work
 bounds, and the last line is
 ``{"ok": true, "device": ...}``.
@@ -290,6 +303,55 @@ TOPK_SHAPES = {"attn.wq,wo": (7168, 7168, 2), "attn.wk,wv": (7168, 896, 2),
                "moe.shared.ffn.wo": (2048, 7168, 1)}
 #: the MoE crash/restart phase's cut: RESTART_SIZE at two units, 4 experts
 MOE_RESTART_SIZE = {**RESTART_SIZE, "n_layers": 4, "n_experts": 4}
+
+
+#: the drivers_path phase: every torch example and the bench harness, each
+#: run as a user runs it (a subprocess, PYTHONPATH=src, on the card) at its
+#: full size; "{out}" is chiprun_out/drivers. The training example's
+#: checkpoints go to DRIVER_CKPT, emptied before (a checkpoint of an earlier
+#: run would resume it) and removed after.
+DRIVER_CKPT = "build/chip_smoke_train_lm"
+DRIVERS = (
+    ("examples/torch_edge_detection.py", ()),
+    ("examples/torch_quickstart.py", ()),
+    ("examples/torch_serve_edge.py",
+     ("--metrics-out", "{out}/torch_serve_edge_metrics.json",
+      "--trace-out", "{out}/torch_serve_edge_trace.json")),
+    ("examples/torch_serve_lm.py", ()),
+    ("examples/torch_train_lm.py", ("--full", "--ckpt-dir", DRIVER_CKPT)),
+    ("benchmarks.torch_run", ("--json-dir", "{out}")),
+)
+#: a driver's time limit (s)
+DRIVER_TIMEOUT_S = 600
+#: the child that runs one driver as ``__main__`` with the kernels' launch
+#: counters set to 0 first, and prints them by shape on its last line
+DRIVER_CHILD = r"""
+import json, runpy, sys
+from repro_torch.kernels.approx_matmul.ops import closed_form_matmul as cf
+from repro_torch.kernels.approx_mul.ops import approx_mul
+from repro_torch.kernels.fused_conv.ops import fused_conv2d as fc
+from repro_torch.kernels.lut_matmul.ops import lut_matmul as lm
+counters = {"fused_conv_closed_form": fc.launches, "fused_conv_lut": fc.lut_launches,
+            "fused_conv_stencil": fc.stencil_launches,
+            "closed_form_tile": cf.launches, "closed_form_narrow": cf.narrow_launches,
+            "closed_form_decode": cf.decode_launches, "closed_form_rows": cf.rows_launches,
+            "lut_tile": lm.launches, "lut_narrow": lm.narrow_launches,
+            "lut_decode": lm.decode_launches, "lut_tensor": lm.tensor_launches,
+            "lut_rows": lm.rows_launches, "approx_mul": approx_mul.launches}
+for c in counters.values():
+    c.reset()
+target = sys.argv[1]
+sys.argv = sys.argv[1:]
+try:
+    if target.endswith(".py"):
+        runpy.run_path(target, run_name="__main__")
+    else:
+        runpy.run_module(target, run_name="__main__", alter_sys=True)
+finally:
+    print("DRIVER_LAUNCHES " + json.dumps(
+        {k: {"x".join(map(str, sh)): v for sh, v in c.by_shape().items()}
+         for k, c in counters.items()}), flush=True)
+"""
 
 
 def emit(phase: str, **fields) -> None:
@@ -2464,6 +2526,155 @@ def zamba_shapes(cfg) -> dict:
             for site, (k, n, _) in REC_SHAPES["zamba2-1.2b"].items()}
 
 
+def drivers_phase(out_dir: Path) -> dict:
+    """Phase drivers_path: each torch example and ``python -m
+    benchmarks.torch_run`` (every bench, not a dry run) as a subprocess on
+    the card at its full size, each exiting 0 (their own asserts are the
+    gates: batched == loop, kernel == core model, served == direct, every
+    worker-sweep row bit-identical, a recovered QAT point, every kernel
+    result of kernelbench equal to its plain version), their JSON in
+    ``chiprun_out/drivers``. Each child's kernel launch counters start at 0
+    and are read at its end; every kernel must have launched in the phase.
+    Returns the phase's launches by counter and shape ``"BxMxKxN"`` (the
+    fused conv's ``"BxHxWxKHxKW"``, ``approx_mul``'s its operands')."""
+    import os
+    import shutil
+
+    root = Path(__file__).resolve().parent
+    drv_out = out_dir / "drivers"
+    drv_out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    by_shape: dict = {}
+    records = []
+    t_phase = time.perf_counter()
+    shutil.rmtree(root / DRIVER_CKPT, ignore_errors=True)
+    for target, args in DRIVERS:
+        args = [a.replace("{out}", str(drv_out)) for a in args]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", DRIVER_CHILD, target, *args],
+                              cwd=root, env=env, capture_output=True, text=True,
+                              timeout=DRIVER_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        name = Path(target).stem if target.endswith(".py") else target
+        (drv_out / f"{name}.log").write_text(proc.stdout + proc.stderr)
+        lines = proc.stdout.splitlines()
+        require(proc.returncode == 0 and len(lines) >= 2
+                and lines[-1].startswith("DRIVER_LAUNCHES "),
+                f"driver {target} exited {proc.returncode}:\n"
+                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        launches = json.loads(lines[-1].split(" ", 1)[1])
+        for k, shapes in launches.items():
+            acc = by_shape.setdefault(k, {})
+            for sh, v in shapes.items():
+                acc[sh] = acc.get(sh, 0) + v
+        if target.endswith(".py"):  # an example prints a JSON line last
+            headline = json.loads(lines[-2])
+        else:
+            headline = bench_headline(drv_out)
+        rec = {"driver": target, "args": args, "seconds": seconds,
+               "launches": {k: sum(v.values()) for k, v in launches.items() if v},
+               **headline}
+        records.append(rec)
+        emit("drivers_path_driver", **rec)
+    shutil.rmtree(root / DRIVER_CKPT, ignore_errors=True)
+    total = {k: sum(v.values()) for k, v in by_shape.items()}
+    kernels = {"fused_conv": total.get("fused_conv_closed_form", 0)
+               + total.get("fused_conv_lut", 0),
+               "approx_matmul": sum(v for k, v in total.items()
+                                    if k.startswith("closed_form")),
+               "lut_matmul": sum(v for k, v in total.items() if k.startswith("lut")),
+               "approx_mul": total.get("approx_mul", 0)}
+    emit("drivers_path", seconds=time.perf_counter() - t_phase,
+         drivers=[r["driver"] for r in records], launches_by_kernel=kernels,
+         launches=total, launches_by_shape={k: v for k, v in by_shape.items() if v},
+         json_dir=str(drv_out.relative_to(root)))
+    require(all(v > 0 for v in kernels.values()),
+            f"every kernel launched by the drivers: {kernels}")
+    return by_shape
+
+
+def bench_headline(drv_out: Path) -> dict:
+    """The benches' headline numbers, from the JSON they wrote."""
+    serving = json.loads((drv_out / "BENCH_torch_serving.json").read_text())
+    qat = json.loads((drv_out / "BENCH_torch_qat.json").read_text())
+    autotune = json.loads((drv_out / "BENCH_torch_autotune.json").read_text())
+    return {"serving": [{k: r[k] for k in ("spec", "max_batch", "max_wait_ms",
+                                           "throughput_img_s", "latency_p50_ms",
+                                           "latency_p99_ms")}
+                        for r in serving["records"]],
+            "worker_sweep": [{k: r[k] for k in ("mode", "workers",
+                                                "throughput_img_s",
+                                                "latency_p50_ms",
+                                                "bit_identical_to_1worker")}
+                             for r in serving["worker_sweep"]["rows"]],
+            "recovered_points": [p["spec"] for p in qat["recovered_points"]],
+            "autotune_pdp_saved_frac": autotune["energy_saved_frac"],
+            "autotune_psnr_db": {k: autotune[k]["psnr_db"]
+                                 for k in ("uniform", "plan")}}
+
+
+def drivers_shape_checks(by_shape: dict, dev) -> None:
+    """Phase drivers_path_shapes: each kernel, kind and design at every
+    shape the drivers launched it, on seeded random operands, held exactly
+    to its plain version (on the card): a contraction design forced
+    through the private ``_launch(..., design=)`` under proposed@8 (the
+    tensor design: the exact table, the only one it takes); the fused conv
+    in each product kind the drivers launched at that shape, in each design
+    they launched there (the stencil counter spans both kinds), on random
+    (kh, kw) taps; ``approx_mul`` on random int8-range operands."""
+    from repro_torch.kernels.approx_matmul import ops as am
+    from repro_torch.kernels.approx_mul.ops import approx_mul, approx_mul_plain
+    from repro_torch.kernels.fused_conv import ops as fc
+    from repro_torch.kernels.lut_matmul import ops as lm
+
+    rng = np.random.default_rng(0)
+
+    def codes(shape, dtype=np.int8):
+        return torch.from_numpy(rng.integers(-128, 128, shape).astype(dtype)).to(dev)
+
+    t0 = time.perf_counter()
+    checks = []
+    for counter, shapes in sorted(by_shape.items()):
+        for s, n in sorted(shapes.items()):
+            shape = tuple(int(d) for d in s.split("x"))
+            pairs = []  # (what, got, want)
+            if counter.startswith(("closed_form_", "lut_")):
+                kind, design = counter.rsplit("_", 1)
+                bsz, m, k, nn = shape
+                a, b = codes((bsz, m, k)), codes((bsz, k, nn))
+                if kind == "closed_form":
+                    pairs.append((design, am._launch(a, b, "proposed@8", design=design),
+                                  am.closed_form_matmul_plain(a, b, "proposed@8")))
+                else:
+                    table = lm.device_table("exact" if design == "tensor"
+                                            else "proposed@8", dev)
+                    pairs.append((design, lm._launch(a, b, table, 8, design=design),
+                                  lm.lut_matmul_plain(a, b, table)))
+            elif counter in ("fused_conv_closed_form", "fused_conv_lut"):
+                kind = counter[len("fused_conv_"):]
+                bsz, h, w, kh, kw = shape
+                x = codes((bsz, h, w), np.int32)
+                taps = tuple(map(tuple, rng.integers(-128, 128, (kh, kw)).tolist()))
+                n_stencil = by_shape.get("fused_conv_stencil", {}).get(s, 0)
+                n_both = sum(by_shape.get(f"fused_conv_{k_}", {}).get(s, 0)
+                             for k_ in ("closed_form", "lut"))
+                want = fc.fused_conv2d_plain(x, taps, "proposed@8", kind)
+                for design in (["stencil"] if n_stencil else []) + (
+                        ["generic"] if n_both > n_stencil else []):
+                    pairs.append((design, fc._launch(x, taps, "proposed@8", kind,
+                                                     design=design), want))
+            elif counter == "approx_mul":
+                x, y = codes(shape, np.int32), codes(shape, np.int32)
+                pairs.append(("elementwise", approx_mul(x, y), approx_mul_plain(x, y)))
+            for what, got, want in pairs:
+                err = max_abs_err(got, want)
+                checks.append({"counter": counter, "design": what, "shape": s,
+                               "launches": n, "max_abs_err": err})
+                require(err == 0, f"drivers' shape {s} on {counter} ({what}): {err}")
+    torch.cuda.synchronize()
+    emit("drivers_path_shapes", seconds=time.perf_counter() - t0, checks=checks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -2472,6 +2683,7 @@ def main() -> int:
     from repro_torch.core import lut as lut_lib
     from repro_torch.core import multiplier as mult
     from repro_torch.data import image_batch, mixed_shape_batch, photo_like
+    from repro_torch.device import card_name
     from repro_torch.kernels import blocking, build
     from repro_torch.kernels.approx_matmul import ops as am
     from repro_torch.kernels.approx_matmul.ops import (closed_form_matmul,
@@ -2499,10 +2711,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
 
     # -- 1. device --------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=card,
@@ -3237,6 +3446,9 @@ def main() -> int:
     family_rows, family_work = family_phases(dev, card)
     rec_rows, rec_work = recurrent_phases(dev, card)
     train_rows, train_work, train_launched = train_family_phases(dev, card)
+    free_card()
+    driver_shapes = drivers_phase(out_dir)
+    drivers_shape_checks(driver_shapes, dev)
 
     def at_kn(by_shape: dict, k: int, n: int) -> dict:
         """The counted launches ("BxMxKxN" -> n) whose K and N are k and n."""
@@ -3270,6 +3482,28 @@ def main() -> int:
             if n_train:
                 row["launches_moe_train_path"] = n_train
     kernels += train_rows
+    # the drivers' launches beside each row, at the row's own kernel, kind,
+    # design and shape (``drivers_path`` lists them all by shape). The
+    # stencil counter spans both product kinds, so a fused conv row gets its
+    # kind's launches at its shape where every launch there took one
+    # design, and None where they were mixed
+    for row in kernels:
+        at = "x".join(map(str, row["shape"]))
+        if row["name"] == "approx_mul":
+            n = driver_shapes.get("approx_mul", {}).get(at, 0)
+        elif row["name"].startswith("fused_conv2d"):
+            n_kind = driver_shapes.get(f"fused_conv_{row['kind']}", {}).get(at, 0)
+            n_stencil = driver_shapes.get("fused_conv_stencil", {}).get(at, 0)
+            n_both = sum(driver_shapes.get(f"fused_conv_{k}", {}).get(at, 0)
+                         for k in ("closed_form", "lut"))
+            if n_stencil in (0, n_both):
+                n = n_kind if (n_stencil > 0) == (row["design"] == "stencil") else 0
+            else:
+                n = None
+        else:
+            kind = "lut" if row["name"].startswith("lut") else "closed_form"
+            n = driver_shapes.get(f"{kind}_{row['design']}", {}).get(at, 0)
+        row["launches_drivers_path"] = n
     # every row exact; launched on its path, except the tile designs at the
     # decode step's M = 8, which the served path must not launch at all
     require(all(k["max_abs_err"] == 0 and (k["launches"] == 0 if k.get("off_path")

@@ -280,8 +280,8 @@ def _launch(imgs: torch.Tensor, taps: tuple, key: str, kind: str,
             rc = fn(x.data_ptr(), out.data_ptr(), b, h, w, slots.ctypes.data,
                     kh, kw, cols.data_ptr(), cols.shape[0], n_bits, stream)
         build.check(rc, "fused_conv2d_stencil_launch")
-        fused_conv2d.stencil_launches.add()
-        counter.add()
+        fused_conv2d.stencil_launches.add((b, h, w, kh, kw))
+        counter.add((b, h, w, kh, kw))
         return out
     out = torch.empty_like(x)
     if kind == "lut":
@@ -293,7 +293,7 @@ def _launch(imgs: torch.Tensor, taps: tuple, key: str, kind: str,
             rc = fn(x.data_ptr(), out.data_ptr(), b, h, w, slots.ctypes.data,
                     kh, kw, cols.data_ptr(), cols.shape[0], n_bits, stream)
         build.check(rc, "fused_conv2d_lut_launch")
-        counter.add()
+        counter.add((b, h, w, kh, kw))
         return out
     tap_arr = np.ascontiguousarray(taps, dtype=np.int32)
     params = closed_form_params(key)
@@ -303,7 +303,7 @@ def _launch(imgs: torch.Tensor, taps: tuple, key: str, kind: str,
         rc = fn(x.data_ptr(), out.data_ptr(), b, h, w, tap_arr.ctypes.data,
                 kh, kw, params.ctypes.data, stream)
     build.check(rc, "fused_conv2d_launch")
-    counter.add()
+    counter.add((b, h, w, kh, kw))
     return out
 
 

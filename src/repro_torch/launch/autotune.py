@@ -48,7 +48,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.launch.train import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.nn import plan as plan_mod
 from repro_torch.nn import substrate as psub
 from repro_torch.obs.meter import ContractionMeter, pdp_per_mac_fj, telemetry_scope

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.checkpoint import save_plan_bundle
 from repro_torch.data import SyntheticLMStream
+from repro_torch.device import resolve_device
 from repro_torch.models import convert
 from repro_torch.models import registry as reg
 from repro_torch.nn import plan as plan_mod
@@ -86,15 +87,6 @@ def overrides_from(args) -> dict:
         out["dot_plan"] = plan_mod.SubstratePlan.uniform(
             plan_mod._check_spec(args.dot_mode))
     return out
-
-
-def resolve_device(name: str) -> torch.device:
-    """``--device``: the card unless the CPU is asked for; no card raises."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu "
-                           "to run the plain versions")
-    return device
 
 
 def main(argv=None):

@@ -79,7 +79,10 @@ def _run(n_layers, dtype, steps=3, jit=True):
     cfg = reg.get_config(ARCH, n_layers=n_layers, dtype=dtype, **SIZE)
     layout = convert.lm_layout(cfg)
     tp = convert.named_leaves(lm.init_params(cfg, torch.Generator().manual_seed(0)))
-    jp = tree_map(layout.to_tree(tp), convert._numpy)
+    # copies: a leaf's numpy view shares the port's tensor, which the port
+    # updates in place, and jnp.asarray may alias an aligned numpy buffer,
+    # so repro's asynchronously dispatched update could read it mid-update
+    jp = tree_map(layout.to_tree(tp), lambda t: convert._numpy(t).copy())
     jopt, topt = jadafactor(), adafactor(layout)
     jparams = jax.tree.map(jnp.asarray, jp)
     js, ts = jopt.init(jparams), topt.init(tp)

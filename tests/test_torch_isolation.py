@@ -5,6 +5,7 @@ device the entry points raise instead of quietly running on the CPU (a
 tensor's device decides, an explicit ``device="cpu"`` is the only way to the
 plain versions)."""
 import ast
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -22,8 +23,13 @@ from repro_torch.serving import EdgeDetectService, ServingEngine
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-#: the paper-table drivers of the port, beside the JAX package's
-TORCH_DRIVERS = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+#: the port's drivers beside the JAX package's: the paper tables and
+#: benches under benchmarks/, the examples under examples/
+TORCH_DRIVERS = (sorted((ROOT / "benchmarks").glob("torch_*.py"))
+                 + sorted((ROOT / "examples").glob("torch_*.py")))
+#: the JAX package's machine-readable results, which no port driver writes
+REFERENCE_BENCH_JSON = sorted(p.name for p in ROOT.glob("BENCH_*.json")
+                              if not p.name.startswith("BENCH_torch_"))
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -44,16 +50,75 @@ def test_no_jax_or_repro_imports(path):
 
 
 @pytest.mark.parametrize("path", TORCH_DRIVERS,
-                         ids=[p.name for p in TORCH_DRIVERS])
+                         ids=[str(p.relative_to(ROOT)) for p in TORCH_DRIVERS])
 def test_torch_drivers_import_no_jax_or_repro(path):
     assert not (_imported_roots(path) & FORBIDDEN), path
 
 
 def test_six_torch_drivers():
-    assert [p.name for p in TORCH_DRIVERS] == [
-        "torch_fig10_tradeoff.py", "torch_fig9_edge.py",
-        "torch_table2_compressors.py", "torch_table3_compressor4.py",
-        "torch_table4_errors.py", "torch_table5_hardware.py"]
+    """Named when the port had its six paper-table drivers; it now lists
+    all sixteen: those six, the four benches and the harness beside them,
+    and the five examples."""
+    assert [str(p.relative_to(ROOT)) for p in TORCH_DRIVERS] == [
+        "benchmarks/torch_autotune_plan.py", "benchmarks/torch_edge_serving.py",
+        "benchmarks/torch_fig10_tradeoff.py", "benchmarks/torch_fig9_edge.py",
+        "benchmarks/torch_kernelbench.py", "benchmarks/torch_qat_recovery.py",
+        "benchmarks/torch_run.py", "benchmarks/torch_table2_compressors.py",
+        "benchmarks/torch_table3_compressor4.py",
+        "benchmarks/torch_table4_errors.py", "benchmarks/torch_table5_hardware.py",
+        "examples/torch_edge_detection.py", "examples/torch_quickstart.py",
+        "examples/torch_serve_edge.py", "examples/torch_serve_lm.py",
+        "examples/torch_train_lm.py"]
+
+
+def _load_driver(path: Path):
+    spec = importlib.util.spec_from_file_location(f"_driver_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("path", TORCH_DRIVERS,
+                         ids=[str(p.relative_to(ROOT)) for p in TORCH_DRIVERS])
+def test_no_driver_defaults_to_a_reference_bench_json(path, monkeypatch):
+    """A driver's default JSON path, where it has one, is a BENCH_torch_*.json
+    at the repo root: never one of the JAX package's BENCH_*.json."""
+    assert REFERENCE_BENCH_JSON == ["BENCH_autotune.json", "BENCH_kernels.json",
+                                    "BENCH_qat.json", "BENCH_serving.json"]
+    monkeypatch.syspath_prepend(str(ROOT))
+    default = getattr(_load_driver(path), "DEFAULT_JSON", None)
+    if default is None:
+        return
+    assert default.parent == ROOT and default.name.startswith("BENCH_torch_")
+    assert default.name not in REFERENCE_BENCH_JSON
+
+
+NEW_DRIVERS = {
+    "examples/torch_edge_detection.py": lambda m: m.main(),
+    "examples/torch_quickstart.py": lambda m: m.main(),
+    "examples/torch_serve_edge.py": lambda m: m.main([]),
+    "examples/torch_serve_lm.py": lambda m: m.main(),
+    "examples/torch_train_lm.py": lambda m: m.main([]),
+    "benchmarks/torch_kernelbench.py": lambda m: m.run(json_path=None),
+    "benchmarks/torch_edge_serving.py": lambda m: m.run(json_path=None),
+    "benchmarks/torch_autotune_plan.py": lambda m: m.run(json_path=None),
+    "benchmarks/torch_qat_recovery.py": lambda m: m.run(json_path=None),
+    "benchmarks/torch_run.py": lambda m: m.main([]),
+}
+
+
+@pytest.mark.parametrize("rel", sorted(NEW_DRIVERS))
+def test_drivers_default_to_cuda(rel, monkeypatch):
+    """Called with their defaults, the drivers run on the card: with no
+    card they raise before any work, and only ``--device cpu`` (the tests'
+    ``device="cpu"``) reaches the plain versions."""
+    if torch.cuda.is_available():
+        assert launch_train.resolve_device("cuda").type == "cuda"
+        return
+    monkeypatch.syspath_prepend(str(ROOT))
+    mod = _load_driver(ROOT / rel)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        NEW_DRIVERS[rel](mod)
 
 
 def test_importing_the_port_loads_no_jax():
