@@ -37,10 +37,19 @@ versions) the wall clock. Every row also lands in a machine-readable
 ``BENCH_kernels.json`` is its own CPU run and is left alone), with the
 card's ``nvidia-smi`` name and power limit.
 
+``sharded=True`` (``--sharded``) adds the sharded ``dot_general`` rows
+(section ``sharded``, the reference's keys): each substrate's contraction
+under ``launch.mesh.contraction_partitioning`` of the ``("data",
+"model")`` mesh of the ranks ``torchrun`` starts (a world of one without
+it; ``--backend gloo``, the default: ``nccl`` is refused until a machine
+with a card a rank has run it), each bit-exact
+substrate's result held bit for bit against the rank's unsharded one. Every rank times the same calls; rank 0 alone runs the
+other sections, prints and writes the JSON.
+
 Standalone: ``python -m benchmarks.torch_kernelbench [--dry-run]
-[--substrates a,b] [--json PATH] [--device cpu]`` — ``--dry-run`` shrinks
-every shape. ``--sharded`` raises: partitioned contractions are ROADMAP.md
-queue 1 item 11.
+[--substrates a,b] [--json PATH] [--device cpu] [--sharded]`` —
+``--dry-run`` shrinks every shape; ``python -m torch.distributed.run
+--nproc-per-node 2 -m benchmarks.torch_kernelbench --sharded`` shards.
 """
 from __future__ import annotations
 
@@ -51,8 +60,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import card_name, resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import substrate as sub
 
 _REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -200,25 +211,66 @@ def _fused_conv_rows(rng, records, dry_run, device) -> list:
     return rows
 
 
-def run(substrates=None, sharded=False, dry_run=False,
-        json_path=DEFAULT_JSON, trace_path=None, device="cuda") -> list:
-    from repro_torch.obs import Tracer, tracing_scope, write_chrome_trace
-
-    if sharded:
-        raise NotImplementedError(
-            "sharded dot_general rows: partitioned contractions are not "
-            "ported yet (ROADMAP.md, queue 1 item 11)")
-    device = resolve_device(str(device))
-    tracer = Tracer() if trace_path else None
-    with tracing_scope(tracer):
-        rows = _run_benches(substrates, dry_run, json_path, device)
-    if trace_path:
-        p = write_chrome_trace(tracer, trace_path)
-        print(f"wrote {len(tracer.events())} trace events to {p}")
+def _sharded_rows(specs, a8, b8, macs, records, device,
+                  leader: bool) -> list:
+    """dot_general + Partitioning over the debug mesh of every rank; each
+    result held against the rank's unsharded ``dot_int``."""
+    rows = []
+    mesh = mesh_lib.make_debug_mesh()
+    part = mesh_lib.contraction_partitioning(mesh)
+    world = dist.get_world_size()
+    if leader:
+        print(f"\n== kernel bench: sharded dot_general (mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}, "
+              f"m_axis={part.m_axis}, k_axis={part.k_axis}, backend "
+              f"{dist.get_backend()}) ==")
+    for spec in specs:
+        s = sub.get_substrate(spec)
+        cspec = sub.ContractionSpec(partitioning=part)
+        got = s.dot_general(a8, b8, cspec)
+        if s.meta.bit_exact:  # approx_stat's per-shard correction is not
+            assert torch.equal(got, s.dot_int(a8, b8)), \
+                f"{spec}: sharded dot_general != the unsharded dot_int"
+        us = _time(lambda _s=s: _s.dot_general(a8, b8, cspec), device)
+        gmacs = macs / us / 1e3
+        if leader:
+            print(f"{spec:>16s}: {us:10.1f} us  ({gmacs:6.2f} GMAC/s) "
+                  "[sharded]")
+        rows.append((f"kernel/sharded_{s.meta.label}", us,
+                     f"gmacs={gmacs:.2f};devices={world}"))
+        records.append({"section": "sharded", "kernel": "dot_general",
+                        "spec": spec, "us": round(us, 1),
+                        "gmacs": round(gmacs, 3), "devices": world})
     return rows
 
 
-def _run_benches(substrates, dry_run, json_path, device) -> list:
+def run(substrates=None, sharded=False, dry_run=False,
+        json_path=DEFAULT_JSON, trace_path=None, device="cuda",
+        backend="gloo") -> list:
+    from repro_torch.obs import Tracer, tracing_scope, write_chrome_trace
+
+    device = resolve_device(str(device))
+    owns_group = sharded and not dist.is_initialized()
+    if sharded:
+        mesh_lib.init_ranks(backend)
+        device = mesh_lib.rank_device(device.type)
+    leader = not sharded or dist.get_rank() == 0
+    tracer = Tracer() if trace_path and leader else None
+    try:
+        with tracing_scope(tracer):
+            rows = _run_benches(substrates, sharded, dry_run, json_path,
+                                device, leader)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+    if tracer is not None:
+        p = write_chrome_trace(tracer, trace_path)
+        print(f"wrote {len(tracer.events())} trace events to {p}")
+    return rows if leader else []
+
+
+def _run_benches(substrates, sharded, dry_run, json_path, device,
+                 leader=True) -> list:
     rows = []
     records: list[dict] = []
     rng = np.random.default_rng(0)
@@ -227,9 +279,11 @@ def _run_benches(substrates, dry_run, json_path, device) -> list:
     b8 = _codes(rng, (k, n), device)
     specs = (list(substrates) if substrates else
              [s for s in sub.list_substrates() if s != "approx_pallas"])
+    macs = m * k * n
+    if not leader:  # the other ranks take part in the sharded rows only
+        return _sharded_rows(specs, a8, b8, macs, records, device, False)
     print(f"\n== kernel bench: int8 matmul substrates ({m}x{k}x{n}, "
           f"{device.type}) ==")
-    macs = m * k * n
     for spec in specs:
         s = sub.get_substrate(spec)
         if s.meta.preferred_backend == "cuda":  # the kernels' backend
@@ -244,6 +298,8 @@ def _run_benches(substrates, dry_run, json_path, device) -> list:
                         "spec": spec, "shape": [m, k, n], "us": round(us, 1),
                         "gmacs": round(gmacs, 3),
                         "cost_hint": s.meta.cost_hint})
+    if sharded:
+        rows.extend(_sharded_rows(specs, a8, b8, macs, records, device, True))
 
     # wiring × width sweep under the reference's approx_pallas specs, which
     # resolve onto approx_cuda: every CSP wiring rides the closed-form
@@ -311,7 +367,10 @@ def main() -> None:
     ap.add_argument("--dry-run", action="store_true",
                     help="tiny shapes — seconds-fast smoke run")
     ap.add_argument("--sharded", action="store_true",
-                    help="sharded dot_general rows: not ported yet (raises)")
+                    help="add sharded dot_general rows (debug mesh of the "
+                         "ranks torchrun starts)")
+    ap.add_argument("--backend", choices=mesh_lib.BACKENDS, default="gloo",
+                    help="process-group backend under --sharded")
     ap.add_argument("--substrates", default=None,
                     help="CSV of substrate specs (default: all registered, "
                          "the approx_pallas alias once as approx_cuda)")
@@ -328,7 +387,10 @@ def main() -> None:
     substrates = args.substrates.split(",") if args.substrates else None
     rows = run(substrates=substrates, sharded=args.sharded,
                dry_run=args.dry_run, json_path=args.json_path or None,
-               trace_path=args.trace_path, device=args.device)
+               trace_path=args.trace_path, device=args.device,
+               backend=args.backend)
+    if not rows:  # a rank other than 0 under --sharded
+        return
     print("\nname,us_per_call,derived")
     for name, us, derived in rows:
         print(f"{name},{us:.1f},{derived}")

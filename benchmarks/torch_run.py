@@ -8,8 +8,11 @@ tables as it goes). ``python -m benchmarks.torch_run [--only table4]
 substrate-sweep benches (fig9, kernel, serve_edge) default to their own
 sets (every registered substrate, the ``approx_pallas`` alias once as
 ``approx_cuda``; serve_edge the reference's four and ``approx_cuda``).
-``--sharded`` raises: partitioned contractions are ROADMAP.md queue 1
-item 11.
+``--sharded`` adds the kernel bench's sharded ``dot_general`` rows over
+the ``("data", "model")`` mesh of the ranks ``torchrun`` starts (a world
+of one without it; ``--backend gloo``, the default: ``nccl`` is refused
+until a machine with a card a rank has run it): the other ranks take part in
+those rows only, and rank 0 alone prints and writes.
 
 Machine-readable artifacts: the ``kernel`` bench writes
 ``BENCH_torch_kernels.json``, the ``serve_edge`` bench
@@ -26,6 +29,8 @@ from __future__ import annotations
 import argparse
 import pathlib
 
+import torch.distributed as dist
+
 from benchmarks import (
     torch_autotune_plan,
     torch_edge_serving,
@@ -39,6 +44,7 @@ from benchmarks import (
     torch_table5_hardware,
 )
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 
 MODULES = {
     "table2": torch_table2_compressors,
@@ -66,7 +72,10 @@ def main(argv=None) -> list:
                     help="CSV of substrate specs for the sweep benches "
                          "(default: each bench's own set)")
     ap.add_argument("--sharded", action="store_true",
-                    help="sharded dot_general rows: not ported yet (raises)")
+                    help="add the kernel bench's sharded dot_general rows "
+                         "(debug mesh of the ranks torchrun starts)")
+    ap.add_argument("--backend", choices=mesh_lib.BACKENDS, default="gloo",
+                    help="process-group backend under --sharded")
     ap.add_argument("--plan", default=None, metavar="PATH",
                     help="substrate-plan JSON or bundle dir for the "
                          "autotune bench (default: greedy search)")
@@ -77,11 +86,11 @@ def main(argv=None) -> list:
                     help="cuda (default; raises without a card) or cpu (the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: partitioned contractions are not ported yet "
-            "(ROADMAP.md, queue 1 item 11)")
     device = resolve_device(args.device)
+    owns_group = args.sharded and not dist.is_initialized()
+    if args.sharded:
+        mesh_lib.init_ranks(args.backend)
+    leader = not args.sharded or dist.get_rank() == 0
     substrates = args.substrates.split(",") if args.substrates else None
     json_dir = pathlib.Path(args.json_dir) if args.json_dir else None
     if json_dir is not None:
@@ -91,7 +100,11 @@ def main(argv=None) -> list:
     for name, mod in MODULES.items():
         if args.only and name != args.only:
             continue
+        if not leader and name != "kernel":
+            continue
         kwargs = {"device": device}
+        if name == "kernel":
+            kwargs.update(sharded=args.sharded, backend=args.backend)
         if name in _SUBSTRATE_SWEEPS:
             kwargs["substrates"] = substrates
         if name == "autotune":
@@ -99,6 +112,10 @@ def main(argv=None) -> list:
         if name in _JSON_BENCHES and json_dir is not None:
             kwargs["json_path"] = json_dir / mod.DEFAULT_JSON.name
         rows.extend(mod.run(**kwargs))
+    if owns_group:
+        dist.destroy_process_group()
+    if not leader:
+        return rows
 
     print("\nname,us_per_call,derived")
     for name, us, derived in rows:

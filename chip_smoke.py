@@ -143,6 +143,33 @@ layers (one shared block), one zamba step traced (phase
 ``recurrent_train_path``); and the (M, K, N) these phases add, each
 checked against its plain twin and timed.
 
+Then the partitioned paths, each on 4 ranks (processes spawned from this
+script after it built the kernels) of a 2 × 2 ``("data", "model")`` mesh
+on the one card over ``gloo``, every collective on a CUDA tensor staged
+through host buffers (its bytes counted per rank). Phase
+``partitioned_dot``: ``repro``'s sharded grid on the kernels (``exact``,
+``int8`` and ``approx_cuda`` at proposed@8, design_strollo2020 and
+csp_axc1@4; (8, 32, 8), (5, 19, 3), (16, 64, 4); M only, K only, M + K),
+every result equal to the same call unsharded on the rank, ``exact``'s
+float path within 1e-5, and minitron-8b's four dense shapes at M = 8 and
+256 under ``partitioning_scope``, bit for bit ``dense`` unsharded.
+Phase ``partitioned_edge_path``: ``EdgeDetectService(...,
+partitioning=)`` serves the 56-image mix in batches of 8 (rank 0 serves,
+the others follow), uniform ``approx_cuda`` and under ``PLAN``, every map
+byte-identical to ``main_path``'s / ``planned_path``'s, only narrow
+launches. Phase ``partitioned_train_path``: ``launch/train.py --mesh
+debug`` trains llama4-maverick at its published widths, cut
+(``PART_TRAIN_CUT``, printed with the reasons) to 2 layers and 4 experts (2
+a rank) at a capacity nothing overflows (``PART_TRAIN_FIELDS``), 3 QAT
+steps of batch 8 × 32: every leaf equal on the ranks that replicate it,
+the same run on ``approx_lut`` equal bit for bit, step 1's loss within
+1e-3 of the unsharded run's. Each phase prints the backend, world, mesh,
+bytes staged, each rank's peak device and resident host memory, and the
+host's memory before the ranks start; a rank that dies fails the phase
+with every rank's exit code. Every (kernel, design, shard shape) the
+ranks launched, on both edge paths, is then held exactly to its plain
+version (phases ``partitioned_*_shapes``).
+
 Last, the drivers (phase ``drivers_path``): every torch example
 (``examples/torch_*.py``, ``torch_train_lm.py`` with ``--full``) and ``python
 -m benchmarks.torch_run`` (all ten benches, not a dry run), each a
@@ -323,6 +350,38 @@ DRIVERS = (
 )
 #: a driver's time limit (s)
 DRIVER_TIMEOUT_S = 600
+#: the partitioned phases: PART_WORLD ranks on the one card, a 2 x 2
+#: ("data", "model") mesh over gloo (nccl needs a card a rank);
+#: each rank a process spawned from this script after the kernels are built
+PART_WORLD = 4
+PART_BACKEND = "gloo"
+PART_DIR = "build/chip_smoke_ranks"
+#: partitioned_dot: repro's sharded grid on the kernels, then minitron-8b's
+#: dense layers at M = 8 (decode) and 256 (prefill, training)
+PART_DOT_SPECS = ("exact", "int8", "approx_cuda:proposed@8",
+                  "approx_cuda:design_strollo2020", "approx_cuda:csp_axc1@4")
+PART_DOT_SHAPES = ((8, 32, 8), (5, 19, 3), (16, 64, 4))
+PART_DOT_AXES = (("data", None), (None, "model"), ("data", "model"))
+PART_DENSE_M = (8, 256)
+#: partitioned_train_path: llama4-maverick at its published widths, cut so
+#: that the 4 ranks' replicas fit the card; each cut with its reason
+PART_TRAIN_CUT = {
+    "n_layers": (2, "one unit (layer 0 dense, layer 1 the MoE), as "
+                    "moe_serving_path"),
+    "n_experts": (4, "every rank holds the whole model but its E / 2 experts, "
+                     "and 4 ranks share the card's 80 GB: at 8 experts (4 a "
+                     "rank) a rank peaks at 18.08 GB, and four of them left "
+                     "the card no margin beside this process"),
+}
+#: config fields the launcher has no flag for, set in each rank's registry
+PART_TRAIN_FIELDS = {
+    "capacity_factor": (4.0, "n_experts / top_k: no token can drop, so step "
+                             "1's loss can be held to the unsharded run's"),
+}
+PART_TRAIN_STEPS = 3
+#: the unsharded loss of step 1 against the sharded one (float32 sums in
+#: another order: the per-rank mean of shard means, the data all-reduce)
+PART_LOSS_RTOL = 1e-3
 #: the child that runs one driver as ``__main__`` with the kernels' launch
 #: counters set to 0 first, and prints them by shape on its last line
 DRIVER_CHILD = r"""
@@ -2526,6 +2585,465 @@ def zamba_shapes(cfg) -> dict:
             for site, (k, n, _) in REC_SHAPES["zamba2-1.2b"].items()}
 
 
+def launch_counters() -> dict:
+    """Every kernel's launch counter by kind and design (each counts by
+    shape too), as ``DRIVER_CHILD`` reads them."""
+    from repro_torch.kernels.approx_mul.ops import approx_mul
+    from repro_torch.kernels.fused_conv.ops import fused_conv2d as fc
+
+    return {**contraction_counters(),
+            "fused_conv_closed_form": fc.launches,
+            "fused_conv_lut": fc.lut_launches,
+            "fused_conv_stencil": fc.stencil_launches,
+            "approx_mul": approx_mul.launches}
+
+
+def launches_by_shape(counters: dict, since: dict | None = None) -> dict:
+    """Each counter's launches by shape (``"BxMxKxN"`` -> n), less those of
+    ``since`` (an earlier reading); counters and shapes with none left out."""
+    since = since or {}
+    out = {}
+    for k, c in counters.items():
+        got = {}
+        for sh, v in c.by_shape().items():
+            key = "x".join(map(str, sh))
+            n = v - since.get(k, {}).get(key, 0)
+            if n:
+                got[key] = n
+        if got:
+            out[k] = got
+    return out
+
+
+def host_memory_gb() -> dict:
+    """The host's total and available memory, in GB (``/proc/meminfo``)."""
+    fields = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        name, value = line.split(":", 1)
+        if name in ("MemTotal", "MemAvailable"):
+            fields[name] = int(value.split()[0]) * 1024 / 1e9
+    return {"total": fields["MemTotal"], "available": fields["MemAvailable"]}
+
+
+def process_memory_gb() -> dict:
+    """This process's resident memory now (``VmRSS`` of
+    ``/proc/self/status``) and at its peak (``ru_maxrss``: the card
+    machine's kernel reports no ``VmHWM``), in GB. A spawned rank's
+    ``ru_maxrss`` starts at its parent's, so a rank samples ``rss``
+    (:class:`Sampled`)."""
+    import resource
+
+    rss = None
+    for line in Path("/proc/self/status").read_text().splitlines():
+        name, _, value = line.partition(":")
+        if name == "VmRSS":
+            rss = int(value.split()[0]) * 1024 / 1e9
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    return {"rss": rss, "peak": peak}
+
+
+class Sampled:
+    """``fn()`` read every ``interval_s`` on a daemon thread while the
+    block runs (and once at each end); ``value`` is the ``pick`` (max or
+    min) of the readings."""
+
+    def __init__(self, fn, pick=max, interval_s: float = 0.01):
+        import threading
+
+        self.fn, self.pick, self.interval_s = fn, pick, interval_s
+        self.value = fn()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.value = self.pick(self.value, self.fn())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.value = self.pick(self.value, self.fn())
+
+
+def edge_mix(small: bool) -> list:
+    """main_path's 56 images (32 full-HD frames, 16 512×512, 8 ragged), or
+    a few small ones for a rehearsal on the CPU."""
+    from repro_torch.data import image_batch, mixed_shape_batch, photo_like
+
+    if small:
+        return list(image_batch(4, 32, 48, seed=0)) + mixed_shape_batch(4, seed=0)
+    return ([photo_like(1080, 1920, seed=i) for i in range(32)]
+            + list(image_batch(16, 512, 512, seed=0))
+            + mixed_shape_batch(8, seed=0))
+
+
+def leaf_digest(t: torch.Tensor) -> tuple:
+    """Two int64 sums of a tensor's bits (plain and position-weighted), in
+    chunks: equal tensors give equal digests, and a single flipped bit
+    changes the plain sum."""
+    bits = t.detach().reshape(-1).contiguous()
+    bits = bits.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[bits.element_size()])
+    total = weighted = 0
+    chunk = 1 << 26
+    for start in range(0, bits.numel(), chunk):
+        c = bits[start:start + chunk].to(torch.int64)
+        w = torch.arange(start, start + c.numel(), device=c.device) % 65521 + 1
+        total += int(c.sum())
+        weighted += int((c * w).sum())
+    return total, weighted
+
+
+def part_dot_program(rank: int, device_type: str, dense_shapes: dict) -> dict:
+    """partitioned_dot on one rank: ``repro``'s sharded grid on the kernels
+    (each result against the same call unsharded, bit for bit), the exact
+    float path, and minitron-8b's dense layers under ``partitioning_scope``
+    at M = 8 and 256 (proposed@8), each against ``dense`` unsharded."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry as reg
+    from repro_torch.nn import substrate as sub
+
+    dev = mesh_lib.rank_device(device_type, rank)
+    mesh = mesh_lib.make_debug_mesh()
+    rng = np.random.default_rng(3)
+    grid = []
+    for spec in PART_DOT_SPECS:
+        s = sub.get_substrate(spec)
+        for m, k, n in PART_DOT_SHAPES:
+            a = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(dev)
+            b = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(dev)
+            ref = s.dot_int(a, b)
+            for m_axis, k_axis in PART_DOT_AXES:
+                part = sub.Partitioning(mesh, m_axis=m_axis, k_axis=k_axis)
+                got = s.dot_general(a, b, sub.ContractionSpec(partitioning=part))
+                grid.append({"spec": spec, "shape": [m, k, n], "m_axis": m_axis,
+                             "k_axis": k_axis, "max_abs_err": max_abs_err(got, ref)})
+    part = sub.Partitioning(mesh, m_axis="data", k_axis="model")
+    x = torch.from_numpy(rng.normal(size=(6, 40)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.normal(size=(40, 8)).astype(np.float32)).to(dev)
+    q = sub.QuantPolicy()
+    e = sub.get_substrate("exact")
+    f_ref = e.dot_general(x, w, sub.ContractionSpec.matmul(quant=q))
+    f_got = e.dot_general(x, w, sub.ContractionSpec.matmul(quant=q, partitioning=part))
+    float_err = float((f_got - f_ref).abs().max())
+    float_ok = bool(torch.allclose(f_got, f_ref, rtol=1e-5, atol=1e-5))
+    cfg = reg.get_config(LM_ARCH, dot_plan="approx_cuda:proposed@8")
+    gen = torch.Generator(dev).manual_seed(7)  # the same on every rank
+    dense = []
+    for name, (k, n) in dense_shapes.items():
+        wt = (torch.randn((k, n), generator=gen, device=dev) / k ** 0.5).to(cfg.dtype)
+        for m in PART_DENSE_M:
+            xt = torch.randn((m, k), generator=gen, device=dev).to(cfg.dtype)
+            want = cm.dense(cfg, xt, wt, site="w")
+            with sub.partitioning_scope(part):
+                got = cm.dense(cfg, xt, wt, site="w")
+            dense.append({"layer": name, "shape": [m, k, n],
+                          "bit_identical": same_bits(got, want)})
+    return {"grid": grid, "exact_float_abs_err": float_err,
+            "exact_float_within_1e-5": float_ok, "dense": dense}
+
+
+def part_edge_program(rank: int, device_type: str, small: bool) -> dict:
+    """partitioned_edge_path on one rank: ``EdgeDetectService`` under the
+    2 × 2 contraction partitioning, uniform ``approx_cuda`` and then under
+    ``PLAN``, rank 0 serving the mix in batches of 8 on 2 workers (a
+    warm-up pass of every bucket shape, then one timed window), the others
+    following; each path's launches by shape (the rank's reading at its
+    end holds both paths')."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serving import EdgeDetectService
+
+    dev = mesh_lib.rank_device(device_type, rank)
+    part = mesh_lib.contraction_partitioning(mesh_lib.make_debug_mesh())
+    counters = launch_counters()
+    out: dict = {}
+    for what, spec in (("uniform", "approx_cuda"), ("planned", PLAN)):
+        before = launches_by_shape(counters)
+        svc = EdgeDetectService(spec, device=dev, max_batch_size=8,
+                                bucket_granularity=16, n_workers=2,
+                                partitioning=part)
+        res: dict = {}
+        try:
+            if svc.leader:
+                images = edge_mix(small)
+                svc.detect(images[:8] + images[32:40] + images[48:])  # warm-up
+                svc.metrics.reset()
+                t0 = time.perf_counter()
+                res["maps"] = svc.detect(images, timeout=600.0)
+                wall = time.perf_counter() - t0
+                st = svc.metrics.snapshot()
+                res["window"] = {"images": len(images), "wall_s": wall,
+                                 "images_per_s": len(images) / wall,
+                                 "latency_p50_ms": st["latency_p50_ms"],
+                                 "latency_p99_ms": st["latency_p99_ms"],
+                                 "batches": st["batches_flushed"]}
+        finally:
+            svc.close()
+        if device_type == "cuda":
+            torch.cuda.synchronize()
+        res["followed"] = svc.followed
+        res["launches_by_shape"] = launches_by_shape(counters, since=before)
+        out[what] = res
+    return out
+
+
+def part_train_program(rank: int, device_type: str, argv: list,
+                       fields: dict) -> dict:
+    """partitioned_train_path on one rank: ``launch.train.main(argv)``
+    (``--mesh debug``, or ``none`` for the unsharded run) with ``fields``
+    set in this process's registry entry of the arch, the losses, the wall
+    time and a digest of every parameter the rank holds."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import convert
+    from repro_torch.models import registry as reg
+
+    reg.register(reg.get_config(argv[argv.index("--arch") + 1], **fields))
+    t0 = time.perf_counter()
+    loop, params = launch_train.main(argv)
+    wall = time.perf_counter() - t0
+    return {"losses": list(loop.metrics["losses"]), "wall_s": wall,
+            "digests": {k: leaf_digest(t)
+                        for k, t in convert.named_leaves(params).items()}}
+
+
+PART_PROGRAMS = {"dot": part_dot_program, "edge": part_edge_program,
+                 "train": part_train_program}
+
+
+def part_rank(rank: int, world: int, init_file: str, out_fmt: str,
+              program: str, args: tuple) -> None:
+    """One rank of a partitioned phase: joins the gloo group (a file
+    rendezvous), sets every launch counter and the staged-byte count to 0,
+    runs the program and saves its result with the launches by shape, the
+    bytes staged through the host, the peak device memory and the peak
+    resident host memory (``VmRSS`` sampled every 10 ms)."""
+    import torch.distributed as dist
+
+    from repro_torch.nn import collectives as coll
+
+    device_type = args[0]
+    if device_type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(PART_BACKEND, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        counters = launch_counters()
+        for c in counters.values():
+            c.reset()
+        coll.reset_staged()
+        if device_type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Sampled(lambda: process_memory_gb()["rss"]) as rss:
+            out = PART_PROGRAMS[program](rank, *args)
+            if device_type == "cuda":
+                torch.cuda.synchronize()
+        out.update(
+            rank=rank, seconds=time.perf_counter() - t0,
+            backend=dist.get_backend(), world=dist.get_world_size(),
+            staged_bytes=coll.staged_bytes(),
+            peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                     if device_type == "cuda" else None),
+            host_peak_gb=rss.value,
+            launches_by_shape=launches_by_shape(counters))
+        torch.save(out, out_fmt.format(rank=rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(program: str, *args, world: int = PART_WORLD) -> tuple:
+    """Run ``program`` on ``world`` ranks spawned from this script → (every
+    rank's result in rank order, the least host memory available while
+    they ran, GB, sampled every 50 ms). A rank that fails fails the phase
+    (the others are stopped); the error names every rank's exit code (a
+    negative one is the signal that ended it) and the host's memory."""
+    import os
+    import shutil
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    tmp = Path(__file__).resolve().parent / PART_DIR / f"{program}_{world}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    fmt = str(tmp / "rank{rank}.pt")
+    # the ranks share the card: each caching allocator returns what it
+    # frees between a step's large transients instead of holding it
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ctx = mp.start_processes(part_rank, nprocs=world, join=False,
+                                 start_method="spawn", args=(
+                                     world, str(tmp / "rendezvous"), fmt,
+                                     program, args))
+        try:
+            with Sampled(lambda: host_memory_gb()["available"], pick=min,
+                         interval_s=0.05) as available:
+                while not ctx.join():
+                    pass
+        except ProcessException as e:
+            codes = [p.exitcode for p in ctx.processes]
+            raise RuntimeError(
+                f"partitioned {program}: rank {e.error_index} failed; the "
+                f"ranks' exit codes {codes}; host memory {host_memory_gb()} "
+                "GB") from e
+    finally:
+        if prev is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+    return [torch.load(fmt.format(rank=r), weights_only=False)
+            for r in range(world)], available.value
+
+
+def merge_by_shape(results: list) -> dict:
+    """The ranks' launches by counter and shape, summed."""
+    total: dict = {}
+    for r in results:
+        for k, shapes in r["launches_by_shape"].items():
+            acc = total.setdefault(k, {})
+            for sh, v in shapes.items():
+                acc[sh] = acc.get(sh, 0) + v
+    return total
+
+
+def rank_records(results: list) -> list:
+    return [{k: r[k] for k in ("rank", "seconds", "staged_bytes", "peak_gb",
+                               "host_peak_gb")}
+            for r in results]
+
+
+def partitioned_phases(card: str, served: list, p_served: list,
+                       device_type: str = "cuda", small: bool = False,
+                       dense_shapes: dict | None = None,
+                       train_over: list | None = None) -> dict:
+    """The three partitioned phases, each on PART_WORLD ranks of a 2 × 2
+    ``("data", "model")`` mesh over gloo; returns each phase's launches by
+    counter and shape, summed over the ranks. ``device_type``, ``small``
+    and the overrides shrink the phases for a rehearsal on the CPU."""
+    import shutil
+
+    from repro_torch.models import convert
+
+    mesh_info = {"backend": PART_BACKEND, "world": PART_WORLD,
+                 "mesh": {"data": PART_WORLD // 2, "model": 2}, "card": card,
+                 "parent_allocated_gb": (torch.cuda.memory_allocated() / 1e9
+                                         if device_type == "cuda" else None),
+                 "parent_host_gb": process_memory_gb(),
+                 "host_memory_gb_at_start": host_memory_gb()}
+    shapes: dict = {}
+
+    # -- partitioned_dot ---------------------------------------------------
+    res, available = spawn_ranks("dot", device_type, dense_shapes or {
+        name: (k, n) for name, (k, n, _) in LM_SHAPES.items()})
+    shapes["partitioned_dot"] = merge_by_shape(res)
+    grid_err = max(g["max_abs_err"] for r in res for g in r["grid"])
+    float_err = max(r["exact_float_abs_err"] for r in res)
+    float_ok = all(r["exact_float_within_1e-5"] for r in res)
+    dense_ok = all(d["bit_identical"] for r in res for d in r["dense"])
+    emit("partitioned_dot", **mesh_info, grid_cases=len(res[0]["grid"]),
+         grid_max_abs_err=grid_err, exact_float_max_abs_err=float_err,
+         exact_float_within_rtol_atol_1e5=float_ok,
+         dense=[{k: d[k] for k in ("layer", "shape")} for d in res[0]["dense"]],
+         dense_bit_identical=dense_ok, ranks=rank_records(res),
+         host_available_min_gb=available,
+         launches_by_shape=shapes["partitioned_dot"])
+    require(grid_err == 0 and dense_ok and float_ok,
+            f"partitioned_dot: grid {grid_err}, dense {dense_ok}, "
+            f"exact float {float_err}")
+
+    # -- partitioned_edge_path ---------------------------------------------
+    res, available = spawn_ranks("edge", device_type, small)
+    shapes["partitioned_edge_path"] = merge_by_shape(res)  # both paths
+    for what, want in (("uniform", served), ("planned", p_served)):
+        paths = [r[what] for r in res]
+        maps = paths[0]["maps"]
+        require(len(maps) == len(want) and all(
+            np.array_equal(a, b) for a, b in zip(maps, want)),
+            f"partitioned {what} maps differ from the unsharded ones")
+        require(all(p["followed"] == paths[1]["followed"] > 0 for p in paths[1:]),
+                f"followers executed {[p['followed'] for p in paths[1:]]}")
+        emit("partitioned_edge_path", path=what, **mesh_info,
+             window=paths[0]["window"], byte_identical=True,
+             followed=paths[1]["followed"],
+             launches_by_shape=merge_by_shape(paths))
+    emit("partitioned_edge_path", path="both", **mesh_info,
+         ranks=rank_records(res), host_available_min_gb=available,
+         launches_by_shape=shapes["partitioned_edge_path"])
+    narrow = shapes["partitioned_edge_path"]
+    require(device_type == "cpu" or (
+            narrow.get("closed_form_narrow") and narrow.get("lut_narrow")
+            and set(narrow) == {"closed_form_narrow", "lut_narrow"}),
+            f"partitioned edge launches {sorted(narrow)}: the narrow designs "
+            "only (the fused conv is off under a partitioning)")
+
+    # -- partitioned_train_path --------------------------------------------
+    root = Path(__file__).resolve().parent
+    ckpt = root / PART_DIR / "ckpt"
+    cut = [a for k, (v, _) in PART_TRAIN_CUT.items()
+           for a in (f"--{k.replace('_', '-')}", str(v))]
+    fields = {k: v for k, (v, _) in PART_TRAIN_FIELDS.items()}
+    base = ["--arch", MOE_ARCH, *cut, "--batch", str(TRAIN_BATCH[0]),
+            "--seq-len", str(TRAIN_BATCH[1]), "--qat", "--ckpt-every", "1000",
+            "--device", device_type, *(train_over or [])]
+    runs, available = {}, {}
+    for tag, spec, mesh, steps, world in (
+            ("kernels", "approx_cuda:proposed@8", "debug", PART_TRAIN_STEPS, PART_WORLD),
+            ("table", "approx_lut:proposed@8", "debug", PART_TRAIN_STEPS, PART_WORLD),
+            ("unsharded", "approx_cuda:proposed@8", "none", 1, 1)):
+        shutil.rmtree(ckpt, ignore_errors=True)
+        argv = base + ["--dot-mode", spec, "--mesh", mesh, "--backend",
+                       PART_BACKEND, "--steps", str(steps), "--ckpt-dir", str(ckpt)]
+        runs[tag], available[tag] = spawn_ranks("train", device_type, argv,
+                                                fields, world=world)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kern, table = runs["kernels"], runs["table"]
+    losses = kern[0]["losses"]
+    replicas_equal = all(
+        r["digests"][name] == kern[(r["rank"] % 2 if convert.is_expert_name(name)
+                                    else 0)]["digests"][name]
+        for r in kern for name in r["digests"])
+    table_equal = all(a["losses"] == b["losses"] and a["digests"] == b["digests"]
+                      for a, b in zip(kern, table))
+    single = runs["unsharded"][0]["losses"][0]
+    rel = abs(losses[0] - single) / abs(single)
+    shapes["partitioned_train_path"] = merge_by_shape(kern)
+    emit("partitioned_train_path", **mesh_info, arch=MOE_ARCH,
+         cuts={k: {"value": v, "reason": why} for k, (v, why) in PART_TRAIN_CUT.items()},
+         fields={k: {"value": v, "reason": why}
+                 for k, (v, why) in PART_TRAIN_FIELDS.items()},
+         qat="approx_cuda:proposed@8", optimizer="adafactor (repro's stacked tree)",
+         batch=list(TRAIN_BATCH), steps=PART_TRAIN_STEPS, losses=losses,
+         unsharded_step1_loss=single, step1_rel_diff=rel,
+         replicas_bit_identical=replicas_equal, equal_to_approx_lut=table_equal,
+         ranks=rank_records(kern), ranks_table=rank_records(table),
+         unsharded=rank_records(runs["unsharded"]),
+         host_available_min_gb=available,
+         launches_by_shape=shapes["partitioned_train_path"])
+    require(all(np.isfinite(losses)) and all(r["losses"] == losses for r in kern),
+            f"partitioned training losses {[r['losses'] for r in kern]}")
+    require(replicas_equal, "every leaf equal on the ranks that replicate it")
+    require(table_equal, "the kernels' run equal to approx_lut's, bit for bit")
+    require(rel <= PART_LOSS_RTOL, f"step 1 loss {losses[0]} vs unsharded "
+                                   f"{single}: {rel}")
+    train = shapes["partitioned_train_path"]
+    require(device_type == "cpu" or set(train) == {"closed_form_rows"},
+            f"partitioned training launches {sorted(train)}: the rows design "
+            "alone")
+    dot = shapes["partitioned_dot"]
+    require(device_type == "cpu" or (dot.get("closed_form_decode")
+                                     and dot.get("closed_form_rows")),
+            f"partitioned dense launches {sorted(dot)}: decode and rows")
+    return shapes
+
+
 def drivers_phase(out_dir: Path) -> dict:
     """Phase drivers_path: each torch example and ``python -m
     benchmarks.torch_run`` (every bench, not a dry run) as a subprocess on
@@ -2613,9 +3131,32 @@ def bench_headline(drv_out: Path) -> dict:
                                  for k in ("uniform", "plan")}}
 
 
-def drivers_shape_checks(by_shape: dict, dev) -> None:
-    """Phase drivers_path_shapes: each kernel, kind and design at every
-    shape the drivers launched it, on seeded random operands, held exactly
+def row_launches(row: dict, by_shape: dict):
+    """The launches in ``by_shape`` (counter → "BxMxKxN" → n) at a kernels
+    row's own kernel, kind, design and shape. The stencil counter spans both
+    product kinds, so a fused conv row gets its kind's launches at its shape
+    where every launch there took one design, and None where they were
+    mixed."""
+    at = "x".join(map(str, row["shape"]))
+    if row["name"] == "approx_mul":
+        return by_shape.get("approx_mul", {}).get(at, 0)
+    if row["name"].startswith("fused_conv2d"):
+        n_kind = by_shape.get(f"fused_conv_{row['kind']}", {}).get(at, 0)
+        n_stencil = by_shape.get("fused_conv_stencil", {}).get(at, 0)
+        n_both = sum(by_shape.get(f"fused_conv_{k}", {}).get(at, 0)
+                     for k in ("closed_form", "lut"))
+        if n_stencil in (0, n_both):
+            return n_kind if (n_stencil > 0) == (row["design"] == "stencil") else 0
+        return None
+    kind = "lut" if row["name"].startswith("lut") else "closed_form"
+    return by_shape.get(f"{kind}_{row['design']}", {}).get(at, 0)
+
+
+def drivers_shape_checks(by_shape: dict, dev,
+                         phase: str = "drivers_path_shapes") -> None:
+    """Phase drivers_path_shapes (or ``phase``): each kernel, kind and
+    design at every shape a phase launched it (the drivers, a partitioned
+    phase's ranks), on seeded random operands, held exactly
     to its plain version (on the card): a contraction design forced
     through the private ``_launch(..., design=)`` under proposed@8 (the
     tensor design: the exact table, the only one it takes); the fused conv
@@ -2672,7 +3213,7 @@ def drivers_shape_checks(by_shape: dict, dev) -> None:
                                "launches": n, "max_abs_err": err})
                 require(err == 0, f"drivers' shape {s} on {counter} ({what}): {err}")
     torch.cuda.synchronize()
-    emit("drivers_path_shapes", seconds=time.perf_counter() - t0, checks=checks)
+    emit(phase, seconds=time.perf_counter() - t0, checks=checks)
 
 
 def main() -> int:
@@ -3447,6 +3988,10 @@ def main() -> int:
     rec_rows, rec_work = recurrent_phases(dev, card)
     train_rows, train_work, train_launched = train_family_phases(dev, card)
     free_card()
+    part_shapes = partitioned_phases(card, served, p_served)
+    for phase, by_shape in part_shapes.items():
+        drivers_shape_checks(by_shape, dev, phase=f"{phase}_shapes")
+    free_card()
     driver_shapes = drivers_phase(out_dir)
     drivers_shape_checks(driver_shapes, dev)
 
@@ -3483,27 +4028,15 @@ def main() -> int:
                 row["launches_moe_train_path"] = n_train
     kernels += train_rows
     # the drivers' launches beside each row, at the row's own kernel, kind,
-    # design and shape (``drivers_path`` lists them all by shape). The
-    # stencil counter spans both product kinds, so a fused conv row gets its
-    # kind's launches at its shape where every launch there took one
-    # design, and None where they were mixed
+    # design and shape (``drivers_path`` lists them all by shape)
     for row in kernels:
-        at = "x".join(map(str, row["shape"]))
-        if row["name"] == "approx_mul":
-            n = driver_shapes.get("approx_mul", {}).get(at, 0)
-        elif row["name"].startswith("fused_conv2d"):
-            n_kind = driver_shapes.get(f"fused_conv_{row['kind']}", {}).get(at, 0)
-            n_stencil = driver_shapes.get("fused_conv_stencil", {}).get(at, 0)
-            n_both = sum(driver_shapes.get(f"fused_conv_{k}", {}).get(at, 0)
-                         for k in ("closed_form", "lut"))
-            if n_stencil in (0, n_both):
-                n = n_kind if (n_stencil > 0) == (row["design"] == "stencil") else 0
-            else:
-                n = None
-        else:
-            kind = "lut" if row["name"].startswith("lut") else "closed_form"
-            n = driver_shapes.get(f"{kind}_{row['design']}", {}).get(at, 0)
-        row["launches_drivers_path"] = n
+        row["launches_drivers_path"] = row_launches(row, driver_shapes)
+        # the partitioned phases' launches, where a rank's shard shape is
+        # the row's (each phase's record lists all its launches by shape)
+        for phase, by_shape in part_shapes.items():
+            n = row_launches(row, by_shape)
+            if n:
+                row[f"launches_{phase}"] = n
     # every row exact; launched on its path, except the tile designs at the
     # decode step's M = 8, which the served path must not launch at all
     require(all(k["max_abs_err"] == 0 and (k["launches"] == 0 if k.get("off_path")

@@ -20,23 +20,31 @@ compile, execute, wait, crop) as a Chrome/Perfetto trace.
 ``--workers N`` serves through N concurrent batcher workers, each
 dispatching on its own CUDA stream (batch k+1 is enqueued while batch k
 runs); outputs stay bit-identical at every worker count. ``--sharded``
-raises: partitioned serving is ROADMAP.md queue 1 item 11. Run as a
-script, its last line is a JSON object of the requests served, the
-throughput and the p50 / p99 latency.
+partitions the served contractions over the ``("data", "model")`` mesh of
+the ranks ``torchrun`` starts (a world of one without it; ``--backend
+gloo``, the default: ``nccl`` is refused until a machine with a card a
+rank has run it): rank 0 serves and checks the maps,
+the other ranks follow its batches. Run as a script, rank 0's last line is
+a JSON object of the requests served, the throughput and the p50 / p99
+latency.
 
 Run:  PYTHONPATH=src python examples/torch_serve_edge.py [--smoke]
       [--substrate approx_lut:design_du2022] [--requests 24]
       [--workers 4] [--device cpu]
       [--metrics-out serve.json] [--trace-out trace.json]
+      python -m torch.distributed.run --nproc-per-node 2 \
+          examples/torch_serve_edge.py --sharded
 """
 import argparse
 import json
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.data import mixed_shape_batch
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import conv
 from repro_torch.obs import (ContractionMeter, MetricsRegistry, Tracer,
                              telemetry_scope, tracing_scope, write_chrome_trace,
@@ -58,7 +66,10 @@ def main(argv=None) -> dict:
                     help="batcher worker threads, each on its own CUDA "
                          "stream (dispatch of batch k+1 overlaps batch k)")
     ap.add_argument("--sharded", action="store_true",
-                    help="partitioned serving: not ported yet (raises)")
+                    help="partition the served contractions over the debug "
+                         "mesh of the ranks torchrun starts")
+    ap.add_argument("--backend", choices=mesh_lib.BACKENDS, default="gloo",
+                    help="process-group backend under --sharded")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny fast run for CI (few small images)")
     ap.add_argument("--device", default="cuda",
@@ -71,11 +82,14 @@ def main(argv=None) -> dict:
                     help="write a Chrome/Perfetto trace-event JSON of the "
                          "serving spans")
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: partitioned serving is not ported yet (ROADMAP.md, "
-            "queue 1 item 11)")
     device = resolve_device(args.device)
+    partitioning, owns_group = None, False
+    if args.sharded:
+        owns_group = not dist.is_initialized()
+        mesh_lib.init_ranks(args.backend)
+        device = mesh_lib.rank_device(device.type)
+        partitioning = mesh_lib.contraction_partitioning(
+            mesh_lib.make_debug_mesh())
 
     if args.smoke:
         args.requests = 6
@@ -93,14 +107,26 @@ def main(argv=None) -> dict:
                                 max_batch_size=args.max_batch,
                                 max_wait_s=args.max_wait_ms * 1e-3,
                                 n_workers=args.workers,
+                                partitioning=partitioning,
                                 metrics=ServingMetrics(registry=registry))
+        if not svc.leader:  # follow rank 0's batches until it stops
+            svc.close()
+            if owns_group:
+                dist.destroy_process_group()
+            return {"images": imgs, "outputs": None, "stats": None,
+                    "meter": meter.summary(), "spec": svc.spec,
+                    "followed": svc.followed}
+        sharded = (f", sharded over {dist.get_world_size()} rank(s), "
+                   f"backend {dist.get_backend()}" if args.sharded else "")
         print(f"serving {len(imgs)} mixed-shape images on "
               f"substrate={svc.spec!r} (max_batch={args.max_batch}, "
               f"max_wait={args.max_wait_ms}ms, workers={args.workers}, "
-              f"device={device.type})")
+              f"device={device.type}{sharded})")
 
         outs = svc.detect(imgs)
         svc.close()
+    if owns_group:
+        dist.destroy_process_group()
 
     # every served map must be bit-identical to the direct batched pipeline
     for im, out in zip(imgs, outs):
@@ -135,5 +161,7 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     stats = main()["stats"]
-    print(json.dumps({k: stats[k] for k in (
-        "requests_served", "throughput_rps", "latency_p50_ms", "latency_p99_ms")}))
+    if stats is not None:  # rank 0, or the only one
+        print(json.dumps({k: stats[k] for k in (
+            "requests_served", "throughput_rps", "latency_p50_ms",
+            "latency_p99_ms")}))

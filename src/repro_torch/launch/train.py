@@ -27,8 +27,24 @@ overrides the expert count), vlm, encdec, xlstm and zamba::
         --n-layers 6 --d-model 64 --d-ff 128 --vocab 512 --n-heads 4 \
         --n-kv-heads 4 --batch 2 --seq-len 16 --steps 4
 
-``--mesh`` takes only ``none``: the device meshes come with the partitioned
-paths (ROADMAP.md queue 1 item 11).
+``--mesh debug`` trains over the ``("data", "model")`` mesh of the ranks
+that ``torchrun`` starts (a world of one without it), on the process-group
+backend ``--backend`` (``gloo``, the default, runs every rank on one card;
+``nccl``, which needs a card a rank, is refused until a machine with more
+than one card has run it), as ``repro`` trains under ``with mesh:``::
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --mesh debug --arch llama4-maverick-400b-a17b \
+        --n-layers 2 --n-experts 4 --batch 8 --seq-len 32 --steps 3 --qat \
+        --dot-mode approx_cuda:proposed@8
+
+Each rank takes its "data" shard of every batch; every gradient is the
+mean over the "data" group; an MoE config runs expert-parallel, each rank
+holding its E / M experts (``convert.shard_experts``). Rank 0 alone prints
+and writes checkpoints and ``--qat-out`` bundles, in ``repro``'s
+unsharded on-disk format (the expert shards gathered to it).
+``--mesh pod|multipod`` (256 / 512 devices) serve the dry-run tooling,
+ROADMAP.md queue 1 item 12, and raise.
 """
 from __future__ import annotations
 
@@ -36,12 +52,16 @@ import argparse
 import json
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import save_plan_bundle
 from repro_torch.data import SyntheticLMStream
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import convert
 from repro_torch.models import registry as reg
+from repro_torch.models import sharding as sh
+from repro_torch.nn import collectives as coll
 from repro_torch.nn import plan as plan_mod
 from repro_torch.optim import adafactor, adamw, warmup_cosine
 from repro_torch.train import QATPolicy, TrainLoop, TrainLoopConfig
@@ -102,6 +122,10 @@ def main(argv=None):
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--mesh", choices=["none", "debug", "pod", "multipod"],
                     default="none")
+    ap.add_argument("--backend", choices=mesh_lib.BACKENDS, default="gloo",
+                    help="process-group backend under --mesh debug: gloo "
+                         "(every rank may share one card); nccl is refused "
+                         "(ROADMAP.md, queue 1 item 14)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu (the "
                          "kernels' plain versions)")
@@ -122,14 +146,34 @@ def main(argv=None):
     add_reduced_overrides(ap)
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
+    if args.mesh in ("pod", "multipod"):
         raise NotImplementedError(
-            f"--mesh {args.mesh}: device meshes come with the partitioned "
-            "paths (ROADMAP.md, queue 1 item 11); pass --mesh none")
+            f"--mesh {args.mesh}: the production meshes (256 / 512 devices) "
+            "serve the TPU-mesh dry-run tooling (ROADMAP.md, queue 1 item "
+            "12); pass --mesh debug or none")
     device = resolve_device(args.device)
     overrides = overrides_from(args)
     cfg = reg.get_config(args.arch, **overrides)
     bundle = reg.build_bundle(cfg)
+    mesh, owns_group, shards, shard = None, False, 1, 0
+    if args.mesh == "debug":
+        owns_group = not dist.is_initialized()
+        mesh_lib.init_ranks(args.backend)
+        device = mesh_lib.rank_device(device.type)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        mesh = mesh_lib.make_debug_mesh()
+        if cfg.n_experts:
+            shards = coll.axis_size(mesh, "model")
+            shard = coll.axis_index(mesh, "model")
+            tokens = args.batch * args.seq_len
+            if cfg.n_experts % shards or tokens % (
+                    coll.axis_size(mesh, "data") * shards):
+                raise ValueError(
+                    f"expert parallelism over {tuple(mesh.mesh.shape)} ranks "
+                    f"needs the {cfg.n_experts} experts and the {tokens} "
+                    "tokens of a batch to divide into the shards")
+    leader = mesh is None or dist.get_rank() == 0
     # as repro chooses: Adafactor on its stacked tree for the MoE configs
     optimizer = adafactor(bundle.layout) if cfg.n_experts else adamw()
     qat_policy = (QATPolicy(forward=args.qat_forward,
@@ -142,33 +186,51 @@ def main(argv=None):
                         grad_accum=args.grad_accum, qat=qat_policy,
                         plan=overrides.get("dot_plan")),
         lr_schedule=warmup_cosine(args.lr, max(1, args.steps // 10), args.steps),
-        layout=bundle.layout)
+        layout=bundle.layout, mesh=mesh)
     stream = SyntheticLMStream(vocab=cfg.vocab, batch=args.batch,
                                seq_len=args.seq_len, seed=0)
 
-    params, opt_state, start = loop.init_or_restore(
-        lambda: bundle.init_params(torch.Generator(device).manual_seed(0), device))
+    def init():
+        params = bundle.init_params(torch.Generator(device).manual_seed(0),
+                                    device)
+        return (convert.shard_experts(params, shard, shards) if shards > 1
+                else params)
+
+    params, opt_state, start = loop.init_or_restore(init)
     # read back from loop.cfg: restore may have adopted the checkpoint's
     # plan/policy, and what the loop runs is what should be reported
     qat_tag = f" qat={loop.cfg.qat.forward}" if loop.cfg.qat is not None else ""
     plan_tag = f" plan={loop.cfg.plan.label}" if loop.cfg.plan is not None else ""
     n_params = sum(t.numel() for t in convert.named_leaves(params).values())
-    print(f"[train] arch={args.arch} start_step={start}{plan_tag}{qat_tag} "
-          f"params={n_params:,} device={device}")
-    params, _, _ = loop.run(
-        params, opt_state, stream, start,
-        on_step=lambda s, l: (s % 10 == 0) and print(
-            f"  step {s:5d} loss {l:.4f}", flush=True))
+    if mesh is not None and leader:
+        print(f"[train] mesh=debug backend={dist.get_backend()} "
+              f"world={dist.get_world_size()} shape={tuple(mesh.mesh.shape)} "
+              f"axes={tuple(mesh.mesh_dim_names)} expert_shards={shards}")
+    if leader:
+        print(f"[train] arch={args.arch} start_step={start}{plan_tag}{qat_tag} "
+              f"params={n_params:,} device={device}")
+    with sh.mesh_scope(mesh):
+        params, opt_state, _ = loop.run(
+            params, opt_state, stream, start,
+            on_step=lambda s, l: leader and (s % 10 == 0) and print(
+                f"  step {s:5d} loss {l:.4f}", flush=True))
     if args.qat_out:
         plan = loop.cfg.plan or plan_mod.SubstratePlan.uniform("exact")
-        path = save_plan_bundle(
-            args.qat_out, plan,
-            bundle.layout.to_tree(convert.named_leaves(params)),
-            extra={"arch": args.arch,
-                   "final_loss": loop.metrics.get("final_loss"),
-                   "qat": (loop.cfg.qat.describe()
-                           if loop.cfg.qat is not None else None)})
-        print(f"[train] wrote plan bundle: {path}")
+        tree = loop.gather_experts(
+            bundle.layout.to_tree(convert.named_leaves(params)))
+        if leader:
+            path = save_plan_bundle(
+                args.qat_out, plan, tree,
+                extra={"arch": args.arch,
+                       "final_loss": loop.metrics.get("final_loss"),
+                       "qat": (loop.cfg.qat.describe()
+                               if loop.cfg.qat is not None else None)})
+            print(f"[train] wrote plan bundle: {path}")
+    if owns_group:
+        dist.barrier()
+        dist.destroy_process_group()
+    if not leader:
+        return loop, params
 
     fl = loop.metrics["final_loss"]
     print(f"[train] done: "

@@ -31,9 +31,11 @@ runs the experts as three batched products outside the substrate, as
 at ``layer.<i>.moe.shared.ffn.w*``. :func:`attn_block` takes precomputed
 cross-attention K/V (``cross_kv``) for the encoder-decoder family.
 
-Not ported: the expert-parallel MoE (``_moe_block_ep``, a ``shard_map`` over
-a mesh's "model" axis) and ``sharding.constrain``, which have no meaning
-without a mesh (ROADMAP.md queue 1 item 11).
+Under a mesh with a "model" axis (:func:`repro_torch.models.sharding.mesh_scope`)
+the MoE runs expert-parallel (:func:`_moe_block_ep`, ``repro``'s
+``shard_map`` body with its collectives called eagerly), and :func:`dense`
+shards its contraction under an ambient
+:func:`repro_torch.nn.substrate.partitioning_scope`.
 """
 from __future__ import annotations
 
@@ -47,6 +49,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import sharding as sh
+from repro_torch.nn import collectives as coll
 from repro_torch.nn import plan as splan
 from repro_torch.nn import substrate as psub
 from repro_torch.obs.trace import trace_span
@@ -281,12 +285,16 @@ def dense(cfg: ModelConfig, x: Tensor, w: Tensor, b: Optional[Tensor] = None,
     ``scan_site_scope`` and ``lax.switch``. The contraction runs through
     ``dot_general`` with the default quantization policy, or through the
     ambient :func:`repro_torch.nn.substrate.dot_override_scope` hook where
-    one is installed (QAT's straight-through contraction).
+    one is installed (QAT's straight-through contraction). Under an ambient
+    :func:`repro_torch.nn.substrate.partitioning_scope` the contraction is
+    sharded over its mesh.
     """
     plan = substrate_plan(cfg)
     _, (name,) = splan.current_sites(site)
     spec_str = plan.resolve(name)
-    cspec = psub.ContractionSpec.matmul(quant=_DENSE_QUANT, site=name or None)
+    cspec = psub.ContractionSpec.matmul(
+        quant=_DENSE_QUANT, partitioning=psub.current_partitioning(),
+        site=name or None)
     override = psub.current_dot_override()
     if override is not None:
         out = override(spec_str, x, w, cspec)
@@ -503,11 +511,30 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, device=None) -> MoE:
 
 
 def moe_block(cfg: ModelConfig, p: MoE, x: Tensor) -> Tensor:
-    """Top-k capacity-based MoE (token-dropping on overflow): ``repro``'s
-    local path, every expert on this device. ``repro``'s expert-parallel
-    path (``_moe_block_ep``: all-to-alls over a mesh's "model" axis) needs a
-    mesh and comes with the partitioned paths (ROADMAP.md queue 1 item 11).
+    """Top-k capacity-based MoE (token-dropping on overflow).
+
+    Under a mesh with a "model" axis (``sharding.mesh_scope``), on
+    ``repro``'s conditions — the global token count divides into the data
+    × model shards, the experts into the model shards — dispatch runs
+    expert-parallel (:func:`_moe_block_ep`). There ``x`` is this rank's
+    data shard of the batch (the data-parallel split is the caller's, as
+    the launcher's) and ``p`` holds this rank's E / M experts
+    (``convert.shard_experts``). Otherwise every expert is on this device
+    and the local path runs.
     """
+    mesh = sh.current_mesh()
+    if mesh is not None and "model" in coll.axis_names(mesh):
+        dp = tuple(a for a in ("pod", "data") if a in coll.axis_names(mesh))
+        m_size = coll.axis_size(mesh, "model")
+        dp_size = math.prod(coll.axis_size(mesh, a) for a in dp)
+        t = x.shape[0] * x.shape[1] * dp_size  # the global token count
+        if t % (dp_size * m_size) == 0 and cfg.n_experts % m_size == 0:
+            return _moe_block_ep(cfg, p, x, mesh)
+    if p.wi.shape[0] != cfg.n_experts:
+        raise ValueError(
+            f"the MoE holds {p.wi.shape[0]} of {cfg.n_experts} experts, and "
+            "the expert-parallel conditions do not hold here (a mesh with a "
+            "'model' axis, tokens and experts divisible by its shards)")
     return _moe_block_local(cfg, p, x)
 
 
@@ -591,6 +618,56 @@ def _moe_block_local(cfg: ModelConfig, p: MoE, x: Tensor) -> Tensor:
     y = _combine_local(out, info, t)
     if cfg.shared_expert:
         # ffn_block adds its input back; repro subtracts it again
+        with splan.site_scope("moe", "shared"):
+            y = y + (ffn_block(cfg, p.shared, xn.reshape(b, s, d))
+                     - xn.reshape(b, s, d)).reshape(t, d)
+    return x + y.reshape(b, s, d).to(x.dtype)
+
+
+def _moe_block_ep(cfg: ModelConfig, p: MoE, x: Tensor, mesh) -> Tensor:
+    """Expert-parallel MoE: local dispatch → all-to-all → FFN → all-to-all.
+
+    ``repro``'s ``shard_map`` body, run on every rank with its collectives
+    over the "model" group: ``x`` is the rank's data shard, replicated over
+    "model", and each model rank routes a distinct 1/M slice of its tokens
+    (``repro`` keeps the boundary data-sharded and slices inside the body
+    for the same reason), so every dispatch is done once. The buffer's
+    expert dim goes to the experts' owners and its capacity dim is
+    gathered, the rank's E / M experts run, the reverse all-to-all brings
+    the results home and the slices are gathered over "model". The shared
+    expert stays replicated, outside the body, as in ``repro``.
+
+    Gradients as ``jax.grad`` of ``repro``'s: ``shard_map``'s transpose
+    sums the cotangent of an input the body sees replicated over "model"
+    (``xn``, the router) over "model", and divides the cotangent of an
+    output replicated over "model" by M (``coll.replicated_in`` /
+    ``replicated_out``). The experts, sharded over "model", keep this
+    rank's; a leaf replicated over "data" is the caller's to reduce.
+    """
+    b, s, d = x.shape
+    t = b * s
+    xn = rms_norm(x, p.ln).reshape(t, d)
+    m_size = coll.axis_size(mesh, "model")
+    if p.wi.shape[0] * m_size != cfg.n_experts:
+        raise ValueError(
+            f"expert parallelism over {m_size} model shards needs "
+            f"{cfg.n_experts // m_size} experts a rank, got {p.wi.shape[0]} "
+            "(convert.shard_experts takes a rank's shard)")
+    xn_l = coll.replicated_in(xn, mesh, "model")
+    router = coll.replicated_in(p.router, mesh, "model")
+    t_mm = t // m_size
+    m_idx = coll.axis_index(mesh, "model")
+    xn_mine = xn_l[m_idx * t_mm:(m_idx + 1) * t_mm]
+    buf, info = _dispatch_local(cfg, xn_mine, router)           # (E, C_l, d)
+    buf = coll.all_to_all(buf, mesh, "model", split_axis=0,
+                          concat_axis=1)                        # (E_l, C_l·M, d)
+    out = _expert_ffn(p, buf)
+    out = coll.all_to_all(out, mesh, "model", split_axis=1,
+                          concat_axis=0)                        # (E, C_l, d)
+    y_mine = _combine_local(out, info, t_mm)                    # (t_mm, d)
+    y = coll.replicated_out(coll.all_gather(y_mine, mesh, "model", dim=0),
+                            mesh, "model")
+    if cfg.shared_expert:
         with splan.site_scope("moe", "shared"):
             y = y + (ffn_block(cfg, p.shared, xn.reshape(b, s, d))
                      - xn.reshape(b, s, d)).reshape(t, d)

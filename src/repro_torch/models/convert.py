@@ -468,3 +468,72 @@ def adamw_state_from_jax(cfg: cm.ModelConfig, tree: Dict[str, Any],
     ``device``, keyed by the LM's parameter names."""
     return tree_map(lm_layout(cfg).state_from_tree(tree),
                 lambda a: _tensor(a, device))
+
+
+# ---------------------------------------------------------------------------
+# expert shards (the expert-parallel MoE)
+# ---------------------------------------------------------------------------
+
+#: the MoE leaves stacked over experts, which expert parallelism shards
+EXPERT_LEAVES = ("wi", "wg", "wo")
+
+
+def is_expert_name(name: str) -> bool:
+    """Whether a flat parameter name (``layers.1.moe.wi``, or an optimizer
+    statistic below it) is a leaf stacked over experts."""
+    return expert_axis(tuple(name.split("."))) is not None
+
+
+def expert_axis(path) -> Optional[int]:
+    """The expert axis of a leaf of ``repro``'s tree — parameters, or an
+    optimizer statistic below one — that is stacked over experts, else
+    None: 1 under a stacked ``unit``, 0 otherwise."""
+    path = tuple(path)
+    for j, seg in enumerate(path[:-1]):
+        if seg == "moe" and path[j + 1] in EXPERT_LEAVES:
+            return 1 if "unit" in path[:j] else 0
+    return None
+
+
+def map_experts(tree, fn, path: Tuple = ()):
+    """A copy of ``tree`` with ``fn(leaf, axis)`` at each leaf stacked over
+    experts (:func:`expert_axis`); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: map_experts(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_experts(v, fn, path + (i,))
+                          for i, v in enumerate(tree))
+    axis = expert_axis(path)
+    return tree if axis is None else fn(tree, axis)
+
+
+def expert_shard(leaf, axis: int, index: int, count: int):
+    """Shard ``index`` of ``count`` of a leaf along its expert axis."""
+    e = leaf.shape[axis]
+    if e % count:
+        raise ValueError(f"{e} experts do not split into {count} shards")
+    size = e // count
+    sl = [slice(None)] * len(leaf.shape)
+    sl[axis] = slice(index * size, (index + 1) * size)
+    return leaf[tuple(sl)]
+
+
+def shard_expert_tree(tree, index: int, count: int):
+    """One model shard of ``repro``'s tree: every leaf stacked over experts
+    (``(n_units, E, d, f)`` in a unit, ``(E, d, f)`` in the tail) cut to
+    its ``index``-th of ``count`` expert blocks."""
+    return map_experts(tree, lambda t, a: expert_shard(t, a, index, count))
+
+
+@torch.no_grad()
+def shard_experts(params: nn.Module, index: int, count: int) -> nn.Module:
+    """Keep only shard ``index`` of ``count`` of every MoE layer's experts
+    in ``params`` (in place: the full tensors are released)."""
+    for mod in params.modules():
+        if isinstance(mod, cm.MoE):
+            for leaf in EXPERT_LEAVES:
+                t = getattr(mod, leaf)
+                setattr(mod, leaf, nn.Parameter(
+                    expert_shard(t, 0, index, count).clone(),
+                    requires_grad=False))
+    return params

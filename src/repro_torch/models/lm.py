@@ -32,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as cm
+from repro_torch.models import sharding as sh
 from repro_torch.nn import plan as splan
 from repro_torch.nn import substrate as psub
 
@@ -147,7 +148,8 @@ def _maybe_remat(cfg: cm.ModelConfig, fn):
     records, else ``fn`` itself.
 
     The layer reads thread-local ambients: the site stack, the plan
-    override and the contraction override (QAT's STE). On the card,
+    override, the contraction override (QAT's STE), the partitioning and
+    the mesh (the expert-parallel MoE). On the card,
     autograd runs the backward, and so the recompute, on its own device
     thread, where none of them is set; they are captured here and entered
     again around every run of ``fn``, so the recompute contracts on the
@@ -158,10 +160,13 @@ def _maybe_remat(cfg: cm.ModelConfig, fn):
     sites = splan.current_site_stack()
     plan = splan.current_plan_override()
     override = psub.current_dot_override()
+    part = psub.current_partitioning()
+    mesh = sh.current_mesh()
 
     def replay(*args):
         with splan.site_stack_scope(sites), splan.plan_override_scope(plan), \
-                psub.dot_override_scope(override):
+                psub.dot_override_scope(override), \
+                psub.partitioning_scope(part), sh.mesh_scope(mesh):
             return fn(*args)
 
     return lambda *args: checkpoint(replay, *args, use_reentrant=False,

@@ -127,7 +127,7 @@ def _meter_fused(s, imgs: Tensor, kernel, kh: int, kw: int, site=None) -> None:
 
 
 def conv2d_batched(imgs: Tensor, kernel, substrate="approx_bitexact",
-                   fused: "bool | None" = None,
+                   partitioning=None, fused: "bool | None" = None,
                    site: "str | None" = None) -> Tensor:
     """Batched 'same' integer convolution under a substrate.
 
@@ -135,11 +135,17 @@ def conv2d_batched(imgs: Tensor, kernel, substrate="approx_bitexact",
     convolved independently with the same kernel); kernel: (kh, kw) ints.
     Returns int32 of imgs' shape.
 
+    ``partitioning``: optional
+    :class:`repro_torch.nn.substrate.Partitioning` — shards the im2col
+    contraction over its mesh (bit-identical for bit-exact substrates).
+
     ``fused`` selects the substrate's fused conv kernel: ``None`` (default)
-    picks it whenever the substrate has ``fused_conv2d`` (``approx_cuda``);
-    ``True`` forces it (raising where unavailable); ``False`` forces the
-    im2col + ``dot_general`` path. Both are bit-identical. ``site`` names
-    the contraction site (observational only).
+    picks it whenever the substrate has ``fused_conv2d`` (``approx_cuda``)
+    and no partitioning was requested; ``True`` forces it (raising where
+    unavailable or partitioned: the fused kernel contracts K in full on
+    one rank); ``False`` forces the im2col + ``dot_general`` path. Both are
+    bit-identical. ``site`` names the contraction site (observational
+    only).
     """
     from repro_torch.nn import substrate as sub
 
@@ -153,12 +159,16 @@ def conv2d_batched(imgs: Tensor, kernel, substrate="approx_bitexact",
         raise ValueError(f"imgs must be (B,H,W) or (B,H,W,C); got {tuple(imgs.shape)}")
     kh, kw = tuple(kernel.shape) if hasattr(kernel, "shape") else np.shape(kernel)
     if fused is None:
-        fused = hasattr(s, "fused_conv2d")
+        fused = partitioning is None and hasattr(s, "fused_conv2d")
     if fused:
         if not hasattr(s, "fused_conv2d"):
             raise ValueError(
                 f"fused=True but substrate {s.meta.spec} has no fused conv "
                 "kernel (only approx_cuda does); use fused=False")
+        if partitioning is not None:
+            raise ValueError(
+                "fused=True is incompatible with partitioning — the fused "
+                "kernel contracts K in full inside one device kernel")
         _meter_fused(s, imgs, kernel, kh, kw, site=site)
         out = s.fused_conv2d(imgs, kernel)
     else:
@@ -166,8 +176,10 @@ def conv2d_batched(imgs: Tensor, kernel, substrate="approx_bitexact",
         # takes them by value, so it adds no blocking host→device copy
         kernel_t = _kernel_tensor(kernel, imgs.device)
         patches = _im2col(imgs, kh, kw)  # (B, H, W, kh·kw)
+        spec = sub.ContractionSpec(_CONV_DIMS, partitioning=partitioning,
+                                   site=site)
         out = s.dot_general(patches, kernel_t.reshape(kh * kw, 1),
-                            sub.ContractionSpec(_CONV_DIMS, site=site))[..., 0]
+                            spec)[..., 0]
     if nhwc:
         out = out.reshape(b, c, h, w).permute(0, 2, 3, 1)
     return out
@@ -182,19 +194,23 @@ def edge_detect(img_u8: Tensor, mult_name: str = "proposed") -> Tensor:
     return torch.clamp(_rescale_raw(raw, n), 0, 255).to(torch.uint8)
 
 
-def edge_detect_batched(imgs_u8: Tensor, substrate="approx_bitexact") -> Tensor:
+def edge_detect_batched(imgs_u8: Tensor, substrate="approx_bitexact",
+                        partitioning=None) -> Tensor:
     """Laplacian edge maps for a (B, H, W) uint8 batch under one substrate.
 
     Pixels are mapped into the substrate's operand width and the response
-    rescaled back to the 8-bit output range. Returns (B, H, W) uint8 on the
-    input's device.
+    rescaled back to the 8-bit output range. Under a ``partitioning`` the
+    contraction is sharded over its mesh (every rank passes the whole
+    batch and gets every map), bit-identical for bit-exact substrates.
+    Returns (B, H, W) uint8 on the input's device.
     """
     from repro_torch.nn import substrate as sub
 
     s = sub.as_substrate(substrate)
     n = s.meta.width
     px = to_signed_pixels(imgs_u8, n)
-    raw = conv2d_batched(px, LAPLACIAN, s, site=EDGE_SITE)
+    raw = conv2d_batched(px, LAPLACIAN, s, partitioning=partitioning,
+                         site=EDGE_SITE)
     return torch.clamp(_rescale_raw(raw, n), 0, 255).to(torch.uint8)
 
 
@@ -217,7 +233,7 @@ def edge_tap_sites() -> tuple:
     return tuple(f"{EDGE_SITE}.{name}" for name, _ in _EDGE_TAP_GROUPS)
 
 
-def edge_detect_planned(imgs_u8: Tensor, plan) -> Tensor:
+def edge_detect_planned(imgs_u8: Tensor, plan, partitioning=None) -> Tensor:
     """Laplacian edge maps under a per-site :class:`~repro_torch.nn.plan.SubstratePlan`.
 
     The 3×3 conv splits into tap groups — ``conv.edge.center`` (the ×8 tap)
@@ -227,6 +243,7 @@ def edge_detect_planned(imgs_u8: Tensor, plan) -> Tensor:
     exact int32 adder. Every substrate corrects its own f(0,0) padding, so a
     uniform plan reproduces :func:`edge_detect_batched` exactly. Per-group
     widths ≤ 8 rescale by left shifts, which distribute over the adder.
+    ``partitioning`` shards each group's contraction over its mesh.
     Returns (B, H, W) uint8 on the input's device.
     """
     from repro_torch.kernels import build
@@ -246,8 +263,9 @@ def edge_detect_planned(imgs_u8: Tensor, plan) -> Tensor:
         coeffs = build.device_constant(
             ("edge_taps", name), imgs_u8.device,
             lambda taps=taps: lap[list(taps)].reshape(len(taps), 1))
-        raw = s.dot_general(patches, coeffs,
-                            sub.ContractionSpec(_CONV_DIMS, site=site))[..., 0]
+        spec = sub.ContractionSpec(_CONV_DIMS, partitioning=partitioning,
+                                   site=site)
+        raw = s.dot_general(patches, coeffs, spec)[..., 0]
         r = _rescale_raw(raw, n)
         total = r if total is None else total + r
     return torch.clamp(total, 0, 255).to(torch.uint8)

@@ -4,8 +4,9 @@ Counterpart of ``repro.nn.substrate``. A substrate bundles one
 ``dot_general``-style contraction entry point
 
 * ``dot_general(x, w, spec)`` — a :class:`ContractionSpec` carries jax-style
-  *dimension numbers* and an optional :class:`QuantPolicy` (the float→intN
-  quantization boundary);
+  *dimension numbers*, an optional :class:`QuantPolicy` (the float→intN
+  quantization boundary) and an optional :class:`Partitioning` (the
+  contraction sharded over a ``DeviceMesh``, one process per rank);
 
 plus ``scalar(a, b)`` (the raw product model), ``dot_int(a, b)`` (2-D
 integer contraction, exact int32-ring adder) and :class:`SubstrateMeta`.
@@ -52,7 +53,7 @@ import contextlib
 import dataclasses
 import functools
 import threading
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,7 +118,7 @@ class SubstrateMeta:
 
 
 # ---------------------------------------------------------------------------
-# Contraction policies: dimension numbers + quantization
+# Contraction policies: dimension numbers + quantization + partitioning
 # ---------------------------------------------------------------------------
 
 #: jax ``dot_general``-style dimension numbers:
@@ -168,6 +169,63 @@ class QuantPolicy:
 
 
 @dataclasses.dataclass(frozen=True)
+class Partitioning:
+    """Mesh lowering policy: shard the contraction over a ``DeviceMesh``.
+
+    m_axis: mesh axis carrying data-parallel output rows (the flattened lhs
+            free dims). Rows pad up to the axis size and crop after.
+    k_axis: mesh axis the contraction dim is reduce-scattered over. Each
+            shard contracts its K slice locally (every backend's own
+            per-shard f(0,0) k-padding correction applies *inside* the
+            shard), then partial sums combine with an int32 psum_scatter
+            (psum when N doesn't divide the axis). int32 addition is exact,
+            so bit-exact backends stay bit-identical to the unsharded path
+            regardless of reduction order. When K doesn't divide the axis
+            size, the global zero-pad is corrected once with the wiring's
+            f(0,0) after the reduce — only possible for scalar-faithful
+            substrates (``approx_stat`` requires divisible K).
+
+    The port runs one process per mesh rank. Every rank holds the whole
+    operands and gets the whole result, as ``repro``'s callers hold global
+    arrays: a rank contracts its block and the collectives combine them
+    (:func:`_sharded_dot`).
+
+    ``approx_stat`` caveat: its separable correction rounds once per shard
+    instead of once globally, so sharded results may differ from unsharded
+    by the per-shard truncation (the backend is not bit_exact to begin
+    with).
+    """
+
+    mesh: Any
+    m_axis: Optional[str] = "data"
+    k_axis: Optional[str] = None
+
+    def __post_init__(self):
+        names = tuple(self.mesh.mesh_dim_names or ())
+        if self.m_axis is None and self.k_axis is None:
+            raise ValueError(
+                "Partitioning needs at least one of m_axis / k_axis")
+        for ax in (self.m_axis, self.k_axis):
+            if ax is not None and ax not in names:
+                raise ValueError(
+                    f"Partitioning axis {ax!r} is not a mesh axis "
+                    f"(mesh has {names})")
+        if self.m_axis is not None and self.m_axis == self.k_axis:
+            raise ValueError(
+                f"m_axis and k_axis must differ, both are {self.m_axis!r}")
+
+    @property
+    def m_shards(self) -> int:
+        from repro_torch.nn import collectives as coll
+        return coll.axis_size(self.mesh, self.m_axis) if self.m_axis else 1
+
+    @property
+    def k_shards(self) -> int:
+        from repro_torch.nn import collectives as coll
+        return coll.axis_size(self.mesh, self.k_axis) if self.k_axis else 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ContractionSpec:
     """Everything ``dot_general`` needs beyond the two operands.
 
@@ -176,23 +234,50 @@ class ContractionSpec:
     quant:             None → integer-domain contraction (operands must be
                        integers); a :class:`QuantPolicy` → float operands
                        through the quantization boundary.
+    partitioning:      None → a contraction on this rank alone; a
+                       :class:`Partitioning` → sharded over its mesh.
     site:              optional contraction-site name (``"conv.edge.center"``
                        — see :mod:`repro_torch.nn.plan`); purely
                        observational, the result never depends on it.
-
-    ``repro``'s ``partitioning`` field is not ported (ROADMAP.md, queue 1
-    item 11), so ``site`` is the third positional field here.
     """
 
     dimension_numbers: DimensionNumbers = MATMUL_DIMS
     quant: Optional[QuantPolicy] = None
+    partitioning: Optional[Partitioning] = None
     site: Optional[str] = None
 
     @staticmethod
     def matmul(quant: Optional[QuantPolicy] = None,
+               partitioning: Optional[Partitioning] = None,
                site: Optional[str] = None) -> "ContractionSpec":
         """Plain ``(…, K) @ (K, N)`` spec."""
-        return ContractionSpec(MATMUL_DIMS, quant, site)
+        return ContractionSpec(MATMUL_DIMS, quant, partitioning, site)
+
+
+# -- ambient partitioning (opt-in mesh lowering for deep call sites) --------
+
+_PART_STATE = threading.local()
+
+
+def current_partitioning() -> Optional[Partitioning]:
+    """The ambient :class:`Partitioning` installed by
+    :func:`partitioning_scope`, or None. Read at call time by call sites
+    that cannot thread a spec explicitly (``models.common.dense``)."""
+    return getattr(_PART_STATE, "value", None)
+
+
+@contextlib.contextmanager
+def partitioning_scope(p: Optional[Partitioning]):
+    """Install an ambient Partitioning for the duration of the block, so
+    every model ``dense`` contraction shards over its mesh without a spec
+    threaded through the model zoo. ``None`` clears it for the block.
+    Thread-local, as :func:`dot_override_scope`."""
+    prev = getattr(_PART_STATE, "value", None)
+    _PART_STATE.value = p
+    try:
+        yield p
+    finally:
+        _PART_STATE.value = prev
 
 
 # -- ambient contraction override (the QAT layer's injection point) ---------
@@ -385,6 +470,76 @@ def _exact_int_matmul(a3: Tensor, b3: Tensor) -> Tensor:
     return out.to(torch.int64).to(torch.int32)
 
 
+def _sharded_dot(local_dot, a: Tensor, b: Tensor, part: Partitioning,
+                 k_pad_unit: Optional[int]) -> Tensor:
+    """(M,K)@(K,N) sharded over ``part``'s mesh: one path for int and float.
+
+    ``repro`` lowers this through ``shard_map``; here every rank holds the
+    whole operands, contracts its block and returns the whole result. M is
+    split over ``part.m_axis`` and K over ``part.k_axis``: the rank runs
+    ``local_dot`` on its (m, k) block (a substrate's own per-shard f(0,0)
+    k-chunk-padding correction applies inside it), the partial sums
+    combine over the k group by ``psum_scatter`` along N when N divides the
+    axis, else by ``psum``, and what is still sharded is gathered. A shard
+    is a slice of the operand, copied contiguous for the kernels.
+    ``k_pad_unit`` is what one zero-padded K element contributes to every
+    output (the wiring's f(0,0) for approx models, 0 for exact paths): the
+    zero-padding of K up to the k shards is corrected once with it after
+    the reduce; None means no such correction exists, so non-divisible K
+    must raise before calling here.
+    """
+    from repro_torch.nn import collectives as coll
+
+    m, k = a.shape
+    n = b.shape[1]
+    pm = (-m) % part.m_shards
+    pk = (-k) % part.k_shards
+    assert not (pk and k_pad_unit is None), "caller must reject this"
+    if pm or pk:
+        a = F.pad(a, (0, pk, 0, pm))
+    if pk:
+        b = F.pad(b, (0, 0, 0, pk))
+    scatter = part.k_axis is not None and n % part.k_shards == 0
+    rows = (m + pm) // part.m_shards
+    cols = (k + pk) // part.k_shards
+    mi = coll.axis_index(part.mesh, part.m_axis) if part.m_axis else 0
+    ki = coll.axis_index(part.mesh, part.k_axis) if part.k_axis else 0
+    ks = slice(ki * cols, (ki + 1) * cols)
+    out = local_dot(a[mi * rows:(mi + 1) * rows, ks].contiguous(),
+                    b[ks].contiguous())
+    if part.k_axis is not None:
+        if scatter:
+            out = coll.psum_scatter(out, part.mesh, part.k_axis, dim=1)
+            out = coll.all_gather(out, part.mesh, part.k_axis, dim=1)
+        else:
+            out = coll.psum(out, part.mesh, part.k_axis)
+    if part.m_axis is not None:
+        out = coll.all_gather(out, part.mesh, part.m_axis, dim=0)
+    if pk and k_pad_unit:
+        out = out - k_pad_unit * pk
+    return out[:m] if pm else out
+
+
+def _sharded_dot_int(substrate: "_SubstrateBase", a: Tensor, b: Tensor,
+                     part: Partitioning) -> Tensor:
+    """Integer ``_sharded_dot``: exact int32 reduce, f(0,0) pad unit."""
+    k = a.shape[1]
+    if substrate._f00 is None and k % part.k_shards:
+        raise ValueError(
+            f"{substrate.meta.spec}: K={k} must be a multiple of the k_axis "
+            f"size ({part.k_shards}) — this substrate's correction is defined "
+            "at contraction level (scalar_faithful=False), so the k-pad "
+            "f(0,0) fix-up does not apply; pad K yourself or drop k_axis")
+    return _sharded_dot(substrate.dot_int, a, b, part, substrate._f00)
+
+
+def _sharded_dot_float(a: Tensor, b: Tensor, part: Partitioning) -> Tensor:
+    """Float ``_sharded_dot`` (the exact backend's mesh path): zero
+    k-padding is exact in float, but the psum's order of summation makes
+    this ≈ (not bit-identical to) the unsharded float dot."""
+    return _sharded_dot(torch.matmul, a, b, part, k_pad_unit=0)
+
+
 def _require_tensor(x, what: str) -> Tensor:
     if not torch.is_tensor(x):
         raise TypeError(f"{what} must be a torch tensor (its device decides "
@@ -408,8 +563,28 @@ class _SubstrateBase:
         raise NotImplementedError
 
     def _contract3(self, a3: Tensor, b3: Tensor) -> Tensor:
-        """(B,M,K)@(B,K,N) integer contraction (exact int32-ring adder)."""
+        """(B,M,K)@(B,K,N) integer contraction on this rank (exact
+        int32-ring adder): each backend's kernel or plain version."""
         raise NotImplementedError
+
+    def _routed3(self, a3: Tensor, b3: Tensor,
+                 partitioning: Optional[Partitioning]) -> Tensor:
+        """(B,M,K)@(B,K,N), sharded over ``partitioning``'s mesh if given
+        (``repro``'s ``_contract3``)."""
+        if partitioning is None:
+            return self._contract3(a3, b3)
+        if a3.shape[0] != 1:
+            raise NotImplementedError(
+                "partitioned dot_general with batch dimensions is not "
+                "supported yet — shard the batch outside, or drop "
+                "spec.partitioning")
+        return self._contract2(a3[0], b3[0], partitioning)[None]
+
+    def _contract2(self, a: Tensor, b: Tensor,
+                   partitioning: Optional[Partitioning]) -> Tensor:
+        if partitioning is None:
+            return self.dot_int(a, b)
+        return _sharded_dot_int(self, a, b, partitioning)
 
     def _stor(self, x: Tensor) -> Tensor:
         """Cast integer operands to the width's storage dtype (int8/int16)."""
@@ -462,7 +637,7 @@ class _SubstrateBase:
                     "QuantPolicy to contract float tensors")
             a3, b3 = plan.lhs3(x), plan.rhs3(w)
             self._meter_hook(plan, a3, b3, site=spec.site)
-            return plan.unflatten(self._contract3(a3, b3))
+            return plan.unflatten(self._routed3(a3, b3, spec.partitioning))
         q = spec.quant
         bits = q.bits if q.bits is not None else self.meta.width
         if bits > self.meta.width:
@@ -477,7 +652,8 @@ class _SubstrateBase:
             qb, sb = _quantize_operand(plan.rhs3(w), q.w_mode, q.w_scale,
                                        contract_axis=1, bits=bits, eps=q.eps)
             self._meter_hook(plan, qa, qb, site=spec.site)
-            out3 = self._contract3(qa, qb).to(torch.float32) * (sa * sb)
+            out3 = self._routed3(qa, qb, spec.partitioning)
+            out3 = out3.to(torch.float32) * (sa * sb)
             return plan.unflatten(out3).to(x.dtype)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
@@ -539,7 +715,15 @@ class ExactSubstrate(_SubstrateBase):
         plan = _plan_contraction(tuple(x.shape), tuple(w.shape),
                                  spec.dimension_numbers)
         self._meter_hook(plan, None, None, site=spec.site)  # no probe
-        return plan.unflatten(torch.matmul(plan.lhs3(x), plan.rhs3(w)))
+        if spec.partitioning is None:
+            return plan.unflatten(torch.matmul(plan.lhs3(x), plan.rhs3(w)))
+        if plan.b != 1:
+            raise NotImplementedError(
+                "partitioned dot_general with batch dimensions is not "
+                "supported yet")
+        out3 = _sharded_dot_float(plan.lhs3(x)[0], plan.rhs3(w)[0],
+                                  spec.partitioning)[None]
+        return plan.unflatten(out3)
 
 
 class Int8Substrate(_SubstrateBase):

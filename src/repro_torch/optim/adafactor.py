@@ -27,6 +27,14 @@ unstacked leaves (``emb``, ``ln_f``) keep the per-tensor rule, which is
 ``repro``'s for them. ``repro``'s launcher trains the MoE configs with this
 optimizer (``adafactor(bundle.layout)`` in ``launch/train.py``).
 
+Under expert parallelism a rank holds one shard of each expert leaf. The
+training loop then passes ``update`` its ``shards`` (``TrainLoop._shards``,
+the one place that says which leaves are split over ranks): for the leaf
+``names`` form, None or ``(reduce, count)`` — a function that sums a
+tensor over the group of ranks that holds the leaf's ``count`` shards —
+and the clip's mean square is then taken over the whole leaf (the
+factored statistics are per expert, and stay local).
+
 Dicts updated in place, as :mod:`repro_torch.optim.adamw`.
 """
 from __future__ import annotations
@@ -38,6 +46,9 @@ import torch
 from repro_torch.optim.adamw import Optimizer
 
 Tensor = torch.Tensor
+
+#: elements of a leaf's float32 temporaries made at a time
+_BLOCK = 1 << 24
 
 
 def adafactor(layout=None, decay: float = 0.8, eps: float = 1e-30,
@@ -61,6 +72,9 @@ def adafactor(layout=None, decay: float = 0.8, eps: float = 1e-30,
                 "mv": {key: leaf(params[names[0]], len(names) if stacked else 0)
                        for key, (names, stacked) in groups(params).items()}}
 
+    # a leaf's float32 temporaries (an embedding's is 4 GB at the published
+    # widths) are made a block of rows or elements at a time; every value
+    # is elementwise in them, so the blocks give the whole leaf's values
     def scaled(g: Tensor, mv: Dict[str, Tensor], beta: Tensor) -> Tensor:
         """The unclipped update of one leaf (or one layer of a stacked one,
         ``mv`` then views of its statistics), its statistics updated."""
@@ -68,20 +82,33 @@ def adafactor(layout=None, decay: float = 0.8, eps: float = 1e-30,
         if g.dim() >= 2:
             vr = beta * mv["vr"] + (1 - beta) * (sq.mean(dim=-1) + eps)
             vc = beta * mv["vc"] + (1 - beta) * (sq.mean(dim=-2) + eps)
-            denom = vr[..., None] * vc[..., None, :] / torch.clamp_min(
-                vr.mean(dim=-1)[..., None, None], eps)
+            del sq
+            mean = torch.clamp_min(vr.mean(dim=-1)[..., None, None], eps)
+            out = torch.empty_like(g)
+            rows = max(1, _BLOCK // g.shape[-1])
+            for i in range(0, g.shape[-2], rows):
+                r = slice(i, i + rows)
+                denom = vr[..., r, None] * vc[..., None, :] / mean
+                out[..., r, :] = g[..., r, :] * torch.rsqrt(denom + eps).to(g.dtype)
             mv["vr"].copy_(vr)
             mv["vc"].copy_(vc)
-            return g * torch.rsqrt(denom + eps).to(g.dtype)
+            return out
         v = beta * mv["v"] + (1 - beta) * (sq + eps)
         mv["v"].copy_(v)
         return g * torch.rsqrt(v + eps).to(g.dtype)
 
-    def stepped(p: Tensor, upd: Tensor, lr, clip) -> Tensor:
-        return (p.to(torch.float32) - lr * clip * upd.to(torch.float32)).to(p.dtype)
+    def step_(p: Tensor, upd: Tensor, lr, clip) -> None:
+        """``p ← p − lr · clip · upd`` in float32, in place."""
+        scale = lr * clip
+        pf, uf = p.view(-1), upd.reshape(-1)
+        for i in range(0, pf.numel(), _BLOCK):
+            e = slice(i, i + _BLOCK)
+            pf[e] = (pf[e].to(torch.float32)
+                     - scale * uf[e].to(torch.float32)).to(p.dtype)
 
     @torch.no_grad()
-    def update(grads: Dict[str, Tensor], state, params: Dict[str, Tensor], lr):
+    def update(grads: Dict[str, Tensor], state, params: Dict[str, Tensor], lr,
+               shards=None):
         state["step"] += 1
         beta = 1.0 - (state["step"].to(torch.float32) + 1.0) ** (-decay)
         for key, (names, stacked) in groups(params).items():
@@ -95,7 +122,14 @@ def adafactor(layout=None, decay: float = 0.8, eps: float = 1e-30,
                         for r, g in enumerate(gs)]
             else:
                 upds = [scaled(gs[0], mv, beta)]
-            if len(upds) == 1:
+            split = shards(names) if shards is not None else None
+            if split is not None:  # the mean square of the whole leaf
+                reduce, count = split
+                ms = reduce(torch.stack([
+                    torch.sum(torch.square(u.to(torch.float32)))
+                    for u in upds]).sum()) / (
+                        count * sum(u.numel() for u in upds))
+            elif len(upds) == 1:
                 ms = torch.mean(torch.square(upds[0].to(torch.float32)))
             else:           # the mean square of the stack, from its layers'
                 ms = torch.stack([torch.sum(torch.square(u.to(torch.float32)))
@@ -103,13 +137,13 @@ def adafactor(layout=None, decay: float = 0.8, eps: float = 1e-30,
             rms = torch.sqrt(ms + eps)
             clip = 1.0 / torch.clamp_min(rms / clip_threshold, 1.0)
             if vector:
-                new = stepped(torch.stack([params[n] for n in names]), upds[0],
-                              lr, clip)
+                new = torch.stack([params[n] for n in names])
+                step_(new, upds[0], lr, clip)
                 for r, n in enumerate(names):
                     params[n].copy_(new[r])
             else:
                 for n, u in zip(names, upds):
-                    params[n].copy_(stepped(params[n], u, lr, clip))
+                    step_(params[n], u, lr, clip)
         return params, state
 
     return Optimizer(init, update)

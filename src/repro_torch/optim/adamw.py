@@ -24,7 +24,9 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable    # params -> state
-    update: Callable  # (grads, state, params, lr) -> (params, state)
+    # (grads, state, params, lr, shards=None) -> (params, state); shards:
+    # the loop's map of which leaves are split over ranks (TrainLoop._shards)
+    update: Callable
 
 
 def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -40,7 +42,10 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                        for k, p in params.items()}}
 
     @torch.no_grad()
-    def update(grads: Dict[str, Tensor], state, params: Dict[str, Tensor], lr):
+    def update(grads: Dict[str, Tensor], state, params: Dict[str, Tensor], lr,
+               shards=None):
+        # elementwise: a shard's update is its part of the whole leaf's,
+        # so ``shards`` changes nothing
         state["step"] += 1
         stepf = state["step"].to(torch.float32)
         c1 = 1.0 - b1 ** stepf

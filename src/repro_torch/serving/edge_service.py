@@ -25,6 +25,20 @@ pipeline, starts the device→host copy and records an event; ``_finalize``
 waits on that event and crops. With ``n_workers > 1`` the next batch's
 dispatch overlaps this batch's device work.
 
+Partitioned serving (``partitioning=``, a
+:class:`~repro_torch.nn.substrate.Partitioning`): the pipeline's
+contractions shard over the mesh, one process per rank, and every rank
+builds the service with its own device and the same partitioning. Batches
+form by time, so the ranks would form different ones: rank 0 alone runs the
+batcher and, before each batch it executes, broadcasts the batch's shape
+and then its pixels over the default process group; every other rank runs
+a follower thread that receives them and executes the same pipeline calls
+in the same order, until the stop message that rank 0's :meth:`close`
+broadcasts. Collectives issued from several worker threads would reach the
+ranks in different orders, so rank 0 serializes its partitioned executes
+under one lock (its workers still overlap padding and delivery). Requests
+are submitted on rank 0; a follower's :meth:`close` waits for the stop.
+
 Shape cache: nothing is compiled per shape in eager PyTorch, but the
 service keeps ``compiled_shapes`` and records ``metrics.record_compile()``
 on the first dispatch of each padded (batch, H, W) shape, so its metrics
@@ -40,6 +54,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.nn import collectives as coll
 from repro_torch.nn import conv
 from repro_torch.nn import plan as plan_mod
 from repro_torch.nn import substrate as sub
@@ -75,7 +90,12 @@ class EdgeDetectService:
                         ``torch.cuda._sleep`` on the batch's stream on the
                         card, ``time.sleep`` on the CPU. Values pass through
                         unchanged. ``0`` adds nothing.
-    partitioning:       not ported yet; anything but None raises.
+    partitioning:       optional
+                        :class:`~repro_torch.nn.substrate.Partitioning`:
+                        shard every contraction over its mesh (rank 0
+                        serves, the other ranks follow; see the module
+                        docstring). The maps are bit-identical to the
+                        unsharded ones for bit-exact substrates.
     """
 
     def __init__(self, substrate="approx_bitexact", *, device=None,
@@ -90,10 +110,11 @@ class EdgeDetectService:
         if device_latency_s < 0:
             raise ValueError(
                 f"device_latency_s must be >= 0, got {device_latency_s}")
-        if partitioning is not None:
-            raise NotImplementedError(
-                "partitioned serving is not ported yet (ROADMAP.md, queue 1 "
-                "item 11)")
+        if partitioning is not None and not isinstance(partitioning,
+                                                       sub.Partitioning):
+            raise TypeError(
+                "partitioning must be a repro_torch.nn.substrate.Partitioning, "
+                f"got {type(partitioning).__name__}")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -113,6 +134,13 @@ class EdgeDetectService:
         self.pad_batches = pad_batches
         self.device_latency_s = device_latency_s
         self.metrics = metrics or ServingMetrics()
+        self.partitioning = partitioning
+        self.leader = (partitioning is None
+                       or torch.distributed.get_rank() == 0)
+        self._exec_lock = threading.Lock()  # one partitioned execute at a time
+        self._follower: Optional[threading.Thread] = None
+        self._follow_error: Optional[BaseException] = None
+        self.followed = 0  # batches a follower rank executed
         self._compiled_keys = set()  # (batch, H, W) shapes dispatched so far
         self._compiled_lock = threading.Lock()  # workers race on new shapes
         self._local = threading.local()  # per-worker CUDA stream
@@ -125,15 +153,59 @@ class EdgeDetectService:
             finalize_fn=self._finalize, n_workers=n_workers,
             metrics=self.metrics)
         if start:
-            self.batcher.start()
+            self.start()
 
     # -- lifecycle -----------------------------------------------------------
 
+    def start(self) -> None:
+        """Start serving: the batcher on rank 0 (or without a
+        partitioning), the follower thread on the other ranks."""
+        if self.leader:
+            self.batcher.start()
+        elif self._follower is None:
+            self._follower = threading.Thread(target=self._follow,
+                                              name="edge-follower", daemon=True)
+            self._follower.start()
+
     def close(self, drain: bool = True) -> None:
-        self.batcher.stop(drain=drain)
+        """Stop serving. Under a partitioning rank 0 then tells the other
+        ranks to stop, and a follower waits for that."""
+        if self.leader:
+            self.batcher.stop(drain=drain)
+            if self.partitioning is not None:
+                with self._exec_lock:
+                    coll.broadcast_host(torch.zeros(4, dtype=torch.int64), None)
+            return
+        if self._follower is not None:
+            self._follower.join()
+            self._follower = None
+        if self._follow_error is not None:
+            err, self._follow_error = self._follow_error, None
+            raise err
+
+    def _follow(self) -> None:
+        """A follower rank's loop: receive each batch rank 0 executes and
+        run the same pipeline on it, until the stop message."""
+        try:
+            while True:
+                head = coll.broadcast_host(torch.zeros(4, dtype=torch.int64),
+                                           None)
+                if int(head[0]) == 0:
+                    return
+                host = torch.empty(tuple(head[1:].tolist()), dtype=torch.uint8)
+                coll.broadcast_host(host, None)
+                if self.device.type == "cuda":
+                    with torch.cuda.device(self.device):
+                        self._compute(host.to(self.device))
+                        torch.cuda.synchronize(self.device)
+                else:
+                    self._compute(host)
+                self.followed += 1
+        except BaseException as e:  # re-raised by close()
+            self._follow_error = e
 
     def __enter__(self) -> "EdgeDetectService":
-        self.batcher.start()
+        self.start()
         return self
 
     def __exit__(self, *exc) -> None:
@@ -191,8 +263,22 @@ class EdgeDetectService:
     def _compute(self, batch: torch.Tensor) -> torch.Tensor:
         """The edge-detect pipeline on a uint8 batch on the service's device."""
         if self.plan is not None:
-            return conv.edge_detect_planned(batch, self.plan)
-        return conv.edge_detect_batched(batch, self.substrate)
+            return conv.edge_detect_planned(batch, self.plan,
+                                             partitioning=self.partitioning)
+        return conv.edge_detect_batched(batch, self.substrate,
+                                        partitioning=self.partitioning)
+
+    def _execute(self, batch: torch.Tensor, host: torch.Tensor) -> torch.Tensor:
+        """:meth:`_compute` on ``batch``; under a partitioning, rank 0 first
+        sends the followers its shape and pixels ``host``, all under the
+        execute lock."""
+        if self.partitioning is None:
+            return self._compute(batch)
+        with self._exec_lock:
+            coll.broadcast_host(torch.tensor((1,) + tuple(host.shape),
+                                             dtype=torch.int64), None)
+            coll.broadcast_host(host, None)
+            return self._compute(batch)
 
     def _dispatch(self, host: torch.Tensor):
         """Run the pipeline on ``host`` (a uint8 CPU batch). CPU: returns the
@@ -200,7 +286,7 @@ class EdgeDetectService:
         keep alive until the event) with the copies and kernels enqueued on
         this worker's stream."""
         if self.device.type == "cpu":
-            out = self._compute(host)
+            out = self._execute(host, host)
             if self.device_latency_s > 0:
                 time.sleep(self.device_latency_s)
             return out, None, ()
@@ -208,7 +294,7 @@ class EdgeDetectService:
         pinned = host.pin_memory()
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
             dev = pinned.to(self.device, non_blocking=True)
-            out = self._compute(dev)
+            out = self._execute(dev, host)
             if self._sleep_cycles:
                 torch.cuda._sleep(self._sleep_cycles)
             out_host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -237,8 +323,15 @@ class EdgeDetectService:
                 f"array of shape {a.shape}")
         return a
 
+    def _require_leader(self) -> None:
+        if not self.leader:
+            raise RuntimeError(
+                f"rank {torch.distributed.get_rank()} follows rank 0 under a "
+                "partitioning: submit requests on rank 0")
+
     def submit(self, img: np.ndarray) -> Ticket:
         """Queue one (H, W) uint8 image; returns a Ticket (``.result()``)."""
+        self._require_leader()
         return self.batcher.submit(self._check_image(img))
 
     def detect(self, imgs: "np.ndarray | Iterable[np.ndarray]",
@@ -248,6 +341,7 @@ class EdgeDetectService:
         Accepts one (H, W) image, a (B, H, W) stack, or an iterable of
         arbitrary-shape (H, W) images.
         """
+        self._require_leader()
         if isinstance(imgs, np.ndarray) and imgs.ndim == 2:
             imgs = [imgs]
         tickets = self.batcher.submit_many(

@@ -1,8 +1,6 @@
 """Fault-tolerant training loop.
 
-Counterpart of ``repro.train.loop`` (without ``dp_train_step_compressed``,
-the data-parallel step with an int8 all-reduce: ROADMAP.md queue 1 item
-11). The step is eager PyTorch:
+Counterpart of ``repro.train.loop``. The step is eager PyTorch:
 
 * **checkpoint / restart** — async checkpoints every ``ckpt_every`` steps;
   on (re)start the loop finds the newest complete checkpoint, restores
@@ -30,6 +28,23 @@ the data-parallel step with an int8 all-reduce: ROADMAP.md queue 1 item
 turns autograd on for its leaves around the loss (``requires_grad_``) and
 off after; the optimizer updates the leaves in place, so ``run`` returns the
 module it was given.
+
+**Over a mesh** (``TrainLoop(..., mesh=)``, a ``("data", "model")``
+``DeviceMesh``, one process per rank; ``repro`` trains under ``with
+mesh:`` and GSPMD): each rank takes its data shard of every batch, every
+gradient is the mean over the rank's "data" group (the loss is each
+shard's mean, so that is the gradient of the whole batch's loss, as
+GSPMD gives ``repro``), and the loss reported is that mean too. An MoE's
+experts are sharded over "model" (``convert.shard_experts``; the
+expert-parallel MoE gives the leaves replicated over "model" whole
+gradients on every model rank): the clip's global norm and the
+optimizer's per-leaf clip sum the expert shards' squares over "model"
+(``_shards`` says which leaves are split), checkpoints gather the shards into
+``repro``'s unsharded tree and only rank 0 writes them, and a restore
+takes each rank's shard again.
+
+:func:`dp_train_step_compressed` is ``repro``'s explicit data-parallel
+step, with the int8-compressed gradient all-reduce.
 """
 from __future__ import annotations
 
@@ -43,6 +58,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.ckpt import tree_map
 from repro_torch.models import convert
+from repro_torch.nn import collectives as coll
 from repro_torch.optim import grad_utils
 from repro_torch.optim.adamw import Optimizer
 
@@ -76,8 +92,9 @@ def _flat_state(state) -> Dict[str, torch.Tensor]:
 class TrainLoop:
     def __init__(self, loss_fn: Callable, optimizer: Optimizer,
                  cfg: TrainLoopConfig, lr_schedule: Optional[Callable] = None,
-                 layout: Optional[convert.TreeLayout] = None):
+                 layout: Optional[convert.TreeLayout] = None, mesh=None):
         self.loss_fn = loss_fn
+        self.mesh = mesh
         self.optimizer = optimizer
         self.cfg = cfg
         if cfg.plan is not None:
@@ -97,9 +114,64 @@ class TrainLoop:
             extra["qat"] = self.cfg.qat.describe()
         return extra
 
-    def _tree(self, params, opt_state) -> dict:
+    def _local_tree(self, params, opt_state) -> dict:
         return {"params": self.layout.to_tree(convert.named_leaves(params)),
                 "opt": self.layout.state_to_tree(opt_state)}
+
+    def _tree(self, params, opt_state) -> dict:
+        """The checkpoint tree, its expert shards gathered."""
+        return self.gather_experts(self._local_tree(params, opt_state))
+
+    def gather_experts(self, tree):
+        """``repro``'s tree with every leaf of expert shards gathered over
+        "model" (a collective over a mesh: every rank calls it)."""
+        if self._model_shards() == 1:
+            return tree
+        return convert.map_experts(tree, lambda t, a: coll.all_gather(
+            t, self.mesh, "model", dim=a))
+
+    def _model_shards(self) -> int:
+        if self.mesh is None or "model" not in coll.axis_names(self.mesh):
+            return 1
+        return coll.axis_size(self.mesh, "model")
+
+    @property
+    def leader(self) -> bool:
+        """Whether this rank prints and writes: rank 0, or the only one."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
+    def _data_mean(self, t: torch.Tensor) -> torch.Tensor:
+        return coll.psum(t, self.mesh, "data").div_(
+            coll.axis_size(self.mesh, "data"))
+
+    def _shards(self, names):
+        """How the leaf ``names`` form is split over ranks: None (whole on
+        every rank), or ``(reduce, count)`` — ``reduce`` sums a tensor over
+        the ranks that hold its ``count`` shards. Under expert parallelism
+        each expert leaf is sharded over "model". The clip's global norm
+        and the optimizer's per-leaf reductions both read this."""
+        m = self._model_shards()
+        if m == 1 or not convert.is_expert_name(names[0]):
+            return None
+        return (lambda t: coll.psum(t, self.mesh, "model")), m
+
+    def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm of the whole model's gradient: the sharded leaves'
+        squares summed over the ranks that hold them."""
+        def sumsq(ts):
+            total = None
+            for g in ts:
+                sq = torch.sum(g.to(torch.float32, copy=True).square_())
+                total = sq if total is None else total + sq
+            return total
+        split = {k for k in grads if self._shards([k]) is not None}
+        rep = sumsq(g for k, g in grads.items() if k not in split)
+        exp = sumsq(g for k, g in grads.items() if k in split)
+        if exp is not None:
+            reduce, _ = self._shards([next(iter(split))])
+            exp = reduce(exp)
+            rep = exp if rep is None else rep + exp
+        return torch.sqrt(rep)
 
     # -- one step -------------------------------------------------------------
 
@@ -148,8 +220,17 @@ class TrainLoop:
             scale = 1.0 / cfg.grad_accum
             loss = loss * scale
             grads = {k: g * scale for k, g in grads.items()}
-        grads, gnorm = grad_utils.clip_by_global_norm(grads, cfg.grad_clip)
-        self.optimizer.update(grads, opt_state, convert.named_leaves(params), lr)
+        norm = None
+        if self.mesh is not None:
+            loss = self._data_mean(loss)
+            for k in grads:  # one leaf's copy alive at a time
+                grads[k] = self._data_mean(grads[k])
+            if self._model_shards() > 1:
+                norm = self._global_norm(grads)
+        grads, gnorm = grad_utils.clip_by_global_norm(grads, cfg.grad_clip,
+                                                      norm=norm)
+        self.optimizer.update(grads, opt_state, convert.named_leaves(params), lr,
+                              shards=self._shards)
         return loss, gnorm
 
     # -- lifecycle -----------------------------------------------------------
@@ -164,9 +245,18 @@ class TrainLoop:
         latest = self.ckpt.latest_step()
         if latest is not None:
             # shapes only: meta tensors allocate nothing
-            template = self._tree({k: t.to("meta") for k, t in leaves.items()},
-                                  tree_map(opt_state, lambda t: t.to("meta")))
+            template = self._local_tree(
+                {k: t.to("meta") for k, t in leaves.items()},
+                tree_map(opt_state, lambda t: t.to("meta")))
+            shards = self._model_shards()
+            if shards > 1:  # the file holds every expert
+                template = convert.map_experts(template, lambda t, a: t.new_empty(
+                    t.shape[:a] + (t.shape[a] * shards,) + t.shape[a + 1:]))
             tree, step, extra = self.ckpt.restore(template, device="cpu")
+            if shards > 1:
+                index = coll.axis_index(self.mesh, "model")
+                tree = convert.map_experts(tree, lambda t, a: convert.expert_shard(
+                    t, a, index, shards))
             convert.assign_(params, self.layout.from_tree(tree["params"]))
             convert.assign_(_flat_state(opt_state), _flat_state(
                 self.layout.state_from_tree(
@@ -206,6 +296,12 @@ class TrainLoop:
                     f"checkpoint QAT policy {saved_qat} differs from this "
                     f"run's {self.cfg.qat.describe()}")
 
+    def _shard(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a batch: its block along "data"."""
+        if self.mesh is None:
+            return batch
+        return _data_shard(batch, self.mesh, "data")
+
     def run(self, params, opt_state, data_stream, start_step: int = 0,
             on_step: Optional[Callable] = None):
         cfg = self.cfg
@@ -220,7 +316,7 @@ class TrainLoop:
                     raise RuntimeError(f"injected failure at step {step}")
                 batch = {k: torch.from_numpy(v).to(device=device,
                                                    dtype=torch.int64)
-                         for k, v in data_stream.next().items()}
+                         for k, v in self._shard(data_stream.next()).items()}
                 t0 = time.time()
                 loss, _gnorm = self.step(params, opt_state, batch,
                                          self.lr_schedule(step))
@@ -235,12 +331,64 @@ class TrainLoop:
                 if (step + 1) % cfg.ckpt_every == 0:
                     tree = self._tree(params, opt_state)
                     extra = self._ckpt_extra()
-                    if cfg.async_ckpt:
+                    if self.leader and cfg.async_ckpt:
                         self.ckpt.save_async(step + 1, tree, extra=extra)
-                    else:
+                    elif self.leader:
                         self.ckpt.save(step + 1, tree, extra=extra)
         finally:
             self.ckpt.wait()
         self.metrics["final_loss"] = losses[-1] if losses else None
         self.metrics["losses"] = losses
         return params, opt_state, step + 1
+
+
+def _data_shard(batch: Dict[str, Any], mesh, axis_name: str) -> Dict[str, Any]:
+    """Rows ``[i·b/n, (i+1)·b/n)`` of every leaf of ``batch`` for this
+    rank's coordinate i of n along ``axis_name``."""
+    i, n = coll.axis_index(mesh, axis_name), coll.axis_size(mesh, axis_name)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+                             f"split over {n} {axis_name!r} ranks")
+        r = v.shape[0] // n
+        out[k] = v[i * r:(i + 1) * r]
+    return out
+
+
+def dp_train_step_compressed(loss_fn: Callable, optimizer: Optimizer, mesh,
+                             axis_name: str = "data", compress: bool = True):
+    """Explicit-collective data-parallel step: per-shard gradients → int8
+    all-reduce → update.
+
+    Returns ``step(params, opt_state, batch, lr) -> (loss, params,
+    opt_state)``. Every rank passes the whole batch and takes its shard
+    along ``axis_name``; the gradients are ``compressed_psum``-ed over that
+    group (``compress``, 8× fewer gradient bytes on the wire) or averaged
+    exactly, the loss is the group's mean, and the optimizer updates
+    ``params`` in place — the same on every rank.
+    """
+    def step(params, opt_state, batch, lr):
+        leaves = convert.named_leaves(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        try:
+            loss = loss_fn(params, _data_shard(batch, mesh, axis_name))
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+        finally:
+            for t in leaves.values():
+                t.requires_grad_(False)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(leaves.items(), grads)}
+        n = coll.axis_size(mesh, axis_name)
+        if compress:
+            grads = grad_utils.compressed_psum(grads, axis_name, mesh)
+        else:
+            grads = {k: coll.psum(g, mesh, axis_name) / n
+                     for k, g in grads.items()}
+        loss = coll.psum(loss.detach(), mesh, axis_name) / n
+        optimizer.update(grads, opt_state, leaves, lr)
+        return loss, params, opt_state
+
+    return step

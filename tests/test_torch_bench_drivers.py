@@ -143,9 +143,42 @@ def test_kernelbench_sweeps_the_registry_once_and_every_design(tmp_path_factory)
                if r["section"] == "designs")
 
 
-def test_kernelbench_sharded_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bench("torch_kernelbench").run(sharded=True, json_path=None, device="cpu")
+def _sharded_records(path):
+    return [r for r in json.loads(path.read_text())["records"]
+            if r["section"] == "sharded"]
+
+
+def test_kernelbench_sharded_raises(tmp_path):
+    """Named when ``--sharded`` raised; it now checks the sharded rows at a
+    world of one: the reference's record keys, one row per substrate, each
+    held to the unsharded result inside the bench."""
+    path = tmp_path / "k.json"
+    rows, printed = quiet(bench("torch_kernelbench").run, sharded=True,
+                          dry_run=True, json_path=path, device="cpu",
+                          substrates=["approx_lut", "exact", "approx_stat"])
+    recs = _sharded_records(path)
+    assert [r["spec"] for r in recs] == ["approx_lut", "exact", "approx_stat"]
+    assert all(set(r) == {"section", "kernel", "spec", "us", "gmacs", "devices"}
+               and r["devices"] == 1 for r in recs)
+    assert [n for n, _, _ in rows if n.startswith("kernel/sharded_")] == [
+        "kernel/sharded_approx_lut", "kernel/sharded_exact",
+        "kernel/sharded_approx_stat"]
+    assert "sharded dot_general (mesh {'data': 1, 'model': 1}" in printed
+
+
+def test_kernelbench_sharded_on_two_ranks(tmp_path):
+    """Two gloo ranks (a 1 × 2 mesh): rank 0 alone prints and writes, both
+    time the sharded rows."""
+    from tests import test_torch_ranks as tr
+
+    ranks = tr.spawn("driver_program", 2, tmp_path, "kernelbench",
+                     str(tmp_path))
+    recs = _sharded_records(tmp_path / "k.json")
+    assert [r["spec"] for r in recs] == ["approx_lut", "int8",
+                                         "approx_cuda:csp_axc1@4"]
+    assert {r["devices"] for r in recs} == {2}
+    assert "'model': 2" in ranks[0]["printed"] and ranks[1]["printed"] == ""
+    assert ranks[1]["rows"] == [] and ranks[0]["rows"]
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +349,27 @@ def test_run_has_repros_benches_and_routes_json(tmp_path, monkeypatch):
     assert ("substrates" in seen["kernel"]) and ("plan" in seen["autotune"])
 
 
-def test_run_sharded_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bench("torch_run").main(["--sharded", "--device", "cpu"])
+def test_run_sharded_raises(monkeypatch):
+    """Named when ``--sharded`` raised; at a world of one it now hands the
+    kernel bench ``sharded=True`` and the backend, as the reference's
+    harness hands it ``sharded``."""
+    drv = bench("torch_run")
+    seen = {}
+    monkeypatch.setattr(drv.MODULES["kernel"], "run",
+                        lambda **kw: seen.update(kw) or [])
+    quiet(drv.main, ["--only", "kernel", "--sharded", "--device", "cpu"])
+    assert seen["sharded"] is True and seen["backend"] == "gloo"
+
+
+def test_run_sharded_on_two_ranks(tmp_path):
+    """``torch_run --only kernel --sharded`` on two gloo ranks (the kernel
+    bench cut to its dry-run shapes): rank 0 prints the CSV and writes the
+    JSON with the sharded rows, rank 1 prints nothing."""
+    from tests import test_torch_ranks as tr
+
+    ranks = tr.spawn("driver_program", 2, tmp_path, "run", str(tmp_path))
+    recs = _sharded_records(tmp_path / "BENCH_torch_kernels.json")
+    assert [(r["spec"], r["devices"]) for r in recs] == [("approx_lut", 2),
+                                                        ("exact", 2)]
+    assert "kernel/sharded_approx_lut," in ranks[0]["printed"]
+    assert ranks[1]["printed"] == ""

@@ -149,7 +149,9 @@ def test_service_latency_emulation_and_bad_inputs():
         svc.submit(np.zeros((2, 4, 4), np.uint8))
     with pytest.raises(ValueError, match="bucket_granularity"):
         EdgeDetectService("exact", device="cpu", bucket_granularity=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # partitioned serving exists now (tests/test_torch_partitioned_edge.py);
+    # anything but a Partitioning is refused
+    with pytest.raises(TypeError, match="Partitioning"):
         EdgeDetectService("exact", device="cpu", partitioning=object())
     # a plan dict serves like the JAX service's, under emulated latency too
     plan = {"default": "approx_cuda:proposed@8", "rules": [

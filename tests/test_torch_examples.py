@@ -210,8 +210,29 @@ def test_serve_edge_metrics_dump_has_repros_families(tmp_path, monkeypatch):
 
 
 def test_serve_edge_sharded_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        load("examples/torch_serve_edge.py").main(["--sharded", "--device", "cpu"])
+    """Named when ``--sharded`` raised; at a world of one it now serves
+    sharded and checks every map against the direct pipeline itself."""
+    out, printed = quiet(load("examples/torch_serve_edge.py").main,
+                         ["--sharded", "--smoke", "--device", "cpu"])
+    assert "sharded over 1 rank(s), backend gloo" in printed
+    assert len(out["outputs"]) == len(out["images"]) == 6
+
+
+def test_serve_edge_sharded_on_two_ranks(tmp_path):
+    """Two gloo ranks: rank 0 serves the smoke stream (its own check of
+    every map against the direct pipeline passes), rank 1 follows every
+    batch and prints nothing."""
+    from repro_torch.nn import conv
+    from tests import test_torch_ranks as tr
+
+    ranks = tr.spawn("driver_program", 2, tmp_path, "serve_edge", str(tmp_path))
+    lead, follow = ranks
+    assert follow["outputs"] is None and follow["followed"] >= 1
+    assert follow["printed"] == "" and "sharded over 2 rank(s)" in lead["printed"]
+    for im, got in zip(lead["images"], lead["outputs"]):
+        want = conv.edge_detect_batched(torch.from_numpy(im[None]),
+                                        "approx_cuda")[0].numpy()
+        np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

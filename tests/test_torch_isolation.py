@@ -232,3 +232,59 @@ def test_serving_engine_and_launcher_default_to_cuda():
         ServingEngine(bundle, params)
     with pytest.raises(RuntimeError, match="--device cpu"):
         launch_serve.main(["--arch", "minitron-8b", "--n-layers", "1"])
+
+
+PARTITION_MODULES = ["nn/collectives.py", "launch/mesh.py", "models/sharding.py",
+                     "optim/grad_utils.py", "train/loop.py",
+                     "serving/edge_service.py", "nn/conv.py"]
+
+
+@pytest.mark.parametrize("rel", PARTITION_MODULES)
+def test_partition_slice_modules_are_checked(rel):
+    """The partitioned paths' modules are among the files checked above."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in PORT_FILES and not (_imported_roots(path) & FORBIDDEN)
+
+
+SHARDED_ENTRY_POINTS = {
+    "launch.train --mesh debug": lambda: launch_train.main(
+        ["--arch", "minitron-8b", "--mesh", "debug"]),
+    "torch_kernelbench --sharded": lambda: _load_driver(
+        ROOT / "benchmarks/torch_kernelbench.py").run(sharded=True,
+                                                      json_path=None),
+    "torch_run --sharded": lambda: _load_driver(
+        ROOT / "benchmarks/torch_run.py").main(["--sharded"]),
+    "torch_serve_edge --sharded": lambda: _load_driver(
+        ROOT / "examples/torch_serve_edge.py").main(["--sharded"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED_ENTRY_POINTS))
+def test_sharded_entry_points_default_to_cuda(name, monkeypatch):
+    """The sharded options run on the card too: with no card they raise
+    before a process group forms, never falling back to the CPU."""
+    import torch.distributed as dist
+
+    if torch.cuda.is_available():
+        return
+    monkeypatch.syspath_prepend(str(ROOT))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        SHARDED_ENTRY_POINTS[name]()
+    assert not dist.is_initialized()
+
+
+def test_backends_are_never_switched():
+    """``nccl`` raises, citing item 14 (no quiet ``gloo``); an unknown
+    backend raises; the production meshes are item 12's."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as ml
+
+    with pytest.raises(ValueError, match="backend must be one of"):
+        ml.init_ranks("mpi")
+    with pytest.raises(NotImplementedError, match="nccl.*queue 1 item 14"):
+        ml.init_ranks("nccl")
+    assert not dist.is_initialized()
+    for fn in (ml.make_production_mesh, lambda: ml.param_shardings({}, None)):
+        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+            fn()

@@ -499,8 +499,11 @@ def test_train_launcher_runs_on_the_cpu_and_serve_restores_its_bundle(tmp_path, 
 
 
 def test_train_launcher_refuses_without_a_card_and_meshes(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        launch_train.main(FLAGS + ["--device", "cpu", "--mesh", "debug"])
+    """The production meshes (256 / 512 devices) are item 12's; ``--mesh
+    debug`` trains (``tests/test_torch_expert_parallel.py``)."""
+    for mesh in ("pod", "multipod"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+            launch_train.main(FLAGS + ["--device", "cpu", "--mesh", mesh])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             launch_train.main(FLAGS + ["--ckpt-dir", str(tmp_path)])
