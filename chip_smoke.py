@@ -171,9 +171,9 @@ ranks launched, on both edge paths, is then held exactly to its plain
 version (phases ``partitioned_*_shapes``).
 
 Last, the drivers (phase ``drivers_path``): every torch example
-(``examples/torch_*.py``, ``torch_train_lm.py`` with ``--full``) and ``python
--m benchmarks.torch_run`` (all ten benches, not a dry run), each a
-subprocess on the card at its full size that must exit 0 (their own asserts
+(``examples/torch_*.py``; ``torch_train_lm.py`` at its reduced default,
+``DRIVERS_CUT``) and ``python -m benchmarks.torch_run`` (all ten benches,
+not a dry run), each a subprocess on the card that must exit 0 (their own asserts
 are the gates), its JSON in ``chiprun_out/drivers/``, its headline numbers
 read from the JSON it writes (the benches) or prints last (the examples);
 each child's kernel launch counters start at 0 and are read at its end, by
@@ -181,7 +181,25 @@ shape, and every kernel must have launched in the phase. Then each kernel,
 kind and design is held exactly to its plain version at every shape the
 drivers launched it (phase ``drivers_path_shapes``), and each kernel row
 gets the drivers' launches at its own design and shape
-(``launches_drivers_path``). Every phase prints one JSON line; the line
+(``launches_drivers_path``).
+
+Then the mesh dry run and the roofline (``repro_torch.launch.dryrun``,
+``rooffix``, ``roofline``). Phase ``dryrun_path`` (host only, ``meta``
+tensors over a 256-rank fake process group): minitron-8b × ``train_4k``
+and × ``decode_32k`` and llama4-maverick × ``train_4k`` on the 16 × 16
+mesh through ``rooffix.corrected_cell`` (maverick's error, if any, is
+recorded and the phase goes on), each with its roofline row from the
+H100 data-sheet peaks (estimates), rank 0's argument and temp bytes and
+whether they fit 80 GB; and kimi-k2's parameter shardings on 2 × 16 × 16
+(largest leaf < 8 GiB a device). Phase ``roofline_path`` (the card): a
+bf16 ``torch.matmul`` at 8192³ and a device-to-device copy of 2 GiB,
+each at most 105% of its constant (``PEAK_FLOPS``, ``HBM_BW``), beside the
+card's name and power limit; then minitron-8b at its published widths, 4
+layers, one prefill of 8 × 512 tokens under ``exact``: the flops, bytes
+and ops ``CostCounter`` counts on the card equal a 1-device ``meta`` dry
+run's, and its time (CUDA events) is at least the roofline bound (share
+<= 1.05). Neither phase launches a kernel of the port. Every phase
+prints one JSON line; the line
 before the last lists the kernels with their launches on the path that
 runs them (and, beside the rows of their design and shape,
 those of the new phases, counted by shape), their times and least-work
@@ -345,11 +363,34 @@ DRIVERS = (
      ("--metrics-out", "{out}/torch_serve_edge_metrics.json",
       "--trace-out", "{out}/torch_serve_edge_trace.json")),
     ("examples/torch_serve_lm.py", ()),
-    ("examples/torch_train_lm.py", ("--full", "--ckpt-dir", DRIVER_CKPT)),
+    ("examples/torch_train_lm.py", ("--ckpt-dir", DRIVER_CKPT)),
     ("benchmarks.torch_run", ("--json-dir", "{out}")),
 )
+#: drivers run below their full size, with the reason (printed in the
+#: phase record)
+DRIVERS_CUT = {
+    "examples/torch_train_lm.py": (
+        "its reduced default (60 steps at 8 x 64) in place of --full (300 "
+        "steps at 8 x 256): the whole smoke took 1128.7 s of its 1200 s "
+        "limit on a slower host, --full 90.8 s of it (PERF.md, PR 25)"),
+}
 #: a driver's time limit (s)
 DRIVER_TIMEOUT_S = 600
+#: dryrun_path: cells counted on the 16 x 16 mesh of a 256-rank fake world
+#: (meta tensors, no card), through rooffix's two-unit difference; a cell
+#: that fails fails the phase
+DRYRUN_CELLS = (("minitron-8b", "train_4k"), ("minitron-8b", "decode_32k"),
+                ("llama4-maverick-400b-a17b", "train_4k"))
+DRYRUN_SHARDED_ARCH = "kimi-k2-1t-a32b"  # its shardings on 2 x 16 x 16
+CARD_HBM_BYTES = 80e9
+#: roofline_path: what the card reaches beside the data-sheet constants of
+#: repro_torch.launch.roofline, then minitron-8b at its published widths,
+#: cut to 4 layers, one prefill of 8 x 512 tokens under ``exact``
+ROOF_MATMUL_N = 8192
+ROOF_COPY_BYTES = 2 << 30
+ROOF_CONSTANT_SLACK = 1.05  # a reading above 105% of its constant: wrong constant
+ROOF_LAYERS = 4
+ROOF_PREFILL = (8, 512)
 #: the partitioned phases: PART_WORLD ranks on the one card, a 2 x 2
 #: ("data", "model") mesh over gloo (nccl needs a card a rank);
 #: each rank a process spawned from this script after the kernels are built
@@ -3103,7 +3144,8 @@ def drivers_phase(out_dir: Path) -> dict:
                "lut_matmul": sum(v for k, v in total.items() if k.startswith("lut")),
                "approx_mul": total.get("approx_mul", 0)}
     emit("drivers_path", seconds=time.perf_counter() - t_phase,
-         drivers=[r["driver"] for r in records], launches_by_kernel=kernels,
+         drivers=[r["driver"] for r in records], cuts=DRIVERS_CUT,
+         launches_by_kernel=kernels,
          launches=total, launches_by_shape={k: v for k, v in by_shape.items() if v},
          json_dir=str(drv_out.relative_to(root)))
     require(all(v > 0 for v in kernels.values()),
@@ -3214,6 +3256,136 @@ def drivers_shape_checks(by_shape: dict, dev,
                 require(err == 0, f"drivers' shape {s} on {counter} ({what}): {err}")
     torch.cuda.synchronize()
     emit(phase, seconds=time.perf_counter() - t0, checks=checks)
+
+
+def dryrun_phase() -> dict:
+    """Phase ``dryrun_path`` (host only, ``meta`` tensors): the DRYRUN_CELLS
+    on the 16 x 16 mesh of a 256-rank fake world through
+    ``rooffix.corrected_cell``, each with its roofline row (terms from the
+    H100 data-sheet peaks: estimates), rank 0's argument and temp bytes and
+    whether they fit the card's 80 GB (the temp bytes a linear estimate);
+    then kimi-k2's parameter shardings on 2 x 16 x 16. A cell that fails
+    fails the phase."""
+    import logging
+    import math
+
+    from repro_torch.launch import dryrun, rooffix
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import registry as reg
+
+    logging.disable(logging.WARNING)   # DTensor's notes on its own plans
+    t_phase = time.perf_counter()
+    rows = []
+    try:
+        with dryrun.fake_world(256):
+            for arch, shape in DRYRUN_CELLS:
+                t0 = time.perf_counter()
+                corr = rooffix.corrected_cell(arch, shape)
+                row = rooffix.row(arch, shape, corr, 256)
+                # the temp bytes are a peak, differenced linearly from two
+                # and three units: an estimate, and so is the verdict
+                need = corr["argument"] + corr["temp"]
+                rows.append(dict(
+                    row, mesh="16x16", estimate="H100 data-sheet peaks",
+                    argument_bytes=corr["argument"],
+                    temp_bytes_linear_estimate=corr["temp"],
+                    fits_80gb_linear_estimate=need <= CARD_HBM_BYTES,
+                    accum=corr["accum"],
+                    seconds=round(time.perf_counter() - t0, 3)))
+                emit("dryrun_path", **rows[-1])
+        with dryrun.fake_world(512):
+            mesh = mesh_lib.make_production_mesh(multi_pod=True)
+            params = reg.param_specs(reg.get_bundle(DRYRUN_SHARDED_ARCH))
+            shard = mesh_lib.param_shardings(params, mesh)
+            per = {n: math.prod(shard[n].shard_shape(t.shape)) * t.element_size()
+                   for n, t in params.named_parameters()}
+    finally:
+        logging.disable(logging.NOTSET)
+    worst = max(per, key=per.get)
+    require(per[worst] < 8 * 2**30, f"{worst}: {per[worst]} bytes a device")
+    emit("dryrun_path_sharding", arch=DRYRUN_SHARDED_ARCH, mesh="2x16x16",
+         params=sum(t.numel() for t in params.parameters()),
+         bytes_per_device=sum(per.values()), largest_leaf=worst,
+         largest_leaf_bytes_per_device=per[worst],
+         spec_of_largest=list(shard[worst].spec),
+         seconds=round(time.perf_counter() - t_phase, 3))
+    return {"rows": rows, "seconds": round(time.perf_counter() - t_phase, 3)}
+
+
+def roofline_phase(dev, card: str) -> dict:
+    """Phase ``roofline_path`` (the card): the bf16 matmul rate at
+    ROOF_MATMUL_N^3 (a library call, measured, not ported) and the rate of a
+    device-to-device copy of ROOF_COPY_BYTES (read + write) beside the
+    roofline's constants, each at most 105% of its constant; then
+    minitron-8b's 4-layer prefill of 8 x 512 tokens under ``exact``: its
+    flops and bytes counted on the card equal a 1-device ``meta`` dry run of
+    the same step exactly, and its time (CUDA events) is at least the
+    roofline bound (share <= 1.05)."""
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import registry as reg
+
+    t_phase = time.perf_counter()
+    n = ROOF_MATMUL_N
+    a = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+    b = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.matmul(a, b), iters=10, warmup=3)
+    mm_rate = 2 * n ** 3 / (mm_ms * 1e-3)
+    del a, b
+    src = torch.ones(ROOF_COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    cp_ms = time_ms(lambda: dst.copy_(src), iters=5, warmup=2)
+    cp_rate = 2 * ROOF_COPY_BYTES / (cp_ms * 1e-3)
+    del src, dst
+    free_card()
+    emit("roofline_path_peaks", card=card,
+         bf16_matmul={"n": n, "ms": mm_ms, "flops_per_s": mm_rate,
+                      "constant": roofline.PEAK_FLOPS,
+                      "of_constant": mm_rate / roofline.PEAK_FLOPS},
+         hbm_copy={"bytes": ROOF_COPY_BYTES, "ms": cp_ms,
+                   "bytes_per_s_read_plus_write": cp_rate,
+                   "constant": roofline.HBM_BW,
+                   "of_constant": cp_rate / roofline.HBM_BW})
+    require(mm_rate <= ROOF_CONSTANT_SLACK * roofline.PEAK_FLOPS,
+            f"bf16 matmul {mm_rate:.4g} FLOP/s above PEAK_FLOPS")
+    require(cp_rate <= ROOF_CONSTANT_SLACK * roofline.HBM_BW,
+            f"copy {cp_rate:.4g} B/s above HBM_BW")
+
+    cfg = reg.get_config("minitron-8b", n_layers=ROOF_LAYERS)
+    shape = reg.ShapeSpec("prefill_8x512", "prefill", ROOF_PREFILL[1],
+                          ROOF_PREFILL[0])
+    on_card = dryrun.count_step(cfg, shape, device=dev.type, seed=0)
+    free_card()
+    meta = dryrun.count_step(cfg, shape, device="meta")
+    for k in ("flops", "bytes", "ops"):
+        require(on_card.counts[k] == meta.counts[k],
+                f"prefill {k}: card {on_card.counts[k]} vs meta {meta.counts[k]}")
+    bundle = reg.build_bundle(cfg)
+    params = bundle.init_params(torch.Generator(dev).manual_seed(0), dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, ROOF_PREFILL, generator=gen,
+                                     device=dev)}
+    with torch.no_grad():
+        ms = time_ms(lambda: bundle.prefill(params, batch), iters=5, warmup=2)
+        logits = bundle.prefill(params, batch)
+    require(tuple(logits.shape) == (ROOF_PREFILL[0], 1, cfg.vocab)
+            and bool(torch.isfinite(logits).all()), "prefill logits")
+    rf = roofline.derive(meta.counts, 1,
+                         roofline.model_flops_for(cfg, shape))
+    share = rf.t_bound * 1e3 / ms
+    del params, logits
+    free_card()
+    rec = dict(card=card, arch="minitron-8b", n_layers=ROOF_LAYERS,
+               prefill=list(ROOF_PREFILL), dot_plan="exact",
+               flops=meta.counts["flops"], bytes=meta.counts["bytes"],
+               ops=meta.counts["ops"], counted_on_card_equal_meta=True,
+               ms=ms, bound_ms=rf.t_bound * 1e3, bound_by=rf.bottleneck,
+               t_compute_ms=rf.t_compute * 1e3, t_memory_ms=rf.t_memory * 1e3,
+               share_of_bound=share,
+               seconds=round(time.perf_counter() - t_phase, 3))
+    emit("roofline_path", **rec)
+    require(share <= ROOF_CONSTANT_SLACK,
+            f"prefill {ms} ms under its roofline bound {rf.t_bound * 1e3} ms")
+    return rec
 
 
 def main() -> int:
@@ -3994,6 +4166,9 @@ def main() -> int:
     free_card()
     driver_shapes = drivers_phase(out_dir)
     drivers_shape_checks(driver_shapes, dev)
+    free_card()
+    dryrun_phase()
+    roofline_phase(dev, card)
 
     def at_kn(by_shape: dict, k: int, n: int) -> dict:
         """The counted launches ("BxMxKxN" -> n) whose K and N are k and n."""

@@ -43,13 +43,17 @@ mean over the "data" group; an MoE config runs expert-parallel, each rank
 holding its E / M experts (``convert.shard_experts``). Rank 0 alone prints
 and writes checkpoints and ``--qat-out`` bundles, in ``repro``'s
 unsharded on-disk format (the expert shards gathered to it).
-``--mesh pod|multipod`` (256 / 512 devices) serve the dry-run tooling,
-ROADMAP.md queue 1 item 12, and raise.
+``--mesh pod|multipod`` train the same way over the production mesh
+(``launch.mesh.make_production_mesh``: 16 × 16, or 2 × 16 × 16 with the
+batch over ("pod", "data")), which needs a world of 256 / 512 ranks and
+raises its ``ValueError`` in any other; no machine with that many ranks
+has run it.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 
 import torch
 import torch.distributed as dist
@@ -123,7 +127,7 @@ def main(argv=None):
     ap.add_argument("--mesh", choices=["none", "debug", "pod", "multipod"],
                     default="none")
     ap.add_argument("--backend", choices=mesh_lib.BACKENDS, default="gloo",
-                    help="process-group backend under --mesh debug: gloo "
+                    help="process-group backend under --mesh debug|pod|multipod: gloo "
                          "(every rank may share one card); nccl is refused "
                          "(ROADMAP.md, queue 1 item 14)")
     ap.add_argument("--device", default="cuda",
@@ -146,29 +150,32 @@ def main(argv=None):
     add_reduced_overrides(ap)
     args = ap.parse_args(argv)
 
-    if args.mesh in ("pod", "multipod"):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes (256 / 512 devices) "
-            "serve the TPU-mesh dry-run tooling (ROADMAP.md, queue 1 item "
-            "12); pass --mesh debug or none")
     device = resolve_device(args.device)
     overrides = overrides_from(args)
     cfg = reg.get_config(args.arch, **overrides)
     bundle = reg.build_bundle(cfg)
     mesh, owns_group, shards, shard = None, False, 1, 0
-    if args.mesh == "debug":
+    if args.mesh != "none":
         owns_group = not dist.is_initialized()
         mesh_lib.init_ranks(args.backend)
+        try:
+            mesh = (mesh_lib.make_debug_mesh() if args.mesh == "debug" else
+                    mesh_lib.make_production_mesh(
+                        multi_pod=args.mesh == "multipod"))
+        except ValueError:
+            if owns_group:
+                dist.destroy_process_group()
+            raise
         device = mesh_lib.rank_device(device.type)
         if device.type == "cuda":
             torch.cuda.set_device(device)
-        mesh = mesh_lib.make_debug_mesh()
         if cfg.n_experts:
             shards = coll.axis_size(mesh, "model")
             shard = coll.axis_index(mesh, "model")
             tokens = args.batch * args.seq_len
-            if cfg.n_experts % shards or tokens % (
-                    coll.axis_size(mesh, "data") * shards):
+            data = math.prod(coll.axis_size(mesh, a) for a in ("pod", "data")
+                             if a in coll.axis_names(mesh))
+            if cfg.n_experts % shards or tokens % (data * shards):
                 raise ValueError(
                     f"expert parallelism over {tuple(mesh.mesh.shape)} ranks "
                     f"needs the {cfg.n_experts} experts and the {tokens} "
@@ -203,7 +210,7 @@ def main(argv=None):
     plan_tag = f" plan={loop.cfg.plan.label}" if loop.cfg.plan is not None else ""
     n_params = sum(t.numel() for t in convert.named_leaves(params).values())
     if mesh is not None and leader:
-        print(f"[train] mesh=debug backend={dist.get_backend()} "
+        print(f"[train] mesh={args.mesh} backend={dist.get_backend()} "
               f"world={dist.get_world_size()} shape={tuple(mesh.mesh.shape)} "
               f"axes={tuple(mesh.mesh_dim_names)} expert_shards={shards}")
     if leader:

@@ -43,6 +43,7 @@ import dataclasses
 import math
 import threading
 import weakref
+from types import SimpleNamespace
 from typing import Any, Optional, Tuple
 
 import torch
@@ -290,6 +291,7 @@ def dense(cfg: ModelConfig, x: Tensor, w: Tensor, b: Optional[Tensor] = None,
     sharded over its mesh.
     """
     plan = substrate_plan(cfg)
+    w = sh.gather_fsdp(w)
     _, (name,) = splan.current_sites(site)
     spec_str = plan.resolve(name)
     cspec = psub.ContractionSpec.matmul(
@@ -300,6 +302,7 @@ def dense(cfg: ModelConfig, x: Tensor, w: Tensor, b: Optional[Tensor] = None,
         out = override(spec_str, x, w, cspec)
     else:
         out = psub.get_substrate(spec_str).dot_general(x, w, cspec)
+    out = sh.reduce_pending(out)
     if b is not None:
         out = out + b.to(out.dtype)
     return out
@@ -360,15 +363,17 @@ def attention_chunked(q: Tensor, k: Tensor, v: Tensor, *, q_offset,
     b, sq, h, dh = q.shape
     _, skv, hkv, _ = k.shape
     group = h // hkv
+    q = sh.regroup(q, hkv, dim=2, alt=1)
     qg = q.reshape(b, sq, hkv, group, dh).to(torch.float32)
     scale = 1.0 / math.sqrt(dh)
     chunk = min(chunk, skv)
     dev = q.device
     q_pos = q_offset + torch.arange(sq, device=dev)
 
-    m = torch.full((b, sq, hkv, group), -1e30, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, sq, hkv, group), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, sq, hkv, group, dh), dtype=torch.float32, device=dev)
+    # shaped like qg, and so split like it on the dry run's mesh
+    m = torch.full_like(qg[..., 0], -1e30)
+    l = torch.zeros_like(qg[..., 0])
+    acc = torch.zeros_like(qg)
     for start in range(0, skv, chunk):
         k_blk = k[:, start:start + chunk].to(torch.float32)
         v_blk = v[:, start:start + chunk].to(torch.float32)
@@ -438,6 +443,7 @@ def attn_block(cfg: ModelConfig, p: Attn, x: Tensor, *, positions: Tensor,
             k = rope(k, positions, cfg.rope_theta)
         else:
             k, v = cross_kv
+    q = sh.constrain(q, "batch", "seq", "heads", "head_dim")
     q_offset = 0
     if kv_cache is not None:
         ck, cv = kv_cache
@@ -450,6 +456,7 @@ def attn_block(cfg: ModelConfig, p: Attn, x: Tensor, *, positions: Tensor,
     with trace_span("lm.attention", "model"):
         out = attention_chunked(q, k, v, q_offset=q_offset, causal=causal,
                                 window=window, chunk=cfg.attn_chunk)
+    out = sh.constrain(out, "batch", "seq", "heads", "head_dim")   # as q
     with splan.site_scope("attn"):
         out = dense(cfg, out.reshape(b, s, h * dh), p.wo.w, site="wo")
     return x + out.to(x.dtype), kv_cache
@@ -474,6 +481,7 @@ def ffn_block(cfg: ModelConfig, p: FFN, x: Tensor) -> Tensor:
     with splan.site_scope("ffn"):
         gate = dense(cfg, xn, p.wg.w, site="wg")
         hidden = gate * torch.sigmoid(gate) * dense(cfg, xn, p.wi.w, site="wi")
+        hidden = sh.constrain(hidden, "batch", "seq", "mlp")
         return x + dense(cfg, hidden, p.wo.w, site="wo").to(x.dtype)
 
 
@@ -486,8 +494,11 @@ def _expert_weights(gen: torch.Generator, shape, scale: float, dtype,
                     device) -> Tensor:
     """Normal (E, d_in, d_out) weights times ``scale``, drawn one expert at a
     time in float32 and cast into ``dtype``: the float32 draw of a whole
-    expert tensor would be 21.5 GB at llama4-maverick's widths."""
+    expert tensor would be 21.5 GB at llama4-maverick's widths. On
+    ``meta`` (the dry run's parameters) there is nothing to draw."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for e in range(shape[0]):
         out[e] = torch.randn(shape[1:], generator=gen, dtype=torch.float32,
                              device=device) * scale
@@ -527,7 +538,7 @@ def moe_block(cfg: ModelConfig, p: MoE, x: Tensor) -> Tensor:
         dp = tuple(a for a in ("pod", "data") if a in coll.axis_names(mesh))
         m_size = coll.axis_size(mesh, "model")
         dp_size = math.prod(coll.axis_size(mesh, a) for a in dp)
-        t = x.shape[0] * x.shape[1] * dp_size  # the global token count
+        t = sh.global_size(x, 0, dp) * x.shape[1]   # the global token count
         if t % (dp_size * m_size) == 0 and cfg.n_experts % m_size == 0:
             return _moe_block_ep(cfg, p, x, mesh)
     if p.wi.shape[0] != cfg.n_experts:
@@ -613,9 +624,10 @@ def _moe_block_local(cfg: ModelConfig, p: MoE, x: Tensor) -> Tensor:
     b, s, d = x.shape
     t = b * s
     xn = rms_norm(x, p.ln).reshape(t, d)
-    buf, info = _dispatch_local(cfg, xn, p.router)
-    out = _expert_ffn(p, buf)
-    y = _combine_local(out, info, t)
+    # the dry run's DTensors route whole on every rank: the sort and search
+    # have no sharding rule (a decode step's few tokens)
+    y = sh.on_whole(lambda *a: _routed(cfg, *a), xn, p.router, p.wi, p.wg,
+                    p.wo)
     if cfg.shared_expert:
         # ffn_block adds its input back; repro subtracts it again
         with splan.site_scope("moe", "shared"):
@@ -624,18 +636,51 @@ def _moe_block_local(cfg: ModelConfig, p: MoE, x: Tensor) -> Tensor:
     return x + y.reshape(b, s, d).to(x.dtype)
 
 
+def _routed(cfg: ModelConfig, xn: Tensor, router: Tensor, wi: Tensor,
+            wg: Tensor, wo: Tensor) -> Tensor:
+    """Every token of ``xn`` (t, d) through its experts: dispatch, the
+    experts' SwiGLU, combine."""
+    buf, info = _dispatch_local(cfg, xn, router)
+    out = _expert_ffn(SimpleNamespace(wi=wi, wg=wg, wo=wo), buf)
+    return _combine_local(out, info, xn.shape[0])
+
+
 def _moe_block_ep(cfg: ModelConfig, p: MoE, x: Tensor, mesh) -> Tensor:
     """Expert-parallel MoE: local dispatch → all-to-all → FFN → all-to-all.
 
-    ``repro``'s ``shard_map`` body, run on every rank with its collectives
-    over the "model" group: ``x`` is the rank's data shard, replicated over
-    "model", and each model rank routes a distinct 1/M slice of its tokens
-    (``repro`` keeps the boundary data-sharded and slices inside the body
-    for the same reason), so every dispatch is done once. The buffer's
+    ``repro``'s ``shard_map`` body (:func:`_ep_body`), run on every rank
+    with its collectives over the "model" group: ``x`` is the rank's data
+    shard, replicated over "model", and ``p`` holds the rank's E / M
+    experts. The dry run's ``DTensor``s cross ``repro``'s boundary
+    (:func:`repro_torch.models.sharding.shard_map`): tokens over the data
+    axes, the router whole, the experts over "model". The shared expert
+    stays replicated, outside the body, as in ``repro``.
+    """
+    b, s, d = x.shape
+    t = b * s
+    xn = rms_norm(x, p.ln).reshape(t, d)
+    dp = tuple(a for a in ("pod", "data") if a in coll.axis_names(mesh))
+    experts = ("model", None, None)
+    y = sh.shard_map(lambda *a: _ep_body(cfg, *a, mesh=mesh), mesh,
+                     ((dp, None), (), experts, experts, experts), (dp, None),
+                     xn, p.router, p.wi, p.wg, p.wo, partial_over=dp)
+    if cfg.shared_expert:
+        with splan.site_scope("moe", "shared"):
+            y = y + (ffn_block(cfg, p.shared, xn.reshape(b, s, d))
+                     - xn.reshape(b, s, d)).reshape(t, d)
+    return x + y.reshape(b, s, d).to(x.dtype)
+
+
+def _ep_body(cfg: ModelConfig, xn: Tensor, router: Tensor, wi: Tensor,
+             wg: Tensor, wo: Tensor, *, mesh) -> Tensor:
+    """``repro``'s ``shard_map`` body on one rank's local tensors.
+
+    Each model rank routes a distinct 1/M slice of its data shard's tokens
+    ``xn`` (``repro`` keeps the boundary data-sharded and slices inside the
+    body for the same reason), so every dispatch is done once. The buffer's
     expert dim goes to the experts' owners and its capacity dim is
     gathered, the rank's E / M experts run, the reverse all-to-all brings
-    the results home and the slices are gathered over "model". The shared
-    expert stays replicated, outside the body, as in ``repro``.
+    the results home and the slices are gathered over "model".
 
     Gradients as ``jax.grad`` of ``repro``'s: ``shard_map``'s transpose
     sums the cotangent of an input the body sees replicated over "model"
@@ -644,34 +689,26 @@ def _moe_block_ep(cfg: ModelConfig, p: MoE, x: Tensor, mesh) -> Tensor:
     ``replicated_out``). The experts, sharded over "model", keep this
     rank's; a leaf replicated over "data" is the caller's to reduce.
     """
-    b, s, d = x.shape
-    t = b * s
-    xn = rms_norm(x, p.ln).reshape(t, d)
     m_size = coll.axis_size(mesh, "model")
-    if p.wi.shape[0] * m_size != cfg.n_experts:
+    if wi.shape[0] * m_size != cfg.n_experts:
         raise ValueError(
             f"expert parallelism over {m_size} model shards needs "
-            f"{cfg.n_experts // m_size} experts a rank, got {p.wi.shape[0]} "
+            f"{cfg.n_experts // m_size} experts a rank, got {wi.shape[0]} "
             "(convert.shard_experts takes a rank's shard)")
     xn_l = coll.replicated_in(xn, mesh, "model")
-    router = coll.replicated_in(p.router, mesh, "model")
-    t_mm = t // m_size
+    router = coll.replicated_in(router, mesh, "model")
+    t_mm = xn.shape[0] // m_size
     m_idx = coll.axis_index(mesh, "model")
     xn_mine = xn_l[m_idx * t_mm:(m_idx + 1) * t_mm]
     buf, info = _dispatch_local(cfg, xn_mine, router)           # (E, C_l, d)
     buf = coll.all_to_all(buf, mesh, "model", split_axis=0,
                           concat_axis=1)                        # (E_l, C_l·M, d)
-    out = _expert_ffn(p, buf)
+    out = _expert_ffn(SimpleNamespace(wi=wi, wg=wg, wo=wo), buf)
     out = coll.all_to_all(out, mesh, "model", split_axis=1,
                           concat_axis=0)                        # (E, C_l, d)
     y_mine = _combine_local(out, info, t_mm)                    # (t_mm, d)
-    y = coll.replicated_out(coll.all_gather(y_mine, mesh, "model", dim=0),
-                            mesh, "model")
-    if cfg.shared_expert:
-        with splan.site_scope("moe", "shared"):
-            y = y + (ffn_block(cfg, p.shared, xn.reshape(b, s, d))
-                     - xn.reshape(b, s, d)).reshape(t, d)
-    return x + y.reshape(b, s, d).to(x.dtype)
+    return coll.replicated_out(coll.all_gather(y_mine, mesh, "model", dim=0),
+                               mesh, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -687,22 +724,22 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, device=None) -> Embed:
 
 
 def embed(cfg: ModelConfig, p: Embed, tokens: Tensor) -> Tensor:
-    return p.emb[tokens]
+    e = sh.constrain(p.emb, "vocab", "embed")
+    return sh.constrain(sh.lookup(e, tokens), "batch", "seq", "embed")
 
 
 def lm_logits(cfg: ModelConfig, p: Embed, x: Tensor) -> Tensor:
     """(B, S, d) hidden states → (B, S, vocab) float32 logits."""
     x = rms_norm(x, p.ln_f)
     with trace_span("lm.logits", "model"):
-        return torch.matmul(x.to(torch.float32), p.emb_f32.t())
+        logits = torch.matmul(x.to(torch.float32), p.emb_f32.t())
+    return sh.constrain(logits, "batch", "seq", "vocab")
 
 
 def _xent_sum(xs: Tensor, labels: Tensor, emb_t: Tensor) -> Tensor:
     """Σ (logsumexp − gold logit) over one chunk of positions, float32."""
     logits = torch.matmul(xs.to(torch.float32), emb_t)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return (logz - gold).sum()
+    return sh.xent_sum(sh.constrain(logits, "batch", "seq", "vocab"), labels)
 
 
 def lm_loss_chunked(cfg: ModelConfig, p: Embed, x: Tensor,
@@ -717,7 +754,8 @@ def lm_loss_chunked(cfg: ModelConfig, p: Embed, x: Tensor,
     x = rms_norm(x, p.ln_f)
     chunk = min(cfg.loss_chunk, s)
     n = s // chunk
-    emb_t = p.emb.to(torch.float32).t()  # (d, V)
+    # (d, V); the dry run's embedding gathered over its FSDP axes first
+    emb_t = sh.constrain(p.emb, "vocab", "embed").to(torch.float32).t()
     labels = labels.to(torch.int64)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):

@@ -6,11 +6,14 @@ binds a config to its family's model functions (``lm`` and ``vlm`` through
 :mod:`~repro_torch.models.lm`, ``encdec`` through
 :mod:`~repro_torch.models.encdec`, ``xlstm`` and ``zamba`` through
 :mod:`~repro_torch.models.xlstm` and :mod:`~repro_torch.models.zamba`) and
-its substrate plan. The dry-run's ``SHAPES`` / ``input_specs`` /
-``decode_state_specs`` / ``param_specs`` (ROADMAP.md queue 1 item 12) are
-not ported.
-``bundle.layout`` maps the parameters' names to ``repro``'s tree, the
-layout checkpoints and plan bundles store.
+its substrate plan. ``bundle.layout`` maps the parameters' names to
+``repro``'s tree, the layout checkpoints and plan bundles store.
+
+For the dry run (:mod:`repro_torch.launch.dryrun`): the cells' shapes
+(:data:`SHAPES`, :data:`SUBQUADRATIC`) and ``meta`` stand-ins for every
+input (:func:`input_specs`), the decode state (:func:`decode_state_specs`)
+and the parameters (:func:`param_specs`: the model built on ``meta``),
+which ``repro`` makes with ``jax.eval_shape`` and ``ShapeDtypeStruct``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,25 @@ import torch
 from repro_torch.models import common as cm
 from repro_torch.models import convert, encdec, lm, xlstm, zamba
 from repro_torch.nn import substrate as psub
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+# archs allowed to run long_500k (sub-quadratic)
+SUBQUADRATIC = {"xlstm-125m", "zamba2-1.2b"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,3 +189,78 @@ def list_archs():
 def _ensure_loaded():
     if not _REGISTRY:
         import repro_torch.configs  # noqa: F401  (registers all archs)
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta stand-ins, dry-run pattern)
+# ---------------------------------------------------------------------------
+
+_META = torch.device("meta")
+
+
+def input_specs(cfg: cm.ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """``meta`` tensors for every model input of this (arch, shape) cell.
+    The decode's ``cache_len`` is a 0-d int32 as ``repro``'s; the port's
+    decode takes a host integer in its place."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def sds(shp, dt):
+        return torch.empty(shp, dtype=dt, device=_META)
+
+    if shape.kind == "train":
+        batch = {"tokens": sds((b, s), i32), "labels": sds((b, s), i32)}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = sds((b, cfg.n_patches, cfg.d_model), cfg.dtype)
+        if cfg.family == "encdec":
+            batch["frames"] = sds((b, cfg.n_frames, cfg.d_model), cfg.dtype)
+        return batch
+    if shape.kind == "prefill":
+        batch = {"tokens": sds((b, s), i32)}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = sds((b, cfg.n_patches, cfg.d_model), cfg.dtype)
+        if cfg.family == "encdec":
+            batch["frames"] = sds((b, cfg.n_frames, cfg.d_model), cfg.dtype)
+        return batch
+    # decode: one new token against a cache of length seq_len
+    return {"token": sds((b, 1), i32), "cache_len": sds((), i32)}
+
+
+def decode_state_specs(bundle: ModelBundle, shape: ShapeSpec):
+    """The decode state (KV caches / SSM states) on ``meta``: the port's
+    per-layer tensors, which ``repro`` stacks where
+    :func:`decode_state_stacks` says."""
+    return bundle.init_decode_state(shape.global_batch, shape.seq_len,
+                                    device=_META)
+
+
+def decode_state_stacks(cfg: cm.ModelConfig, state):
+    """A tree like ``state`` giving, per leaf, the number of layers
+    ``repro``'s decode state stacks it with (None: a leaf of its own):
+    the lm's caches of whole units are stacked per unit position
+    (``lm.unit_period``), the encdec's self-attention caches over all
+    layers."""
+    def kv(n):
+        return (n, n)
+
+    if cfg.family in ("lm", "vlm"):
+        period = lm.unit_period(cfg)
+        n_units = cfg.n_layers // period
+        return [kv(n_units if i < n_units * period else None)
+                for i in range(len(state))]
+    if cfg.family == "encdec":
+        return {k: ([kv(cfg.n_layers)] * len(v) if k == "self_kv" else None)
+                for k, v in state.items()}
+    def none(x):
+        if isinstance(x, dict):
+            return {k: none(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(none(v) for v in x)
+        return None
+    return none(state)
+
+
+def param_specs(bundle: ModelBundle):
+    """The parameters on ``meta``: the model's modules with shapes and
+    dtypes, no allocation."""
+    return bundle.init_params(torch.Generator(), device=_META)

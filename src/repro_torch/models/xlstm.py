@@ -203,10 +203,9 @@ def associative_scan(fn: Callable, elems: Tuple[Tensor, ...]) -> List[Tensor]:
     even = [torch.cat([e[:1], r]) for e, r in zip(elems, even)]
     out = []
     for ev, od in zip(even, odd):
-        full = torch.empty((n,) + tuple(ev.shape[1:]), dtype=ev.dtype,
-                           device=ev.device)
-        full[0::2], full[1::2] = ev, od
-        out.append(full)
+        m = od.shape[0]     # interleave: ev[0], od[0], ev[1], ...
+        full = torch.stack([ev[:m], od], dim=1).flatten(0, 1)
+        out.append(full if n % 2 == 0 else torch.cat([full, ev[m:]]))
     return out
 
 

@@ -29,7 +29,8 @@ allocator that keeps every block (rounded up to a power of two), and four
 ranks' staging of multi-GB gradients would hold tens of GB of the host's
 memory. Its all-to-all is an
 all-gather of which each rank keeps its blocks, since not every torch
-release gives ``gloo`` an all-to-all. ``gloo`` is the one backend the port
+release gives ``gloo`` an all-to-all; the dry run's fake group
+(:func:`repro_torch.launch.dryrun.fake_world`) runs ``all_to_all``. ``gloo`` is the one backend the port
 runs (``launch.mesh.init_ranks`` refuses ``nccl`` until a machine with a
 card a rank has run it); nothing here chooses a backend.
 """
@@ -155,6 +156,11 @@ def _all_to_all(t: Tensor, group, split_axis: int, concat_axis: int) -> Tensor:
     if t.shape[split_axis] % n:
         raise ValueError(f"all_to_all: split axis {split_axis} of size "
                          f"{t.shape[split_axis]} does not divide into {n}")
+    if dist.get_backend(group) != "gloo":   # the dry run's fake group
+        ins = [c.contiguous() for c in t.chunk(n, dim=split_axis)]
+        outs = [torch.empty_like(c) for c in ins]
+        dist.all_to_all(outs, ins, group=group)
+        return torch.cat(outs, dim=concat_axis)
     # gloo has no all_to_all in every torch release: each rank gathers
     # every input and keeps its own block of each (n times the bytes)
     i = dist.get_group_rank(group, dist.get_rank())

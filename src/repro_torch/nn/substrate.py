@@ -488,6 +488,16 @@ def _sharded_dot(local_dot, a: Tensor, b: Tensor, part: Partitioning,
     the reduce; None means no such correction exists, so non-divisible K
     must raise before calling here.
     """
+    from repro_torch.models import sharding as sh
+
+    # the dry run's DTensor operands are taken whole on every rank
+    return sh.on_whole(lambda a, b: _sharded_block_dot(
+        local_dot, a, b, part, k_pad_unit), a, b)
+
+
+def _sharded_block_dot(local_dot, a: Tensor, b: Tensor, part: Partitioning,
+                       k_pad_unit: Optional[int]) -> Tensor:
+    """:func:`_sharded_dot` on plain tensors."""
     from repro_torch.nn import collectives as coll
 
     m, k = a.shape

@@ -43,6 +43,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.models import sharding as sh
 from repro_torch.optim.adamw import Optimizer
 
 Tensor = torch.Tensor
@@ -86,8 +87,7 @@ def adafactor(layout=None, decay: float = 0.8, eps: float = 1e-30,
             mean = torch.clamp_min(vr.mean(dim=-1)[..., None, None], eps)
             out = torch.empty_like(g)
             rows = max(1, _BLOCK // g.shape[-1])
-            for i in range(0, g.shape[-2], rows):
-                r = slice(i, i + rows)
+            for r in sh.blocks(g, g.shape[-2], rows):
                 denom = vr[..., r, None] * vc[..., None, :] / mean
                 out[..., r, :] = g[..., r, :] * torch.rsqrt(denom + eps).to(g.dtype)
             mv["vr"].copy_(vr)
@@ -100,9 +100,10 @@ def adafactor(layout=None, decay: float = 0.8, eps: float = 1e-30,
     def step_(p: Tensor, upd: Tensor, lr, clip) -> None:
         """``p ← p − lr · clip · upd`` in float32, in place."""
         scale = lr * clip
-        pf, uf = p.view(-1), upd.reshape(-1)
-        for i in range(0, pf.numel(), _BLOCK):
-            e = slice(i, i + _BLOCK)
+        # the dry run's DTensors, sharded already, as one block unflattened
+        pf, uf = (p, upd) if sh.is_distributed(p) else (p.view(-1),
+                                                        upd.reshape(-1))
+        for e in sh.blocks(p, pf.numel(), _BLOCK):
             pf[e] = (pf[e].to(torch.float32)
                      - scale * uf[e].to(torch.float32)).to(p.dtype)
 

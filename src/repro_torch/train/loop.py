@@ -140,9 +140,18 @@ class TrainLoop:
         """Whether this rank prints and writes: rank 0, or the only one."""
         return self.mesh is None or torch.distributed.get_rank() == 0
 
+    def _data_axes(self):
+        """The mesh axes the batch is split over: ("pod", "data") on a
+        multi-pod mesh, as ``launch.mesh.batch_shardings``, else "data"."""
+        return tuple(a for a in ("pod", "data")
+                     if a in coll.axis_names(self.mesh))
+
     def _data_mean(self, t: torch.Tensor) -> torch.Tensor:
-        return coll.psum(t, self.mesh, "data").div_(
-            coll.axis_size(self.mesh, "data"))
+        n = 1
+        for a in self._data_axes():
+            t = coll.psum(t, self.mesh, a)
+            n *= coll.axis_size(self.mesh, a)
+        return t.div_(n)
 
     def _shards(self, names):
         """How the leaf ``names`` form is split over ranks: None (whole on
@@ -297,10 +306,13 @@ class TrainLoop:
                     f"run's {self.cfg.qat.describe()}")
 
     def _shard(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """This rank's rows of a batch: its block along "data"."""
+        """This rank's rows of a batch: its block along "data" (within its
+        "pod"'s block on a multi-pod mesh)."""
         if self.mesh is None:
             return batch
-        return _data_shard(batch, self.mesh, "data")
+        for a in self._data_axes():
+            batch = _data_shard(batch, self.mesh, a)
+        return batch
 
     def run(self, params, opt_state, data_stream, start_step: int = 0,
             on_step: Optional[Callable] = None):

@@ -234,6 +234,18 @@ def test_serving_engine_and_launcher_default_to_cuda():
         launch_serve.main(["--arch", "minitron-8b", "--n-layers", "1"])
 
 
+DRYRUN_MODULES = ["launch/roofline.py", "launch/dryrun.py", "launch/rooffix.py",
+                  "launch/hillclimb.py", "launch/report.py"]
+
+
+@pytest.mark.parametrize("rel", DRYRUN_MODULES)
+def test_dryrun_slice_modules_are_checked(rel):
+    """The dry run's and the roofline's modules are among the files checked
+    above."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in PORT_FILES and not (_imported_roots(path) & FORBIDDEN)
+
+
 PARTITION_MODULES = ["nn/collectives.py", "launch/mesh.py", "models/sharding.py",
                      "optim/grad_utils.py", "train/loop.py",
                      "serving/edge_service.py", "nn/conv.py"]
@@ -275,8 +287,11 @@ def test_sharded_entry_points_default_to_cuda(name, monkeypatch):
 
 def test_backends_are_never_switched():
     """``nccl`` raises, citing item 14 (no quiet ``gloo``); an unknown
-    backend raises; the production meshes are item 12's."""
+    backend raises; the production meshes need their 256 / 512 ranks (a
+    world of one raises ``ValueError``), and the sharding rules give
+    placements."""
     import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.launch import mesh as ml
 
@@ -285,6 +300,16 @@ def test_backends_are_never_switched():
     with pytest.raises(NotImplementedError, match="nccl.*queue 1 item 14"):
         ml.init_ranks("nccl")
     assert not dist.is_initialized()
-    for fn in (ml.make_production_mesh, lambda: ml.param_shardings({}, None)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            fn()
+    ml.init_ranks("gloo")
+    try:
+        for multi_pod, n in ((False, 256), (True, 512)):
+            with pytest.raises(ValueError, match=f"needs {n} ranks"):
+                ml.make_production_mesh(multi_pod=multi_pod)
+        mesh = ml.make_debug_mesh()
+        sh = ml.param_shardings({"layers.0.attn.wq.w": torch.empty(4, 6),
+                                 "embed.ln_f": torch.empty(4)}, mesh)
+        assert sh["layers.0.attn.wq.w"].spec == ("data", "model")
+        assert sh["layers.0.attn.wq.w"].placements == (Shard(0), Shard(1))
+        assert sh["embed.ln_f"].placements == (Replicate(), Replicate())
+    finally:
+        dist.destroy_process_group()

@@ -43,8 +43,9 @@ RNG = np.random.default_rng(7)
 
 
 #: ``repro`` fields the port leaves out: XLA's cost-analysis switch
-#: (``cost_unroll``, with the roofline tools, ROADMAP.md queue 1 item 12)
-#: and the deprecated ``dot_mode`` shim (its spec lands in ``dot_plan``).
+#: (``cost_unroll``: the port's dry run counts eagerly, every loop iteration
+#: included, so it has no counterpart) and the deprecated ``dot_mode`` shim
+#: (its spec lands in ``dot_plan``).
 #: The ported configs hold ``repro``'s defaults there.
 DROPPED = {"cost_unroll", "dot_mode"}
 

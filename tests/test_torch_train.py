@@ -499,11 +499,16 @@ def test_train_launcher_runs_on_the_cpu_and_serve_restores_its_bundle(tmp_path, 
 
 
 def test_train_launcher_refuses_without_a_card_and_meshes(tmp_path):
-    """The production meshes (256 / 512 devices) are item 12's; ``--mesh
-    debug`` trains (``tests/test_torch_expert_parallel.py``)."""
-    for mesh in ("pod", "multipod"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    """``--mesh pod|multipod`` need a world of 256 / 512 ranks: in a world
+    of one the production mesh raises its ``ValueError`` and the launcher
+    leaves no process group behind; ``--mesh debug`` trains
+    (``tests/test_torch_expert_parallel.py``)."""
+    import torch.distributed as dist
+
+    for mesh, n in (("pod", 256), ("multipod", 512)):
+        with pytest.raises(ValueError, match=f"needs {n} ranks"):
             launch_train.main(FLAGS + ["--device", "cpu", "--mesh", mesh])
+        assert not dist.is_initialized()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             launch_train.main(FLAGS + ["--ckpt-dir", str(tmp_path)])
