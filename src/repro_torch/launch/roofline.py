@@ -26,10 +26,13 @@ and counts
   every op's flops, so the port's ``useful_ratio`` is not comparable with
   ``repro``'s;
 * **bytes**: each op's input and output bytes (views move none), the
-  counterpart of XLA's "bytes accessed";
+  counterpart of XLA's "bytes accessed", which prices a collective the
+  same way: its input (a shard, say) read and its output written;
 * **collectives** by ``repro``'s five kinds, summing output bytes as its
-  HLO parse does: the ``_c10d_functional`` ops that ``DTensor`` issues and
-  the ``c10d`` ops that :mod:`repro_torch.nn.collectives` issues;
+  HLO parse does, and output elements (a count that does not depend on
+  the dtype a backend moves them in): the ``_c10d_functional`` ops that
+  ``DTensor`` issues and the ``c10d`` ops that
+  :mod:`repro_torch.nn.collectives` issues;
 * **temp bytes**: the peak of the bytes the step allocated and still
   holds (its arguments excluded), ``memory_analysis``'s temp size. The
   garbage collector is off while the counter is active: a storage that a
@@ -84,6 +87,18 @@ _KIND = {
     "c10d.send": "collective-permute",
     "c10d.recv_": "collective-permute",
 }
+#: the in-place ``c10d`` ops' (input, output) argument positions: a
+#: separate input, or the output read and written in place; ``send`` has
+#: no output and ``recv_`` no input. The functional ops read ``args[0]``
+#: and write their result.
+_C10D_IO = {"c10d.allgather_": (1, 0), "c10d._allgather_base_": (1, 0),
+            "c10d.allgather_coalesced_": (1, 0),
+            "c10d.allgather_into_tensor_coalesced_": (1, 0),
+            "c10d.reduce_scatter_": (1, 0),
+            "c10d._reduce_scatter_base_": (1, 0),
+            "c10d.alltoall_": (1, 0), "c10d.alltoall_base_": (1, 0),
+            "c10d.allreduce_": (0, 0), "c10d.allreduce_coalesced_": (0, 0),
+            "c10d.send": (0, None), "c10d.recv_": (None, 0)}
 #: collective bookkeeping ops: no data of their own
 _SILENT = {"_c10d_functional.wait_tensor",
            "_c10d_functional._wrap_tensor_autograd", "c10d.barrier"}
@@ -114,10 +129,16 @@ def _nbytes(x) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(x))
 
 
+def _numel(x) -> int:
+    return sum(t.numel() for t in _tensors(x))
+
+
 @dataclasses.dataclass
 class CollectiveStats:
     bytes_by_kind: Dict[str, int]
     count_by_kind: Dict[str, int]
+    elements_by_kind: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {k: 0 for k in _COLLECTIVES})
 
     @property
     def total_bytes(self) -> int:
@@ -184,9 +205,18 @@ class CostCounter(TorchDispatchMode):
         self.ops += 1
         kind = _KIND.get(name)
         if kind is not None:
-            target = args[0] if func.namespace == "c10d" else out
-            self.coll.bytes_by_kind[kind] += _nbytes(target)
+            if func.namespace == "c10d":
+                i, o = _C10D_IO[name]
+                read = args[i] if i is not None else ()
+                written = args[o] if o is not None else ()
+            else:
+                read, written = args[0], out
+            # what crosses the link: the output (a send's: its input)
+            moved = written if _numel(written) else read
+            self.coll.bytes_by_kind[kind] += _nbytes(moved)
+            self.coll.elements_by_kind[kind] += _numel(moved)
             self.coll.count_by_kind[kind] += 1
+            self.bytes += _nbytes(read) + _nbytes(written)
             if func.namespace != "c10d":
                 self._track(out)
             return
@@ -224,6 +254,7 @@ class CostCounter(TorchDispatchMode):
                 "coll": float(self.coll.total_bytes),
                 "coll_by": dict(self.coll.bytes_by_kind),
                 "coll_counts": dict(self.coll.count_by_kind),
+                "coll_elems": dict(self.coll.elements_by_kind),
                 "temp": float(self.peak_temp), "ops": self.ops}
 
 

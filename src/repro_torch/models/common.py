@@ -291,17 +291,20 @@ def dense(cfg: ModelConfig, x: Tensor, w: Tensor, b: Optional[Tensor] = None,
     sharded over its mesh.
     """
     plan = substrate_plan(cfg)
-    w = sh.gather_fsdp(w)
     _, (name,) = splan.current_sites(site)
     spec_str = plan.resolve(name)
     cspec = psub.ContractionSpec.matmul(
         quant=_DENSE_QUANT, partitioning=psub.current_partitioning(),
         site=name or None)
     override = psub.current_dot_override()
-    if override is not None:
-        out = override(spec_str, x, w, cspec)
-    else:
-        out = psub.get_substrate(spec_str).dot_general(x, w, cspec)
+    # on the dry run's mesh: x's cotangent is reduced at this product, as
+    # GSPMD reduces each transposed dot's partial sums
+    x = sh.reduce_pending(x)
+    with sh.gathered(w, x) as w:
+        if override is not None:
+            out = override(spec_str, x, w, cspec)
+        else:
+            out = psub.get_substrate(spec_str).dot_general(x, w, cspec)
     out = sh.reduce_pending(out)
     if b is not None:
         out = out + b.to(out.dtype)
@@ -358,8 +361,20 @@ def attention_chunked(q: Tensor, k: Tensor, v: Tensor, *, q_offset,
     offset=cache_len). window > 0 = sliding-window (local) attention. Masked
     scores are -1e30, and the running max starts there, as in ``repro``;
     the chunks are a Python loop in place of ``lax.scan``, the remainder
-    chunk last.
+    chunk last. On the dry run's mesh each rank attends with its own rows
+    and heads, as GSPMD splits the attention, where both head counts
+    split (``DTensor``'s own placements for these products differ between
+    torch releases).
     """
+    heads, kv = ("batch", None, "heads", None), ("batch", None, "kv_heads", None)
+    return sh.on_shards(
+        lambda q_, k_, v_: _attend(q_, k_, v_, q_offset=q_offset,
+                                   causal=causal, window=window, chunk=chunk),
+        (heads, kv, kv), heads, q, k, v)
+
+
+def _attend(q: Tensor, k: Tensor, v: Tensor, *, q_offset, causal: bool,
+            window: int, chunk: int) -> Tensor:
     b, sq, h, dh = q.shape
     _, skv, hkv, _ = k.shape
     group = h // hkv
@@ -367,6 +382,9 @@ def attention_chunked(q: Tensor, k: Tensor, v: Tensor, *, q_offset,
     qg = q.reshape(b, sq, hkv, group, dh).to(torch.float32)
     scale = 1.0 / math.sqrt(dh)
     chunk = min(chunk, skv)
+    # a cache split along its positions on the dry run's mesh: every rank
+    # reads all of them, as GSPMD brings each block of repro's scan to it
+    k, v = sh.whole_along(k, 1), sh.whole_along(v, 1)
     dev = q.device
     q_pos = q_offset + torch.arange(sq, device=dev)
 
@@ -412,7 +430,10 @@ def _write_cache(cache: Tensor, new: Tensor, cache_len: int) -> None:
     if not 0 <= cache_len <= cache.shape[1] - s:
         raise ValueError(f"cache_len {cache_len} + {s} new positions exceed "
                          f"the cache's {cache.shape[1]}")
-    cache[:, cache_len:cache_len + s] = new.to(cache.dtype)
+    if sh.is_split(cache, 1):       # the dry run's long-sequence cache
+        sh.write_at(cache, new, cache_len, dim=1)
+    else:
+        cache[:, cache_len:cache_len + s] = new.to(cache.dtype)
 
 
 def attn_block(cfg: ModelConfig, p: Attn, x: Tensor, *, positions: Tensor,
@@ -731,14 +752,18 @@ def embed(cfg: ModelConfig, p: Embed, tokens: Tensor) -> Tensor:
 def lm_logits(cfg: ModelConfig, p: Embed, x: Tensor) -> Tensor:
     """(B, S, d) hidden states → (B, S, vocab) float32 logits."""
     x = rms_norm(x, p.ln_f)
-    with trace_span("lm.logits", "model"):
-        logits = torch.matmul(x.to(torch.float32), p.emb_f32.t())
+    with trace_span("lm.logits", "model"), \
+            sh.gathered(p.emb_f32, x) as e:
+        logits = torch.matmul(x.to(torch.float32), e.t())
     return sh.constrain(logits, "batch", "seq", "vocab")
 
 
 def _xent_sum(xs: Tensor, labels: Tensor, emb_t: Tensor) -> Tensor:
-    """Σ (logsumexp − gold logit) over one chunk of positions, float32."""
-    logits = torch.matmul(xs.to(torch.float32), emb_t)
+    """Σ (logsumexp − gold logit) over one chunk of positions, float32; on
+    the dry run's mesh the embedding is gathered here, at its use, as
+    ``repro``'s loss gathers it inside its scan body."""
+    with sh.gathered(emb_t, xs) as e:
+        logits = torch.matmul(sh.reduce_pending(xs.to(torch.float32)), e)
     return sh.xent_sum(sh.constrain(logits, "batch", "seq", "vocab"), labels)
 
 
@@ -754,8 +779,7 @@ def lm_loss_chunked(cfg: ModelConfig, p: Embed, x: Tensor,
     x = rms_norm(x, p.ln_f)
     chunk = min(cfg.loss_chunk, s)
     n = s // chunk
-    # (d, V); the dry run's embedding gathered over its FSDP axes first
-    emb_t = sh.constrain(p.emb, "vocab", "embed").to(torch.float32).t()
+    emb_t = p.emb.to(torch.float32).t()     # (d, V)
     labels = labels.to(torch.int64)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):

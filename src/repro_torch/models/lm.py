@@ -166,7 +166,8 @@ def _maybe_remat(cfg: cm.ModelConfig, fn):
     def replay(*args):
         with splan.site_stack_scope(sites), splan.plan_override_scope(plan), \
                 psub.dot_override_scope(override), \
-                psub.partitioning_scope(part), sh.mesh_scope(mesh):
+                psub.partitioning_scope(part), sh.mesh_scope(mesh), \
+                sh.remat_scope():
             return fn(*args)
 
     return lambda *args: checkpoint(replay, *args, use_reentrant=False,

@@ -233,6 +233,105 @@ def reduce_pending(x):
                                 for p in x.placements))
 
 
+def is_split(x, dim: int) -> bool:
+    """Whether ``x`` is a ``DTensor`` under a current mesh split along
+    ``dim`` (a long sequence's cache, split along its positions)."""
+    return is_distributed(x) and any(p.is_shard(dim % x.ndim)
+                                     for p in x.placements)
+
+
+def whole_along(x, dim: int):
+    """``x`` with its split along ``dim`` gathered, its other splits kept:
+    a cache split along its positions, gathered once before a loop takes
+    blocks of them (``DTensor`` would gather the whole of it for each
+    block). Anything else is returned as it is."""
+    if not is_split(x, dim):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard(dim % x.ndim) else p for p in x.placements])
+
+
+def write_at(cache, new, start: int, dim: int) -> None:
+    """``cache``'s positions ``start …`` along ``dim`` set to ``new``, in
+    place, for a cache split along ``dim`` (:func:`is_split`): written on
+    the rank that holds those positions, from ``new`` whole over the
+    split, and nothing else moves, as GSPMD updates such a cache in place
+    on each shard; ``DTensor`` would gather the whole cache."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh = cache.device_mesh
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    n = new.shape[dim]
+    lo, hi = max(start, offset[dim]), min(start + n, offset[dim] + shape[dim])
+    whole = new.to(cache.dtype).redistribute(mesh, [
+        Replicate() if c.is_shard(dim) else p
+        for c, p in zip(cache.placements, new.placements)]).to_local()
+    if lo < hi:
+        cache._local_tensor.narrow(dim, lo - offset[dim], hi - lo).copy_(
+            whole.narrow(dim, lo - start, hi - lo))
+
+
+def placed_as(x, ref):
+    """``x`` on ``ref``'s placements: a ``DTensor`` under a current mesh
+    (a statistic reduced over a sharded dimension, pending) is
+    redistributed to where ``ref`` (the state it updates) lives, as GSPMD
+    reduces it to the state's sharding. Anything else is returned as it
+    is."""
+    if not is_distributed(x):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def split_like(t, ref, dims):
+    """``t``, a tensor the model makes (a zero state), split as ``ref``
+    is: ``t``'s dimension ``i`` follows ``ref``'s dimension ``dims[i]``
+    (None: whole), as GSPMD shards a value like its uses. Each rank keeps
+    its own slice; nothing moves. ``t`` is returned as it is unless
+    ``ref`` is a ``DTensor`` under a current mesh."""
+    if not is_distributed(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    mine = {r: i for i, r in enumerate(dims) if r is not None}
+    return distribute_tensor(t, ref.device_mesh, [
+        Shard(mine[p.dim]) if p.is_shard() and p.dim in mine else Replicate()
+        for p in ref.placements], src_data_rank=None)
+
+
+def split(x, sizes, dim: int):
+    """``torch.split(x, sizes, dim)`` of (batch, positions, ...) ``x``. A
+    ``DTensor`` under a current mesh split along ``dim`` (a projection's
+    output features) has its pieces split as GSPMD splits them: each along
+    ``dim`` where the split divides its size, else whole, the feature split
+    moved through the positions and back, each move an all-to-all.
+    ``DTensor`` would gather the whole of ``x`` and compute on every piece
+    whole on each rank of the axis."""
+    if not is_split(x, dim):
+        return torch.split(x, sizes, dim)
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim, alt = dim % x.ndim, 1
+    mesh = x.device_mesh
+    moved = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+    n = math.prod(mesh.size(i) for i in moved)
+    taken = math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                      if p.is_shard(alt))
+    if x.shape[alt] % (taken * n):
+        return torch.split(x, sizes, dim)
+    y = x.redistribute(mesh, [Shard(alt) if i in moved else p
+                              for i, p in enumerate(x.placements)])
+    return tuple(
+        piece.redistribute(mesh, [
+            (Shard(dim) if piece.shape[dim] % n == 0 else Replicate())
+            if i in moved else p for i, p in enumerate(piece.placements)])
+        for piece in torch.split(y, sizes, dim))
+
+
 def regroup(x, groups: int, dim: int, alt: int):
     """``x`` ready for its dimension ``dim`` to be viewed as ``(groups,
     -1)`` (the query heads as KV groups): a ``DTensor`` under a current
@@ -261,26 +360,111 @@ def regroup(x, groups: int, dim: int, alt: int):
         for i, p in enumerate(x.placements)))
 
 
-def gather_fsdp(w):
+def gather_fsdp(w, x=None):
     """A weight at its use: a ``DTensor`` under a current mesh is gathered
     over the mesh axes that shard the batch (its FSDP split), its
     tensor-parallel split kept, as GSPMD gathers an FSDP weight before a
-    contraction; the gather's backward reduce-scatters the gradient.
-    Anything else is returned as it is. Left to itself, ``DTensor``'s
-    sharding propagation takes each op's cheapest placement and may gather
-    the activations instead, which runs the contraction whole on every
-    data rank."""
+    contraction; the gather's backward reduce-scatters the gradient. Given
+    the activation ``x`` it contracts with (along ``x``'s last dimension),
+    only the axes that split ``x`` along another dimension are gathered:
+    where the batch is too small to split (a decode of one sequence),
+    GSPMD keeps the weight split and sums the partial products, and so
+    does the port (:func:`reduce_pending`). Anything else is returned as
+    it is. Left to itself, ``DTensor``'s sharding propagation
+    takes each op's cheapest placement and may gather the activations
+    instead, which runs the contraction whole on every data rank."""
     if not is_distributed(w):
         return w
     from torch.distributed.tensor import Replicate
 
     batch = get_rules().get("batch") or ()
     batch = batch if isinstance(batch, tuple) else (batch,)
+    if x is not None:
+        batch = tuple(n for n, p in zip(x.device_mesh.mesh_dim_names,
+                                        x.placements)
+                      if n in batch and p.is_shard() and p.dim < x.ndim - 1
+                      ) if is_dtensor(x) else ()
     target = tuple(Replicate() if name in batch else pl for name, pl in
                    zip(w.device_mesh.mesh_dim_names, w.placements))
     if tuple(w.placements) == target:
         return w
     return w.redistribute(w.device_mesh, target)
+
+
+@contextlib.contextmanager
+def remat_scope():
+    """Mark the block as a checkpointed (remat) region: its backward reads
+    what its recompute made. Thread-local; a recompute run on autograd's
+    thread enters it again."""
+    prev = getattr(_state, "remat", False)
+    _state.remat = True
+    try:
+        yield
+    finally:
+        _state.remat = prev
+
+
+@dataclasses.dataclass
+class _Regather:
+    """A saved view of a gathered weight, kept as the weight's shard and
+    the view's layout: :meth:`value` gathers the shard again and takes the
+    same view of it."""
+
+    shard: Any
+    placements: Tuple
+    view: Tuple          # (DTensor placements, shape, stride)
+    local: Tuple         # the local view's (size, stride, storage offset)
+
+    def value(self):
+        from torch.distributed.tensor import DTensor
+
+        with torch.no_grad():
+            full = self.shard.redistribute(self.shard.device_mesh,
+                                           self.placements)
+        pl, shape, stride = self.view
+        loc = full._local_tensor.as_strided(*self.local)
+        return DTensor.from_local(loc, full.device_mesh, pl, run_check=False,
+                                  shape=shape, stride=stride)
+
+
+def gathered(w, x):
+    """``with gathered(w, x) as w:`` — ``w`` at its use with ``x`` for the
+    block (:func:`gather_fsdp`). Outside a remat region
+    (:func:`remat_scope`) the block's backward does not keep the gathered
+    weight: each view of it that an op saves is kept as the shard and
+    gathered again where the backward reads it, as GSPMD gathers an FSDP
+    weight for the transposed contraction too. In a remat region the
+    recompute's gather serves the backward, so nothing changes there.
+    Anything but a ``DTensor`` under a current mesh is yielded as it is."""
+    if not is_distributed(w):
+        return contextlib.nullcontext(w)
+    return _gathered(w, x)
+
+
+@contextlib.contextmanager
+def _gathered(w, x):
+    full = gather_fsdp(w, x)
+    if full is w or getattr(_state, "remat", False) or \
+            not torch.is_grad_enabled():
+        yield full
+        return
+    key = full._local_tensor.untyped_storage()._cdata
+    target = tuple(full.placements)
+
+    def pack(t):
+        if is_dtensor(t) and \
+                t._local_tensor.untyped_storage()._cdata == key:
+            loc = t._local_tensor
+            return _Regather(w, target, (tuple(t.placements), t.shape,
+                                         t.stride()),
+                             (loc.size(), loc.stride(), loc.storage_offset()))
+        return t
+
+    def unpack(t):
+        return t.value() if isinstance(t, _Regather) else t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+        yield full
 
 
 def named_sharding(*logical_axes: Optional[str]) -> Optional[NamedSharding]:
@@ -341,8 +525,39 @@ def shard_map(fn, mesh, in_specs, out_spec, *args, partial_over=()):
         grad = tuple(Partial() if n in partial_over and not p.is_shard() else p
                      for n, p in zip(mesh.mesh_dim_names, pl))
         local.append(a.redistribute(mesh, pl).to_local(grad_placements=grad))
-    return DTensor.from_local(fn(*local), mesh, placements(out_spec, mesh),
+    out = fn(*local)
+    if isinstance(out_spec, list):      # one spec for each of fn's results
+        return tuple(DTensor.from_local(o, mesh, placements(sp, mesh),
+                                        run_check=False)
+                     for o, sp in zip(out, out_spec))
+    return DTensor.from_local(out, mesh, placements(out_spec, mesh),
                               run_check=False)
+
+
+def on_shards(fn, in_axes, out_axes, *args):
+    """``fn(*args)``; on the dry run's ``DTensor``s, ``fn`` runs on each
+    rank's shards (:func:`shard_map`) with each argument split by the rules
+    for its logical axes ``in_axes`` (one tuple an argument) and its result
+    by ``out_axes`` (a tuple; a list of them, one a result, where ``fn``
+    returns several), as GSPMD runs a computation split along the
+    dimensions every operand shares (a scan's batch and heads). An argument
+    replicated over a mesh axis gets its gradient summed over it. Where a
+    split does not divide its dimension, ``fn`` runs on the ``DTensor``s
+    as they are."""
+    if not any(is_distributed(a) for a in args):
+        return fn(*args)
+    mesh = current_mesh()
+    sizes = axis_sizes(mesh)
+    in_specs = [spec(*ax) for ax in in_axes]
+    for a, sp in zip(args, in_specs):
+        for n, e in zip(a.shape, sp):
+            if e is not None and n % math.prod(
+                    sizes[m] for m in (e if isinstance(e, tuple) else (e,))):
+                return fn(*args)
+    out_specs = ([spec(*ax) for ax in out_axes]
+                 if isinstance(out_axes, list) else spec(*out_axes))
+    return shard_map(fn, mesh, in_specs, out_specs, *args,
+                     partial_over=tuple(mesh.mesh_dim_names))
 
 
 def lookup(table, ids):
@@ -360,7 +575,11 @@ def lookup(table, ids):
     vocab = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
     tok = ids.redistribute(mesh, [Replicate() if i in vocab else p
                                   for i, p in enumerate(ids.placements)])
-    t = table.to_local()
+    # the table's gradient from this rank's ids is a partial sum over the
+    # mesh dims that split the ids (the batch)
+    t = table.to_local(grad_placements=[
+        Partial() if p.is_replicate() and tp.is_shard() else p
+        for p, tp in zip(table.placements, tok.placements)])
     lo = 0
     for i in vocab:     # the first vocabulary mesh dim is the major one
         lo = lo * mesh.size(i) + mesh.get_local_rank(i)

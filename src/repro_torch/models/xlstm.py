@@ -40,6 +40,7 @@ from torch import nn
 
 from repro_torch.models import common as cm
 from repro_torch.models import lm
+from repro_torch.models import sharding as sh
 from repro_torch.nn import plan as splan
 
 Tensor = torch.Tensor
@@ -171,9 +172,16 @@ def mlstm_block(cfg: cm.ModelConfig, p: MLSTM, x: Tensor,
     i_gate = torch.sigmoid(cm.dense(cfg, xn, p.wi.w, site="wi").to(f32))
     f_gate = torch.sigmoid(cm.dense(cfg, xn, p.wf.w, site="wf").to(f32) + 3.0)
     if state is None:
-        state = torch.zeros((b, h, d // h, d // h), dtype=f32, device=x.device)
-    y, new_state = mlstm_scan(q, k, v, i_gate, f_gate, state,
-                              chunk=min(cfg.attn_chunk, s))
+        state = sh.split_like(
+            torch.zeros((b, h, d // h, d // h), dtype=f32, device=x.device),
+            q, (0, 2, None, None))
+    heads = ("batch", None, "heads", None)
+    y, new_state = sh.on_shards(
+        lambda *t: mlstm_scan(*t, chunk=min(cfg.attn_chunk, s)),
+        (heads, heads, heads, ("batch", None, "heads"),
+         ("batch", None, "heads"), ("batch", "heads", None, None)),
+        [heads, ("batch", "heads", None, None)],
+        q, k, v, i_gate, f_gate, state)
     y = y.reshape(b, s, d).to(x.dtype)
     gate = torch.sigmoid(cm.dense(cfg, xn, p.wo_gate.w, site="wo_gate").to(f32))
     y = (y.to(f32) * gate).to(x.dtype)
@@ -225,11 +233,16 @@ def slstm_block(cfg: cm.ModelConfig, p: SLSTM, x: Tensor,
     i = torch.sigmoid(cm.dense(cfg, xn, p.wi.w, site="wi").to(f32))
     f = torch.sigmoid(cm.dense(cfg, xn, p.wf.w, site="wf").to(f32) + 2.0)
     if state is None:
-        state = torch.zeros((b, d), dtype=f32, device=x.device)
+        state = sh.split_like(torch.zeros((b, d), dtype=f32, device=x.device),
+                              z, (0, 2))
     a_seq = f.transpose(0, 1)                          # (S, B, d)
     b_seq = (i * z).transpose(0, 1).clone()
     b_seq[0] += a_seq[0] * state                       # fold in the carried state
-    _, c_seq = associative_scan(_compose, (a_seq, b_seq))
+    # the features split over "model", as the projections' output columns
+    feats = (None, "batch", "mlp")
+    c_seq = sh.on_shards(
+        lambda a_s, b_s: associative_scan(_compose, (a_s, b_s))[1],
+        (feats, feats), feats, a_seq, b_seq)
     c = c_seq.transpose(0, 1)                          # (B, S, d)
     new_state = c_seq[-1]
     o = torch.sigmoid(cm.dense(cfg, xn, p.wo_gate.w, site="wo_gate").to(f32))

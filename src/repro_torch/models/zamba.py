@@ -42,6 +42,7 @@ from torch import nn
 
 from repro_torch.models import common as cm
 from repro_torch.models import lm
+from repro_torch.models import sharding as sh
 from repro_torch.nn import plan as splan
 
 Tensor = torch.Tensor
@@ -213,16 +214,22 @@ def mamba_block(cfg: cm.ModelConfig, p: Mamba, x: Tensor,
     f32 = torch.float32
     xn = cm.rms_norm(x, p.ln)
     proj = cm.dense(cfg, xn, p.in_proj.w, site="in_proj")
-    xin, z, Bm, Cm, dt_raw = torch.split(proj, [di, di, n, n, h], dim=-1)
+    xin, z, Bm, Cm, dt_raw = sh.split(proj, [di, di, n, n, h], dim=-1)
     xin, new_conv = _causal_conv1d(xin, p.conv_w, conv_state)
     xin = _silu(xin)
     dt = _softplus(dt_raw.to(f32) + p.dt_bias)
     a = -torch.exp(p.a_log)
-    if state is None:
-        state = torch.zeros((b, h, dh, n), dtype=f32, device=x.device)
     xh = xin.reshape(b, s, h, dh)
-    y, new_state = mamba_scan(xh, dt, Bm, Cm, a, state,
-                              chunk=min(cfg.attn_chunk, s))
+    if state is None:
+        state = sh.split_like(torch.zeros((b, h, dh, n), dtype=f32,
+                                          device=x.device), xh,
+                              (0, 2, None, None))
+    heads = ("batch", None, "heads", None)
+    y, new_state = sh.on_shards(
+        lambda *t: mamba_scan(*t, chunk=min(cfg.attn_chunk, s)),
+        (heads, ("batch", None, "heads"), ("batch", None, None),
+         ("batch", None, None), ("heads",), ("batch", "heads", None, None)),
+        [heads, ("batch", "heads", None, None)], xh, dt, Bm, Cm, a, state)
     y = y + xh.to(f32) * p.d_skip[None, None, :, None]
     y = (y.reshape(b, s, di) * _silu(z.to(f32))).to(x.dtype)
     return (x + cm.dense(cfg, y, p.out_proj.w, site="out_proj").to(x.dtype),

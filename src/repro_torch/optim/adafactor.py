@@ -81,8 +81,10 @@ def adafactor(layout=None, decay: float = 0.8, eps: float = 1e-30,
         ``mv`` then views of its statistics), its statistics updated."""
         sq = torch.square(g.to(torch.float32))
         if g.dim() >= 2:
-            vr = beta * mv["vr"] + (1 - beta) * (sq.mean(dim=-1) + eps)
-            vc = beta * mv["vc"] + (1 - beta) * (sq.mean(dim=-2) + eps)
+            vr = beta * mv["vr"] + (1 - beta) * (
+                sh.placed_as(sq.mean(dim=-1), mv["vr"]) + eps)
+            vc = beta * mv["vc"] + (1 - beta) * (
+                sh.placed_as(sq.mean(dim=-2), mv["vc"]) + eps)
             del sq
             mean = torch.clamp_min(vr.mean(dim=-1)[..., None, None], eps)
             out = torch.empty_like(g)

@@ -98,8 +98,44 @@ def test_collectives_count_as_repros_hlo_parse():
     assert c.coll.bytes_by_kind == want.bytes_by_kind
     assert c.coll.count_by_kind == want.count_by_kind
     assert c.coll.total_bytes == want.total_bytes
+    assert c.coll.elements_by_kind == {
+        "all-gather": 256 * 16384, "all-reduce": 1024 * 1024,
+        "reduce-scatter": 64 * 1024, "all-to-all": 2048 * 128,
+        "collective-permute": 8 * 128}
     assert c.flops == 2 * 128 ** 3
-    assert c.bytes == 3 * 128 * 128 * 4
+    # the matmul, and each collective's input read and output written
+    # (the in-place all-reduce reads and writes its tensor, the receive
+    # only writes), as XLA's "bytes accessed" prices them
+    assert c.bytes == 3 * 128 * 128 * 4 + (
+        256 * 2048 * 2 + 256 * 16384 * 2) + 2 * 1024 * 1024 * 4 + (
+        512 * 1024 * 4 + 64 * 1024 * 4) + 2 * 2048 * 128 + 8 * 128 * 2
+
+
+def test_a_collective_is_priced_as_xla_prices_it():
+    """One collective's bytes: its input read and its output written.
+    ``cost_analysis()["bytes accessed"]`` of ``repro``'s compiled
+    ``shard_map`` over 4 host devices reads 1310720 for an all-gather of
+    a (256, 256) float32 shard into (1024, 256), and 524288 for a psum
+    of the same shard (``tests/test_torch_dryrun_parity.py`` compiles
+    both); the port's functional collectives, which ``DTensor`` issues,
+    count the same."""
+    from torch.distributed import _functional_collectives as funcol
+
+    logging.disable(logging.WARNING)
+    try:
+        with dryrun.fake_world(4):
+            group = dist.group.WORLD
+            with roofline.CostCounter("meta") as g:
+                funcol.all_gather_tensor(_meta(256, 256, dtype=torch.float32),
+                                         0, group)
+            with roofline.CostCounter("meta") as r:
+                funcol.all_reduce(_meta(256, 256, dtype=torch.float32),
+                                  "sum", group)
+    finally:
+        logging.disable(logging.NOTSET)
+    assert g.bytes == 1310720 and r.bytes == 524288
+    assert g.coll.bytes_by_kind["all-gather"] == 1024 * 256 * 4
+    assert r.coll.elements_by_kind["all-reduce"] == 256 * 256
 
 
 def test_views_move_nothing_and_temp_is_the_peak():
