@@ -191,7 +191,11 @@ mesh through ``rooffix.corrected_cell`` (maverick's error, if any, is
 recorded and the phase goes on), each with its roofline row from the
 H100 data-sheet peaks (estimates), rank 0's argument and temp bytes and
 whether they fit 80 GB; and kimi-k2's parameter shardings on 2 × 16 × 16
-(largest leaf < 8 GiB a device). Phase ``roofline_path`` (the card): a
+(largest leaf < 8 GiB a device). Phase ``dryrun_moves`` (host only, an
+8-rank fake process group): the parity harness's zamba and vlm training
+cells and its decode over a position-split cache, at their narrow widths
+on 4 × 2, must move exactly the collective kinds ``repro``'s partitioned
+step moves there (collective-permutes among them). Phase ``roofline_path`` (the card): a
 bf16 ``torch.matmul`` at 8192³ and a device-to-device copy of 2 GiB,
 each at most 105% of its constant (``PEAK_FLOPS``, ``HBM_BW``), beside the
 card's name and power limit; then minitron-8b at its published widths, 4
@@ -3312,6 +3316,40 @@ def dryrun_phase() -> dict:
     return {"rows": rows, "seconds": round(time.perf_counter() - t_phase, 3)}
 
 
+#: dryrun_moves: the parity harness's cells whose collectives GSPMD moves by
+#: collective-permute (tests/test_torch_dryrun_parity*.py), and the kinds
+#: repro's partitioned step moves in each
+DRYRUN_MOVES = {
+    "train:zamba": {"all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute"},
+    "train:vlm": {"all-gather", "all-reduce", "reduce-scatter",
+                  "all-to-all", "collective-permute"},
+    "decode:dense:long": {"all-gather", "all-reduce", "collective-permute"},
+}
+
+
+def dryrun_moves_phase() -> dict:
+    """Phase ``dryrun_moves`` (host only, ``meta`` tensors over an 8-rank
+    fake process group): the DRYRUN_MOVES cells of the parity harness at
+    its narrow widths on a 4 × 2 mesh (``tools/dryrun_cells.py``):
+    zamba's split ``in_proj`` pieces and SSD, paligemma's one KV head
+    through the rope and the attention, a cache split along its positions
+    streamed block by block. Each must move exactly the collective kinds
+    ``repro``'s partitioned step moves there."""
+    from tools import dryrun_cells
+
+    t_phase = time.perf_counter()
+    rows = []
+    for cell, kinds in DRYRUN_MOVES.items():
+        c = dryrun_cells.count(cell)
+        moved = {k for k, v in c["collective_bytes"].items() if v}
+        require(moved == kinds, f"dryrun_moves {cell}: moves {sorted(moved)}, "
+                f"repro's step {sorted(kinds)}")
+        rows.append(c)
+        emit("dryrun_moves", **c)
+    return {"rows": rows, "seconds": round(time.perf_counter() - t_phase, 3)}
+
+
 def roofline_phase(dev, card: str) -> dict:
     """Phase ``roofline_path`` (the card): the bf16 matmul rate at
     ROOF_MATMUL_N^3 (a library call, measured, not ported) and the rate of a
@@ -4168,6 +4206,7 @@ def main() -> int:
     drivers_shape_checks(driver_shapes, dev)
     free_card()
     dryrun_phase()
+    dryrun_moves_phase()
     roofline_phase(dev, card)
 
     def at_kn(by_shape: dict, k: int, n: int) -> dict:

@@ -31,8 +31,11 @@ and counts
 * **collectives** by ``repro``'s five kinds, summing output bytes as its
   HLO parse does, and output elements (a count that does not depend on
   the dtype a backend moves them in): the ``_c10d_functional`` ops that
-  ``DTensor`` issues and the ``c10d`` ops that
-  :mod:`repro_torch.nn.collectives` issues;
+  ``DTensor`` and :mod:`repro_torch.models.sharding` issue and the
+  ``c10d`` ops that :mod:`repro_torch.nn.collectives` issues. An
+  ``all_to_all_single`` that sends to at most one rank and receives from
+  at most one (``permute_tensor``'s form, :func:`kind_of`) is a
+  collective-permute, priced as the other kinds;
 * **temp bytes**: the peak of the bytes the step allocated and still
   holds (its arguments excluded), ``memory_analysis``'s temp size. The
   garbage collector is off while the counter is active: a storage that a
@@ -105,6 +108,21 @@ _SILENT = {"_c10d_functional.wait_tensor",
 #: allocation without reading or writing data
 _ALLOC = {"aten.empty", "aten.empty_strided", "aten.empty_like",
           "aten.new_empty", "aten.new_empty_strided"}
+
+
+def kind_of(name: str, args) -> Optional[str]:
+    """The collective kind of op ``name`` (namespace.name) called with
+    ``args``, or None. ``all_to_all_single(input, output_split_sizes,
+    input_split_sizes, group)`` with at most one non-zero split on each
+    side moves one block from one rank to another: XLA's
+    collective-permute, which torch has no op of its own for."""
+    kind = _KIND.get(name)
+    if name == "_c10d_functional.all_to_all_single":
+        outs, ins = args[1], args[2]
+        if len(outs) > 1 and sum(map(bool, outs)) <= 1 \
+                and sum(map(bool, ins)) <= 1:
+            return "collective-permute"
+    return kind
 
 
 def _tensor_bytes(dtype: torch.dtype, shape) -> int:
@@ -203,7 +221,7 @@ class CostCounter(TorchDispatchMode):
         if name in _SILENT:
             return
         self.ops += 1
-        kind = _KIND.get(name)
+        kind = kind_of(name, args)
         if kind is not None:
             if func.namespace == "c10d":
                 i, o = _C10D_IO[name]

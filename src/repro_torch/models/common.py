@@ -288,7 +288,10 @@ def dense(cfg: ModelConfig, x: Tensor, w: Tensor, b: Optional[Tensor] = None,
     ambient :func:`repro_torch.nn.substrate.dot_override_scope` hook where
     one is installed (QAT's straight-through contraction). Under an ambient
     :func:`repro_torch.nn.substrate.partitioning_scope` the contraction is
-    sharded over its mesh.
+    sharded over its mesh. On the dry run's mesh a row-parallel result is
+    reduced (:func:`repro_torch.models.sharding.reduce_pending`), onto the
+    residual stream's placements inside
+    :func:`repro_torch.models.sharding.reduce_onto`.
     """
     plan = substrate_plan(cfg)
     _, (name,) = splan.current_sites(site)
@@ -314,6 +317,11 @@ def dense(cfg: ModelConfig, x: Tensor, w: Tensor, b: Optional[Tensor] = None,
 def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    if sh.is_split(x, -1):
+        # the dry run's stream split along its features (vlm's): the mean
+        # is summed over the split, the scale's gradient over the batch
+        # first, as GSPMD does
+        var, scale = sh.reduce_pending(var), sh.reduce_grad(scale)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
@@ -339,8 +347,10 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     ang = positions[..., None].to(torch.float32) * freqs  # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = x[..., :half], x[..., half:2 * half]
-    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    # on the dry run's mesh, paligemma's one KV head split along head_dim:
+    # the halves and the rotation stay split (sharding.halves / cat)
+    x1, x2 = sh.halves(x, half)
+    rot = sh.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     if dh % 2:
         rot = torch.cat([rot, x[..., -1:]], dim=-1)
     return rot.to(x.dtype)
@@ -364,17 +374,24 @@ def attention_chunked(q: Tensor, k: Tensor, v: Tensor, *, q_offset,
     chunk last. On the dry run's mesh each rank attends with its own rows
     and heads, as GSPMD splits the attention, where both head counts
     split (``DTensor``'s own placements for these products differ between
-    torch releases).
+    torch releases). Where the KV heads are too few to split (paligemma's
+    one), K and V stay split along head_dim, as GSPMD keeps ``wk`` /
+    ``wv``'s columns, and each block is gathered whole where it is read.
     """
     heads, kv = ("batch", None, "heads", None), ("batch", None, "kv_heads", None)
+    gather = None
+    if sh.is_split(k, -1) and not sh.is_split(k, 2):
+        kv = ("batch", None, None, "heads")
+        gather = sh.gather_local("heads", 3)
     return sh.on_shards(
         lambda q_, k_, v_: _attend(q_, k_, v_, q_offset=q_offset,
-                                   causal=causal, window=window, chunk=chunk),
+                                   causal=causal, window=window, chunk=chunk,
+                                   gather=gather),
         (heads, kv, kv), heads, q, k, v)
 
 
 def _attend(q: Tensor, k: Tensor, v: Tensor, *, q_offset, causal: bool,
-            window: int, chunk: int) -> Tensor:
+            window: int, chunk: int, gather=None) -> Tensor:
     b, sq, h, dh = q.shape
     _, skv, hkv, _ = k.shape
     group = h // hkv
@@ -382,9 +399,7 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, *, q_offset, causal: bool,
     qg = q.reshape(b, sq, hkv, group, dh).to(torch.float32)
     scale = 1.0 / math.sqrt(dh)
     chunk = min(chunk, skv)
-    # a cache split along its positions on the dry run's mesh: every rank
-    # reads all of them, as GSPMD brings each block of repro's scan to it
-    k, v = sh.whole_along(k, 1), sh.whole_along(v, 1)
+    gather = gather or (lambda t: t)
     dev = q.device
     q_pos = q_offset + torch.arange(sq, device=dev)
 
@@ -393,8 +408,12 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, *, q_offset, causal: bool,
     l = torch.zeros_like(qg[..., 0])
     acc = torch.zeros_like(qg)
     for start in range(0, skv, chunk):
-        k_blk = k[:, start:start + chunk].to(torch.float32)
-        v_blk = v[:, start:start + chunk].to(torch.float32)
+        # a cache split along its positions on the dry run's mesh: each
+        # block is brought to every rank, as GSPMD brings each block of
+        # repro's scan
+        n = min(chunk, skv - start)
+        k_blk = gather(sh.block(k, 1, start, n).to(torch.float32))
+        v_blk = gather(sh.block(v, 1, start, n).to(torch.float32))
         s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k_blk) * scale
         kv_pos = start + torch.arange(k_blk.shape[1], device=dev)
         mask = torch.ones((sq, k_blk.shape[1]), dtype=torch.bool, device=dev)
@@ -454,7 +473,9 @@ def attn_block(cfg: ModelConfig, p: Attn, x: Tensor, *, positions: Tensor,
     """
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    xn = rms_norm(x, p.ln)
+    # on the dry run's mesh, a stream split along its features (vlm's) is
+    # gathered once for the products that read it
+    xn = sh.gather_last(rms_norm(x, p.ln))
     with splan.site_scope("attn"):
         q = dense(cfg, xn, p.wq.w, p.wq.b, site="wq").reshape(b, s, h, dh)
         if cross_kv is None:
@@ -478,7 +499,7 @@ def attn_block(cfg: ModelConfig, p: Attn, x: Tensor, *, positions: Tensor,
         out = attention_chunked(q, k, v, q_offset=q_offset, causal=causal,
                                 window=window, chunk=cfg.attn_chunk)
     out = sh.constrain(out, "batch", "seq", "heads", "head_dim")   # as q
-    with splan.site_scope("attn"):
+    with splan.site_scope("attn"), sh.reduce_onto(x):
         out = dense(cfg, out.reshape(b, s, h * dh), p.wo.w, site="wo")
     return x + out.to(x.dtype), kv_cache
 
@@ -498,12 +519,13 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig, device=None,
 
 
 def ffn_block(cfg: ModelConfig, p: FFN, x: Tensor) -> Tensor:
-    xn = rms_norm(x, p.ln)
+    xn = sh.gather_last(rms_norm(x, p.ln))
     with splan.site_scope("ffn"):
         gate = dense(cfg, xn, p.wg.w, site="wg")
         hidden = gate * torch.sigmoid(gate) * dense(cfg, xn, p.wi.w, site="wi")
         hidden = sh.constrain(hidden, "batch", "seq", "mlp")
-        return x + dense(cfg, hidden, p.wo.w, site="wo").to(x.dtype)
+        with sh.reduce_onto(x):
+            return x + dense(cfg, hidden, p.wo.w, site="wo").to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -744,9 +766,18 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, device=None) -> Embed:
                  torch.ones((cfg.d_model,), dtype=torch.float32, device=device))
 
 
-def embed(cfg: ModelConfig, p: Embed, tokens: Tensor) -> Tensor:
+def embed(cfg: ModelConfig, p: Embed, tokens: Tensor,
+          like: Optional[Tensor] = None) -> Tensor:
+    """The tokens' rows of the embedding. On the dry run's mesh the
+    lookup's pending sum lands on ``like``'s placements (vlm's patch
+    projections, which the rows are concatenated with), else on the
+    rules'."""
     e = sh.constrain(p.emb, "vocab", "embed")
-    return sh.constrain(sh.lookup(e, tokens), "batch", "seq", "embed")
+    x = sh.lookup(e, tokens)
+    if like is None:
+        return sh.constrain(x, "batch", "seq", "embed")
+    with sh.reduce_onto(like):
+        return sh.reduce_pending(x)
 
 
 def lm_logits(cfg: ModelConfig, p: Embed, x: Tensor) -> Tensor:

@@ -163,15 +163,23 @@ def _maybe_remat(cfg: cm.ModelConfig, fn):
     part = psub.current_partitioning()
     mesh = sh.current_mesh()
 
-    def replay(*args):
-        with splan.site_stack_scope(sites), splan.plan_override_scope(plan), \
-                psub.dot_override_scope(override), \
-                psub.partitioning_scope(part), sh.mesh_scope(mesh), \
-                sh.remat_scope():
-            return fn(*args)
+    def run(*args):
+        runs = []
 
-    return lambda *args: checkpoint(replay, *args, use_reentrant=False,
-                                    preserve_rng_state=False)
+        def replay(*a):
+            # the first run is the forward, a later one the recompute
+            with splan.site_stack_scope(sites), \
+                    splan.plan_override_scope(plan), \
+                    psub.dot_override_scope(override), \
+                    psub.partitioning_scope(part), sh.mesh_scope(mesh), \
+                    sh.remat_scope(recompute=bool(runs)):
+                runs.append(None)
+                return fn(*a)
+
+        return checkpoint(replay, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return run
 
 
 def forward(cfg: cm.ModelConfig, params: LM, tokens: Tensor,
@@ -180,10 +188,13 @@ def forward(cfg: cm.ModelConfig, params: LM, tokens: Tensor,
     for the vlm, ``patch_embeds`` (B, P, d) projected at the top-level site
     ``patch_proj`` come first (B, P + S, d)."""
     _check(cfg, params)
-    x = cm.embed(cfg, params.embed, tokens)
+    pe = None
     if cfg.family == "vlm" and patch_embeds is not None:
-        pe = cm.dense(cfg, patch_embeds.to(x.dtype), params.patch_proj.w,
-                      site="patch_proj")
+        pe = cm.dense(cfg, patch_embeds.to(params.embed.emb.dtype),
+                      params.patch_proj.w, site="patch_proj")
+    # on the dry run's mesh the rows land split as the projections are
+    x = cm.embed(cfg, params.embed, tokens, like=pe)
+    if pe is not None:
         x = torch.cat([pe, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)

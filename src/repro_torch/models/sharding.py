@@ -223,14 +223,28 @@ def reduce_pending(x):
     under a current mesh that is ``Partial`` over a mesh axis (a
     contraction split over that axis, as a row-parallel projection) is
     summed there (GSPMD's all-reduce after the dot), and its cotangent is
-    held to the result's placements. Anything else is returned as it
+    held to the result's placements. Inside :func:`reduce_onto` the sum
+    lands on the placements of its tensor (the residual stream): where
+    that is split along a dimension over the axis (vlm's stream, split
+    along its features), it is reduce-scattered there, and its cotangent
+    gathered in the backward.
+    The cotangent of a tensor that :func:`gather_last` gathered is
+    reduce-scattered back onto its split. Anything else is returned as it
     is."""
     if not is_distributed(x):
         return x
+    split = getattr(x, "_split_placements", None)
+    if split is not None:
+        return _GradOn.apply(x, split)
     from torch.distributed.tensor import Replicate
 
-    return _Held.apply(x, tuple(Replicate() if p.is_partial() else p
-                                for p in x.placements))
+    like = getattr(_state, "onto", None)
+    lp = like.placements if is_distributed(like) \
+        else (None,) * x.device_mesh.ndim
+    return _Held.apply(x, tuple(
+        (q if q is not None and q.is_shard() and q.dim < x.ndim
+         else Replicate()) if p.is_partial() else p
+        for p, q in zip(x.placements, lp)))
 
 
 def is_split(x, dim: int) -> bool:
@@ -240,17 +254,65 @@ def is_split(x, dim: int) -> bool:
                                      for p in x.placements)
 
 
-def whole_along(x, dim: int):
-    """``x`` with its split along ``dim`` gathered, its other splits kept:
-    a cache split along its positions, gathered once before a loop takes
-    blocks of them (``DTensor`` would gather the whole of it for each
-    block). Anything else is returned as it is."""
-    if not is_split(x, dim):
+@contextlib.contextmanager
+def reduce_onto(like):
+    """Inside the block, :func:`reduce_pending` sums a contraction's
+    pending result onto ``like``'s placements (the residual stream a
+    row-parallel projection is added to). Thread-local."""
+    prev = getattr(_state, "onto", None)
+    _state.onto = like
+    try:
+        yield
+    finally:
+        _state.onto = prev
+
+
+def gather_last(x):
+    """``x`` split along its last dimension (vlm's residual stream, split
+    along its features) gathered once for the products that read it, as
+    GSPMD gathers it before them; each product's cotangent is
+    reduce-scattered back onto the split (:func:`reduce_pending`), as
+    GSPMD does each transposed dot's. Anything else is returned as it
+    is."""
+    if not is_split(x, -1):
         return x
     from torch.distributed.tensor import Replicate
 
-    return x.redistribute(x.device_mesh, [
-        Replicate() if p.is_shard(dim % x.ndim) else p for p in x.placements])
+    y = x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard(x.ndim - 1) else p for p in x.placements])
+    y._split_placements = tuple(x.placements)
+    return y
+
+
+class _GradOn(torch.autograd.Function):
+    """The identity, whose cotangent is put on ``target`` (None: its
+    pending sums reduced, its splits kept)."""
+
+    @staticmethod
+    def forward(ctx, t, target):
+        ctx.target = target
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not is_dtensor(g):
+            return g, None
+        from torch.distributed.tensor import Replicate
+
+        target = ctx.target or [Replicate() if p.is_partial() else p
+                                for p in g.placements]
+        return g.redistribute(g.device_mesh, target), None
+
+
+def reduce_grad(w):
+    """``w`` (a replicated parameter: a norm's scale) as it is; on the dry
+    run's mesh its gradient's pending sums over the batch are reduced on
+    each rank's slice of it before anything gathers the slices, as GSPMD
+    reduces the statistic (``DTensor`` would gather first and reduce the
+    whole of it)."""
+    if not is_distributed(w):
+        return w
+    return _GradOn.apply(w, None)
 
 
 def write_at(cache, new, start: int, dim: int) -> None:
@@ -301,35 +363,6 @@ def split_like(t, ref, dims):
     return distribute_tensor(t, ref.device_mesh, [
         Shard(mine[p.dim]) if p.is_shard() and p.dim in mine else Replicate()
         for p in ref.placements], src_data_rank=None)
-
-
-def split(x, sizes, dim: int):
-    """``torch.split(x, sizes, dim)`` of (batch, positions, ...) ``x``. A
-    ``DTensor`` under a current mesh split along ``dim`` (a projection's
-    output features) has its pieces split as GSPMD splits them: each along
-    ``dim`` where the split divides its size, else whole, the feature split
-    moved through the positions and back, each move an all-to-all.
-    ``DTensor`` would gather the whole of ``x`` and compute on every piece
-    whole on each rank of the axis."""
-    if not is_split(x, dim):
-        return torch.split(x, sizes, dim)
-    from torch.distributed.tensor import Replicate, Shard
-
-    dim, alt = dim % x.ndim, 1
-    mesh = x.device_mesh
-    moved = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
-    n = math.prod(mesh.size(i) for i in moved)
-    taken = math.prod(mesh.size(i) for i, p in enumerate(x.placements)
-                      if p.is_shard(alt))
-    if x.shape[alt] % (taken * n):
-        return torch.split(x, sizes, dim)
-    y = x.redistribute(mesh, [Shard(alt) if i in moved else p
-                              for i, p in enumerate(x.placements)])
-    return tuple(
-        piece.redistribute(mesh, [
-            (Shard(dim) if piece.shape[dim] % n == 0 else Replicate())
-            if i in moved else p for i, p in enumerate(piece.placements)])
-        for piece in torch.split(y, sizes, dim))
 
 
 def regroup(x, groups: int, dim: int, alt: int):
@@ -392,16 +425,23 @@ def gather_fsdp(w, x=None):
 
 
 @contextlib.contextmanager
-def remat_scope():
+def remat_scope(recompute: bool = False):
     """Mark the block as a checkpointed (remat) region: its backward reads
-    what its recompute made. Thread-local; a recompute run on autograd's
+    what its recompute made; ``recompute`` marks the backward's run of it
+    (:func:`recomputing`). Thread-local; a recompute run on autograd's
     thread enters it again."""
-    prev = getattr(_state, "remat", False)
-    _state.remat = True
+    prev = getattr(_state, "remat", False), getattr(_state, "recompute", False)
+    _state.remat, _state.recompute = True, recompute
     try:
         yield
     finally:
-        _state.remat = prev
+        _state.remat, _state.recompute = prev
+
+
+def recomputing() -> bool:
+    """Whether a checkpointed region is being recomputed for the
+    backward."""
+    return getattr(_state, "recompute", False)
 
 
 @dataclasses.dataclass
@@ -630,3 +670,437 @@ def blocks(x, n: int, size: int):
     if is_distributed(x):
         return [slice(None)]
     return [slice(i, i + size) for i in range(0, n, size)]
+
+
+# ---------------------------------------------------------------------------
+# GSPMD's own movements of a split dimension, made explicit: blocks moved
+# between ranks by collective-permutes, pieces regrouped by all-to-alls
+# through the batch, a position-split cache brought to every rank block by
+# block. Each helper is the plain computation on plain tensors.
+# ---------------------------------------------------------------------------
+
+
+def _c10d(op: str, *args):
+    """Functional collective ``op`` on local tensors, waited for."""
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(getattr(ops, op)(*args))
+
+
+def permute(t, dim: int, to, frm, size: int, mesh, axis: int):
+    """One collective-permute of local tensors over mesh dim ``axis``: this
+    rank's ``t`` goes to rank ``to`` of the axis (None: it sends nothing),
+    and ``size`` slices along ``dim`` come from rank ``frm`` (None:
+    nothing comes, and the result is empty along ``dim``). Issued as an
+    ``all_to_all_single`` with one non-zero split a side, which the
+    counter reads as a permute
+    (:func:`repro_torch.launch.roofline.kind_of`)."""
+    n = mesh.size(axis)
+    rows = t.movedim(dim, 0)
+    send, recv = [0] * n, [0] * n
+    if to is None:
+        rows = rows[:0]
+    else:
+        send[to] = rows.shape[0]
+    if frm is not None:
+        recv[frm] = size
+    return _c10d("all_to_all_single", rows.contiguous(), recv, send,
+                 mesh.get_group(axis).group_name).movedim(0, dim)
+
+
+def all_to_all(t, split_dim: int, concat_dim: int, mesh, axis: int):
+    """``jax.lax.all_to_all`` of local tensors over mesh dim ``axis``:
+    ``t``'s equal chunks along ``split_dim`` go to the ranks in order, and
+    the chunks received are concatenated along ``concat_dim`` in rank
+    order."""
+    n = mesh.size(axis)
+    rows = torch.stack(t.chunk(n, split_dim)).contiguous()
+    out = _c10d("all_to_all_single", rows, [1] * n, [1] * n,
+                mesh.get_group(axis).group_name)
+    return torch.cat(out.unbind(0), concat_dim)
+
+
+def _moves(total: int, n: int, pieces):
+    """A dimension of ``total`` in ``n`` equal blocks, one a rank, and its
+    ``pieces`` ``(offset, size)``, each to be split in ``n`` equal blocks of
+    its own: the moves, ``(piece, shift, {rank: (lo, hi)})``, each range
+    (the dimension's coordinates) going from ``rank`` to ``rank + shift``;
+    shift 0 stays in place, every other is one collective-permute."""
+    w = total // n
+    out = []
+    for i, (o, size) in enumerate(pieces):
+        b = size // n
+        for k in range(n):
+            pairs = {}
+            for q in range(n):
+                t = (q + k) % n
+                lo = max(q * w, o + t * b)
+                hi = min((q + 1) * w, o + (t + 1) * b)
+                if lo < hi:
+                    pairs[q] = (lo, hi)
+            if pairs:
+                out.append((i, k, pairs))
+    return out
+
+
+def _empty(t, dim: int):
+    return t.narrow(dim, 0, 0)
+
+
+def _to_pieces(loc, dim: int, total: int, pieces, mesh, axis: int):
+    """This rank's block of a dimension (``loc``) → its block of each
+    piece, by the moves of :func:`_moves`."""
+    n, r = mesh.size(axis), mesh.get_local_rank(axis)
+    w = total // n
+    got = [[] for _ in pieces]
+    for i, k, pairs in _moves(total, n, pieces):
+        mine, src = pairs.get(r), (r - k) % n
+        part = loc.narrow(dim, mine[0] - r * w, mine[1] - mine[0]) \
+            if mine else _empty(loc, dim)
+        if k == 0:
+            if mine:
+                got[i].append((mine[0], part))
+            continue
+        frm = pairs.get(src)
+        out = permute(part, dim, (r + k) % n if mine else None,
+                      src if frm else None, frm[1] - frm[0] if frm else 0,
+                      mesh, axis)
+        if frm:
+            got[i].append((frm[0], out))
+    return [torch.cat([t for _, t in sorted(g, key=lambda e: e[0])], dim)
+            for g in got]
+
+
+def _from_pieces(locs, dim: int, total: int, pieces, mesh, axis: int):
+    """The transpose of :func:`_to_pieces`: each moved range goes back by
+    the inverse permute."""
+    n, r = mesh.size(axis), mesh.get_local_rank(axis)
+    back = []
+    for i, k, pairs in _moves(total, n, pieces):
+        base = pieces[i][0] + r * (pieces[i][1] // n)
+        mine, held = pairs.get(r), pairs.get((r - k) % n)
+        if k == 0:
+            if mine:
+                back.append((mine[0], locs[i].narrow(
+                    dim, mine[0] - base, mine[1] - mine[0])))
+            continue
+        part = locs[i].narrow(dim, held[0] - base, held[1] - held[0]) \
+            if held else _empty(locs[i], dim)
+        out = permute(part, dim, (r - k) % n if held else None,
+                      (r + k) % n if mine else None,
+                      mine[1] - mine[0] if mine else 0, mesh, axis)
+        if mine:
+            back.append((mine[0], out))
+    return torch.cat([t for _, t in sorted(back, key=lambda e: e[0])], dim)
+
+
+def _cat_through(locs, dim: int, alt: int, mesh, axis: int):
+    """Pieces' local blocks along ``dim`` → the local block of their
+    concatenation: each piece's split moved to ``alt`` by an all-to-all,
+    the pieces concatenated whole, the split moved back by another."""
+    whole = [all_to_all(t, alt, dim, mesh, axis) for t in locs]
+    return all_to_all(torch.cat(whole, dim), dim, alt, mesh, axis)
+
+
+def _as_dtensor(local, mesh, placements, shape):
+    from torch.distributed.tensor import DTensor
+
+    stride, acc = [], 1
+    for d in reversed(shape):
+        stride.insert(0, acc)
+        acc *= d
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def _held_local(g, mesh, placements, like):
+    """A cotangent's local shard on ``placements``; zeros shaped as the
+    ``(shape, dtype, device)`` ``like`` for None."""
+    if g is None:
+        return torch.zeros(like[0], dtype=like[1], device=like[2])
+    return g.redistribute(mesh, placements)._local_tensor
+
+
+class _Pieces(torch.autograd.Function):
+    """A ``DTensor`` split along ``dim`` over mesh dim ``axis`` → its
+    ``pieces``, each split the same way, by collective-permutes. The
+    backward concatenates the cotangents by all-to-alls through ``alt``
+    (``jnp.split``'s transpose, a concatenate), or with ``alt`` None
+    moves them back by the inverse permutes (separate slices' transposes,
+    pads)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, pieces, axis, alt):
+        mesh, pl = x.device_mesh, tuple(x.placements)
+        locs = _to_pieces(x._local_tensor, dim, x.shape[dim], pieces, mesh,
+                          axis)
+        ctx.args = (mesh, pl, tuple(x.shape), dim, pieces, axis, alt,
+                    [(t.shape, t.dtype, t.device) for t in locs])
+        return tuple(_as_dtensor(loc, mesh, pl, x.shape[:dim] + (size,)
+                                 + x.shape[dim + 1:])
+                     for loc, (_, size) in zip(locs, pieces))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, pl, shape, dim, pieces, axis, alt, locs = ctx.args
+        gl = [_held_local(g, mesh, pl, loc) for g, loc in zip(gs, locs)]
+        loc = _cat_through(gl, dim, alt, mesh, axis) if alt is not None \
+            else _from_pieces(gl, dim, shape[dim], pieces, mesh, axis)
+        return _as_dtensor(loc, mesh, pl, shape), None, None, None, None
+
+
+class _Cat(torch.autograd.Function):
+    """``DTensor`` pieces, each split along ``dim`` over mesh dim ``axis``
+    → their concatenation split the same way, by all-to-alls through
+    ``alt``; the backward splits the cotangent by collective-permutes."""
+
+    @staticmethod
+    def forward(ctx, dim, axis, alt, *xs):
+        mesh, pl = xs[0].device_mesh, tuple(xs[0].placements)
+        sizes = [x.shape[dim] for x in xs]
+        pieces = [(sum(sizes[:i]), size) for i, size in enumerate(sizes)]
+        shape = xs[0].shape[:dim] + (sum(sizes),) + xs[0].shape[dim + 1:]
+        ctx.args = (mesh, pl, shape, dim, pieces, axis)
+        loc = _cat_through([x._local_tensor for x in xs], dim, alt, mesh, axis)
+        return _as_dtensor(loc, mesh, pl, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, pl, shape, dim, pieces, axis = ctx.args
+        gl = g.redistribute(mesh, pl)._local_tensor
+        locs = _to_pieces(gl, dim, shape[dim], pieces, mesh, axis)
+        return (None, None, None) + tuple(
+            _as_dtensor(loc, mesh, pl, shape[:dim] + (size,) + shape[dim + 1:])
+            for loc, (_, size) in zip(locs, pieces))
+
+
+def _moved_split(x, dim: int, sizes, through: bool):
+    """``(mesh dim, alt)`` where pieces of ``sizes`` along ``dim`` of
+    ``x`` move as GSPMD moves them: ``x`` a ``DTensor`` under a current
+    mesh split along ``dim`` over one mesh dim into equal blocks, each
+    piece dividing too, and (``through``) a dimension whose local size the
+    mesh dim divides, to regroup through (the batch first); else None."""
+    if not is_distributed(x):
+        return None
+    split = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+    if len(split) != 1:
+        return None
+    axis = split[0]
+    n = x.device_mesh.size(axis)
+    if x.shape[dim] % n or any(size % n for size in sizes) \
+            or sum(sizes) != x.shape[dim]:
+        return None
+    if not through:
+        return axis, None
+    local = x._local_tensor.shape
+    alt = next((d for d in range(x.ndim)
+                if d != dim and local[d] and local[d] % n == 0), None)
+    return None if alt is None else (axis, alt)
+
+
+def split(x, sizes, dim: int):
+    """``torch.split(x, sizes, dim)``. A ``DTensor`` under a current mesh
+    split along ``dim`` (a projection's output features) has each piece
+    split the same way, as GSPMD splits ``jnp.split``'s pieces: every
+    block brought to its rank by collective-permutes, and the cotangents
+    concatenated back by all-to-alls through the batch (the concatenate
+    that transposes the split; by the inverse permutes where the batch does
+    not divide). ``DTensor`` would gather the whole of ``x`` and compute on
+    every piece whole on each rank of the axis, and does so where a piece
+    does not divide."""
+    dim %= x.ndim
+    how = _moved_split(x, dim, sizes, through=True) or \
+        _moved_split(x, dim, sizes, through=False)
+    if how is None:
+        return torch.split(x, sizes, dim)
+    pieces = [(sum(sizes[:i]), size) for i, size in enumerate(sizes)]
+    return _Pieces.apply(x, dim, pieces, how[0], how[1])
+
+
+def halves(x, half: int):
+    """``(x[..., :half], x[..., half:2 * half])``, rope's halves. A
+    ``DTensor`` under a current mesh split along its last dimension
+    (paligemma's one KV head, split along head_dim) has each half split the
+    same way, as GSPMD slices it: the blocks brought to their ranks by
+    collective-permutes, the cotangents sent back by the inverse permutes
+    (the pads that transpose the slices). Elsewhere the plain slices."""
+    dim = x.ndim - 1
+    how = _moved_split(x, dim, (half, half), through=False) \
+        if 2 * half == x.shape[-1] else None
+    if how is None:
+        return x[..., :half], x[..., half:2 * half]
+    return _Pieces.apply(x, dim, ((0, half), (half, half)), how[0], None)
+
+
+def cat(xs, dim: int):
+    """``torch.cat(xs, dim)``. ``DTensor`` pieces under a current mesh, each
+    split along ``dim`` over the same one mesh dim (rope's rotated halves
+    after :func:`halves`), are concatenated split the same way, as GSPMD
+    concatenates them: each piece's split moved to the batch by an
+    all-to-all, the pieces joined, the split moved back by another; the
+    cotangent is split by collective-permutes. Elsewhere ``torch.cat``."""
+    dim %= xs[0].ndim
+    how = [_moved_split(x, dim, (x.shape[dim],), through=True) for x in xs]
+    if any(h is None or h != how[0] for h in how) or any(
+            tuple(x.placements) != tuple(xs[0].placements) for x in xs):
+        return torch.cat(xs, dim)
+    return _Cat.apply(dim, how[0][0], how[0][1], *xs)
+
+
+def gather_local(logical: str, dim: int):
+    """A function of a local tensor inside :func:`on_shards`: it gathers
+    the tensor along ``dim`` over the mesh axis that the rules give the
+    logical axis ``logical``, and its backward reduce-scatters the
+    cotangent there. The identity with no mesh current, and on a
+    ``DTensor`` (where ``on_shards`` found a split that does not
+    divide)."""
+    mesh = current_mesh()
+    axis = spec(logical)[0] if mesh is not None else None
+    if axis is None:
+        return lambda t: t
+    group = mesh.get_group(axis)
+    # a DTensor: on_shards found a split that does not divide
+    return lambda t: t if is_dtensor(t) else _Gather.apply(t, dim, group)
+
+
+def _gather(t, dim: int, group):
+    return _c10d("all_gather_into_tensor", t.movedim(dim, 0).contiguous(),
+                 group.size(), group.group_name).movedim(0, dim)
+
+
+def _reduce_scatter(t, dim: int, group):
+    return _c10d("reduce_scatter_tensor", t.movedim(dim, 0).contiguous(),
+                 "sum", group.size(), group.group_name).movedim(0, dim)
+
+
+def _all_reduce(t, group):
+    return _c10d("all_reduce", t.contiguous(), "sum", group.group_name)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of a local tensor along ``dim`` over ``group``; the
+    backward reduce-scatters the cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.args = (dim, group)
+        return _gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group = ctx.args
+        return _reduce_scatter(g, dim, group), None, None
+
+
+def block(x, dim: int, start: int, size: int):
+    """``x``'s ``size`` positions from ``start`` along ``dim`` (a block of a
+    cache). A ``DTensor`` under a current mesh split along ``dim`` (a long
+    sequence's cache, split along its positions) is brought to every rank
+    of the axis as GSPMD brings each block of ``repro``'s attention scan: the
+    block's parts collective-permuted to the axis' first rank, then summed
+    over the axis from there (an all-reduce of the block, zeros on the
+    other ranks); its other splits are kept, and no rank holds the whole
+    cache. ``DTensor`` would gather the whole of ``x`` for each block. A
+    cache is only read, so this has no gradient."""
+    split = [i for i, p in enumerate(x.placements) if p.is_shard(dim)] \
+        if is_distributed(x) else []
+    if len(split) != 1 or x.shape[dim] % x.device_mesh.size(split[0]):
+        return x[(slice(None),) * dim + (slice(start, start + size),)]
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("block() of a split tensor has no gradient")
+    from torch.distributed.tensor import Replicate
+
+    axis, mesh = split[0], x.device_mesh
+    n, r = mesh.size(axis), mesh.get_local_rank(axis)
+    w, loc = x.shape[dim] // n, x._local_tensor
+    parts = []
+    for q in range(n):
+        lo, hi = max(start, q * w), min(start + size, (q + 1) * w)
+        if lo >= hi:
+            continue
+        part = loc.narrow(dim, lo - q * w, hi - lo) if r == q else None
+        if q:
+            part = permute(part if r == q else _empty(loc, dim), dim,
+                           0 if r == q else None, q if r == 0 else None,
+                           hi - lo, mesh, axis)
+        parts.append(part)
+    out = torch.cat(parts, dim) if r == 0 else torch.zeros(
+        [size if d == dim else s for d, s in enumerate(loc.shape)],
+        dtype=loc.dtype, device=loc.device)
+    out = _all_reduce(out, mesh.get_group(axis))
+    shape = list(x.shape)
+    shape[dim] = size
+    return _as_dtensor(out, mesh, [Replicate() if i == axis else p
+                                   for i, p in enumerate(x.placements)],
+                       shape)
+
+
+class _Psum(torch.autograd.Function):
+    """All-reduce (sum) of a local tensor over ``group``; the cotangent is
+    summed too (``psum``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Outer(torch.autograd.Function):
+    """``e[..., None] * c[..., None, :]`` of local ``e`` (..., H / M) split
+    over the heads and ``c`` (..., n / M) split along the state dim, both
+    over mesh dim ``axis`` of ``mesh``: the (..., H / M, n) heads split of the
+    product, formed as GSPMD forms it. The forward gathers ``e`` and moves
+    the product's split from n to the heads by an all-to-all; a
+    checkpointed region's recompute (``recompute``) gathers ``c`` instead;
+    the backward gathers ``c`` again and reduce-scatters its cotangent.
+    Both forms save the same tensors, as a checkpoint's recompute must."""
+
+    @staticmethod
+    def forward(ctx, e, c, mesh, axis, recompute):
+        ctx.save_for_backward(e, c)
+        ctx.group = mesh.get_group(axis)
+        if recompute:
+            full = _gather(c, c.ndim - 1, ctx.group)
+            return e[..., None] * full[..., None, :]
+        full = _gather(e, e.ndim - 1, ctx.group)
+        return all_to_all(full[..., None] * c[..., None, :], e.ndim - 1,
+                          e.ndim, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, c = ctx.saved_tensors
+        full = _gather(c, c.ndim - 1, ctx.group)
+        return ((g * full[..., None, :]).sum(-1),
+                _reduce_scatter((g * e[..., None]).sum(-2), c.ndim - 1,
+                                ctx.group), None, None, None)
+
+
+def state_split_ops(logical: str, x) -> dict:
+    """``mamba_scan``'s ``psum`` and ``outer`` hooks for B and C split along
+    the state dim over the mesh axis the rules give ``logical`` (the
+    heads'), inside :func:`on_shards`, as GSPMD partitions ``repro``'s SSD:
+    the partial C·B scores all-reduced, and ``e[..., None] * c[..., None,
+    :]`` (``e`` per head, ``c`` per state element) formed by
+    :class:`_Outer`. Empty (the plain products) unless ``x`` (the scan's
+    input) is a ``DTensor`` under a current mesh; each hook is the plain
+    product on a ``DTensor`` (where ``on_shards`` found a split that does
+    not divide)."""
+    mesh = current_mesh()
+    axis = spec(logical)[0] if is_distributed(x) else None
+    if axis is None:
+        return {}
+    group, dim = mesh.get_group(axis), mesh.mesh_dim_names.index(axis)
+    recompute = recomputing()
+
+    def psum(t):
+        return t if is_dtensor(t) else _Psum.apply(t, group)
+
+    def outer(e, c):
+        if is_dtensor(e):
+            return e[..., None] * c[:, :, None, :]
+        return _Outer.apply(e, c, mesh, dim, recompute)
+
+    return {"psum": psum, "outer": outer}

@@ -157,8 +157,14 @@ def _causal_conv1d(x: Tensor, w: Tensor,
     return out, new_state
 
 
+def _outer(e: Tensor, c: Tensor) -> Tensor:
+    """(B, T, H) × (B, T, n) → (B, T, H, n)."""
+    return e[..., None] * c[:, :, None, :]
+
+
 def mamba_scan(xh: Tensor, dt: Tensor, B: Tensor, C: Tensor, a: Tensor,
-               state: Tensor, chunk: int) -> Tuple[Tensor, Tensor]:
+               state: Tensor, chunk: int, psum=lambda t: t,
+               outer=_outer) -> Tuple[Tensor, Tensor]:
     """SSD chunked recurrence, ``repro``'s formulation (float32).
 
     xh: (B, S, H, dh); dt: (B, S, H) > 0; B, C: (B, S, n); a: (H,)
@@ -171,6 +177,10 @@ def mamba_scan(xh: Tensor, dt: Tensor, B: Tensor, C: Tensor, a: Tensor,
     for ``y_intra``, ``exp(lcum) · C`` first for ``y_inter``, and
     ``wtail · B`` first for the state update; each first step is a
     broadcast product, the second a batched contraction.
+
+    ``psum`` and ``outer`` are the scores' sum and those broadcast products
+    where B and C arrive split along n (the dry run's mesh,
+    :func:`repro_torch.models.sharding.state_split_ops`).
     """
     b, s, h, dh = xh.shape
     chunk = min(chunk, s)
@@ -187,19 +197,19 @@ def mamba_scan(xh: Tensor, dt: Tensor, B: Tensor, C: Tensor, a: Tensor,
         xx, ddt, bb, cc = xh[:, sl], dt[:, sl], B[:, sl], C[:, sl]
         la = ddt * a[None, None, :]                           # log decay (< 0)
         lcum = torch.cumsum(la, dim=1)                        # (B, C, H)
-        scores = torch.einsum("btn,bun->btu", cc, bb)
+        scores = psum(torch.einsum("btn,bun->btu", cc, bb))
         # (B, t, u, H): exp(lcum_t - lcum_u) for u <= t, 1 above the diagonal
         # (where the product is masked anyway)
         decay = torch.exp(torch.where(mask[None, :, :, None],
                                       lcum[:, :, None, :] - lcum[:, None, :, :], 0.0))
         w = torch.where(mask[None, :, :, None], scores[..., None] * decay, 0.0)
         y_intra = torch.einsum("btuh,buhd->bthd", w, ddt[..., None] * xx)
-        y_inter = torch.einsum("bthn,bhdn->bthd",
-                               torch.exp(lcum)[..., None] * cc[:, :, None, :], st)
+        y_inter = torch.einsum("bthn,bhdn->bthd", outer(torch.exp(lcum), cc),
+                               st)
         decay_all = torch.exp(lcum[:, -1, :])                 # (B, H)
         wtail = torch.exp(lcum[:, -1:, :] - lcum) * ddt       # (B, C, H)
         st = st * decay_all[:, :, None, None] + torch.einsum(
-            "buhd,buhn->bhdn", xx, wtail[..., None] * bb[:, :, None, :])
+            "buhd,buhn->bhdn", xx, outer(wtail, bb))
         ys.append(y_intra + y_inter)
     return torch.cat(ys, dim=1), st
 
@@ -224,11 +234,14 @@ def mamba_block(cfg: cm.ModelConfig, p: Mamba, x: Tensor,
         state = sh.split_like(torch.zeros((b, h, dh, n), dtype=f32,
                                           device=x.device), xh,
                               (0, 2, None, None))
-    heads = ("batch", None, "heads", None)
+    # on the dry run's mesh each rank scans its heads with B and C split
+    # along n over the same axis, as GSPMD partitions repro's scan
+    heads, nsplit = ("batch", None, "heads", None), ("batch", None, "heads")
+    ops = sh.state_split_ops("heads", xh)
     y, new_state = sh.on_shards(
-        lambda *t: mamba_scan(*t, chunk=min(cfg.attn_chunk, s)),
-        (heads, ("batch", None, "heads"), ("batch", None, None),
-         ("batch", None, None), ("heads",), ("batch", "heads", None, None)),
+        lambda *t: mamba_scan(*t, chunk=min(cfg.attn_chunk, s), **ops),
+        (heads, ("batch", None, "heads"), nsplit, nsplit, ("heads",),
+         ("batch", "heads", None, None)),
         [heads, ("batch", "heads", None, None)], xh, dt, Bm, Cm, a, state)
     y = y + xh.to(f32) * p.d_skip[None, None, :, None]
     y = (y.reshape(b, s, di) * _silu(z.to(f32))).to(x.dtype)

@@ -24,9 +24,10 @@ The bar, cell by cell:
   priced at the element type the partitioner gave it: XLA:CPU then widens
   every bf16 collective to f32 (a ``convert`` before it), which a TPU or
   GPU compile does not do (:func:`test_partitioned_collectives_are_bf16`).
-  An all-reduce whose only users are ``dynamic-slice``s is the
-  reduce-scatter that the GPU and TPU pipelines form from it (XLA's
-  ``ReduceScatterCreator``, which XLA:CPU does not run), and is counted as
+  An all-reduce whose only users are ``dynamic-slice``s, each one group
+  member's share of it, is the reduce-scatter that the GPU and TPU
+  pipelines form from it (XLA's ``ReduceScatterCreator``, which XLA:CPU
+  does not run, matches only a slice of that size), and is counted as
   one, at the slice's size. A kind one side moves and the other does not
   is an error;
 * **tensor-core flops** within 2% of the compiled step's ``dot`` flops
@@ -64,30 +65,8 @@ CELLS = [f"train:{f}" for f in FAMILIES]
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
 
-_ZAMBA = ("GSPMD partitions repro's zamba SSD otherwise: it realigns the "
-          "pieces of the in_proj output, split over 'model' along its "
-          "features, with collective-permutes (forward, its split) and "
-          "all-to-alls (backward, the concatenate), keeps B and C split "
-          "along the state dim n, sums the partial C.B scores (f32[2,64,64] "
-          "all-reduces of btn,bun->btu) and gathers f32[2,64,16] at the "
-          "three-operand einsums; the port moves the pieces through the "
-          "positions by all-to-all and gathers B and C whole "
-          "(src/repro_torch/models/sharding.py:306 split), then runs each "
-          "rank's heads through mamba_scan "
-          "(src/repro_torch/models/zamba.py:228 on_shards)")
-_VLM = ("paligemma's one KV head: GSPMD keeps wk/wv's 32 output columns "
-        "split over 'model' along head_dim through the rope "
-        "(collective-permutes at its slice and pad), reduce-scatters the "
-        "row-parallel products and all-gathers the bf16[2,80,128] "
-        "activations before the next ones (its only all-reduces are 2049 "
-        "f32 elements of the loss); the port's DTensor gathers the head_dim "
-        "at the rope's halves (src/repro_torch/models/common.py:333 rope), "
-        "all-reduces each row-parallel product "
-        "(src/repro_torch/models/common.py:308 reduce_pending) and places "
-        "the attention's operands by all-to-all, its KV head too few to "
-        "split (src/repro_torch/models/common.py:376 _attend)")
 _EAGER = ("the port's step runs eagerly and its counter prices each op's "
-          "input and output (src/repro_torch/launch/roofline.py:201 "
+          "input and output (src/repro_torch/launch/roofline.py:219 "
           "_count), where XLA prices a fusion's operands and result once: "
           "the backward's elementwise chains and the optimizer's update "
           "are not fused")
@@ -98,35 +77,12 @@ _BF16 = ("XLA:CPU runs bf16 as f32: each bf16 weight of the decode step is "
          "collectives are bf16, test_partitioned_collectives_are_bf16); at "
          "float32 the two decode steps' bytes agree within 20% "
          "(tests/test_torch_dryrun_parity_serve.py, decode:*:f32)")
-_LONG = ("a cache split along its positions (one sequence): GSPMD brings "
-         "each chunk of repro's attention scan to every rank by "
-         "collective-permute and all-reduces the partial products; the port "
-         "gathers the split cache once per attention "
-         "(src/repro_torch/models/common.py:387 whole_along) and writes the "
-         "new position in place on its owner "
-         "(src/repro_torch/models/sharding.py:256 write_at). Every rank "
-         "attends to all positions on both sides: the flops and their share "
-         "are equal")
-
 #: (cell, kind or "bytes") -> (port / repro factor, cause)
 KNOWN = {
-    ("train:zamba", "all-gather"): (0.885, _ZAMBA),
-    ("train:zamba", "all-reduce"): (0.667, _ZAMBA),
-    ("train:zamba", "all-to-all"): (2.43, _ZAMBA),
-    ("train:zamba", "collective-permute"): (0.0, _ZAMBA),
-    ("train:vlm", "all-gather"): (1.55, _VLM),
-    ("train:vlm", "all-reduce"): (19.6, _VLM),
-    ("train:vlm", "all-to-all"): (10.3, _VLM),
-    ("train:vlm", "collective-permute"): (0.0, _VLM),
     ("train:dense", "bytes"): (1.19, _EAGER),
-    ("train:vlm", "bytes"): (1.21, _EAGER),
     ("decode:dense", "bytes"): (0.60, _BF16),
     ("decode:moe", "bytes"): (0.50, _BF16),
-    ("decode:dense:long", "all-gather"): (1.5, _LONG),
-    ("decode:dense:long", "all-reduce"): (0.063, _LONG),
-    ("decode:dense:long", "reduce-scatter"): (0.0, _LONG),
-    ("decode:dense:long", "collective-permute"): (0.0, _LONG),
-    ("decode:dense:long", "bytes"): (0.62, _BF16),
+    ("decode:dense:long", "bytes"): (0.725, _BF16),
 }
 
 # ---------------------------------------------------------------------------
@@ -153,6 +109,16 @@ def _numel(dims) -> int:
     for d in dims:
         n *= d
     return n
+
+
+def _group_size(line: str) -> int:
+    """The size of a collective's replica groups: ``[2,4]<=[4,2]T(1,0)``
+    (iota form: 2 groups of 4) or ``{{0,2,4,6},{1,3,5,7}}``."""
+    m = re.search(r"replica_groups=\[(\d+),(\d+)\]<=", line)
+    if m:
+        return int(m.group(2))
+    m = re.search(r"replica_groups=\{\{([0-9,]*)\}", line)
+    return len(m.group(1).split(",")) if m else 1
 
 
 class Hlo:
@@ -206,7 +172,8 @@ class Hlo:
     def collectives(self, reduce_scatter: bool = True):
         """``{kind: {dtype: elements}}`` of the collectives; with
         ``reduce_scatter``, an all-reduce whose only consumers are
-        ``dynamic-slice``s counts as a reduce-scatter of the slice."""
+        ``dynamic-slice``s, each of one group member's share of it,
+        counts as a reduce-scatter of the slice."""
         out = {k: collections.Counter() for k in KINDS}
         for name, (typ, op, ops, line) in self.ins.items():
             op = op[:-6] if op.endswith("-start") else op
@@ -215,8 +182,9 @@ class Hlo:
             shapes = _shapes(typ)
             if reduce_scatter and op == "all-reduce":
                 ends = self._ends(name)
-                if ends and all(self.ins[e][1] == "dynamic-slice"
-                                for e in ends):
+                share = _numel(shapes[0][1]) // _group_size(line)
+                if ends and all(self.ins[e][1] == "dynamic-slice" and _numel(
+                        _shapes(self.ins[e][0])[0][1]) == share for e in ends):
                     op, shapes = "reduce-scatter", _shapes(self.ins[ends[0]][0])
             for dt, dims in shapes:
                 out[op][dt] += _numel(dims)

@@ -550,3 +550,131 @@ def test_int32_psum_wraps_and_coordinates(collectives, axis):
         np.testing.assert_array_equal(out[(axis, "int32_psum")].numpy(),
                                       np.full(3, want))
         assert out[(axis, "index")] == g.index(rank)
+
+
+# ---------------------------------------------------------------------------
+# rank programs: the dry run's explicit movements on DTensors
+# ---------------------------------------------------------------------------
+
+
+def _moves_inputs():
+    """Seeded operands of :func:`moves_program` (every rank the same)."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+
+    return dict(
+        proj=r(8, 4, 548), proj_w=r(8, 4, 548), rope=r(8, 6, 1, 32),
+        rope_w=r(8, 6, 1, 32), q=r(8, 6, 4, 32), k=r(8, 6, 1, 32),
+        v=r(8, 6, 1, 32), attn_w=r(8, 6, 4, 32), cache=r(1, 16, 2, 8),
+        xh=r(8, 4, 4, 8), dt=torch.nn.functional.softplus(r(8, 4, 4)),
+        B=r(8, 4, 16), C=r(8, 4, 16), a=-torch.exp(r(4)), y_w=r(8, 4, 4, 8),
+        st_w=r(8, 4, 8, 16))
+
+
+#: zamba's in_proj pieces (xin, z, B, C, dt) at d_model 128, state 16, 4 heads
+MOVE_SIZES = [256, 256, 16, 16, 4]
+
+
+def moves_program(rank, world):
+    """``sharding.split``, rope through ``halves`` / ``cat``, the attention
+    of one KV head split along head_dim, ``block`` of a position-split
+    cache and ``mamba_scan`` with B and C split along n (both forms of its
+    products), on the 4 × 2 mesh's DTensors of :func:`_moves_inputs`:
+    ``{case: [(this rank's local result, its block of the plain
+    result), ...]}``, the gradients of a weighted sum among them."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import common as cm
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import zamba
+
+    mesh = debug_mesh()
+    ins = _moves_inputs()
+    out = {}
+
+    def dist_(t, *pl):
+        return distribute_tensor(t, mesh, list(pl)).requires_grad_(
+            t.is_floating_point())
+
+    def plain(t):
+        return t.clone().requires_grad_()
+
+    def pairs(dts, ts):
+        return [(d.to_local().detach(),
+                 distribute_tensor(t.detach(), mesh, d.placements).to_local())
+                for d, t in zip(dts, ts)]
+
+    def loss(ys, ws):
+        return sum((y * w).sum() for y, w in zip(ys, ws))
+
+    s0, s2, s3 = Shard(0), Shard(2), Shard(3)
+    rep = (Replicate(), Replicate())
+    with sh.mesh_scope(mesh), implicit_replication():
+        x, xp = dist_(ins["proj"], s0, s2), plain(ins["proj"])
+        ws = torch.split(ins["proj_w"], MOVE_SIZES, -1)
+        got = sh.split(x, MOVE_SIZES, -1)
+        loss(got, [distribute_tensor(w, mesh, rep) for w in ws]
+             ).full_tensor().backward()
+        with sh.mesh_scope(None):
+            want = torch.split(xp, MOVE_SIZES, -1)
+            loss(want, ws).backward()
+        out["split"] = pairs(list(got) + [x.grad], list(want) + [xp.grad])
+
+        pos = torch.arange(6).expand(8, 6)
+        x, xp = dist_(ins["rope"], s0, s3), plain(ins["rope"])
+        got = cm.rope(x, pos, 1e4)
+        (got * distribute_tensor(ins["rope_w"], mesh, rep)).sum(
+        ).full_tensor().backward()
+        with sh.mesh_scope(None):
+            want = cm.rope(xp, pos, 1e4)
+            (want * ins["rope_w"]).sum().backward()
+        out["rope"] = pairs([got, x.grad], [want, xp.grad])
+
+        q, k, v = dist_(ins["q"], s0, s2), dist_(ins["k"], s0, s3), \
+            dist_(ins["v"], s0, s3)
+        qp, kp, vp = plain(ins["q"]), plain(ins["k"]), plain(ins["v"])
+        got = cm.attention_chunked(q, k, v, q_offset=0, chunk=4)
+        (got * distribute_tensor(ins["attn_w"], mesh, rep)).sum(
+        ).full_tensor().backward()
+        with sh.mesh_scope(None):
+            want = cm.attention_chunked(qp, kp, vp, q_offset=0, chunk=4)
+            (want * ins["attn_w"]).sum().backward()
+        out["attention"] = pairs([got, q.grad, k.grad, v.grad],
+                                 [want, qp.grad, kp.grad, vp.grad])
+
+        cache = distribute_tensor(ins["cache"], mesh, [Shard(1), s2])
+        with torch.no_grad():
+            got = [sh.block(cache, 1, start, size)
+                   for start, size in ((0, 4), (4, 8), (10, 6))]
+        out["block"] = pairs(got, [ins["cache"][:, a:a + n]
+                                   for a, n in ((0, 4), (4, 8), (10, 6))])
+
+        specs = (("batch", None, "heads", None), ("batch", None, "heads"),
+                 ("batch", None, "heads"), ("batch", None, "heads"),
+                 ("heads",), ("batch", "heads", None, None))
+        for form in ("forward", "recompute"):
+            args = [dist_(ins["xh"], s0, s2), dist_(ins["dt"], s0, s2),
+                    dist_(ins["B"], s0, s2), dist_(ins["C"], s0, s2),
+                    dist_(ins["a"], Replicate(), s0),
+                    distribute_tensor(torch.zeros(8, 4, 8, 16), mesh,
+                                      [s0, Shard(1)])]
+            with sh.remat_scope(recompute=form == "recompute"):
+                ops = sh.state_split_ops("heads", args[0])
+                y, st = sh.on_shards(
+                    lambda *t: zamba.mamba_scan(*t, chunk=2, **ops), specs,
+                    [specs[0], specs[5]], *args)
+            loss([y, st], [distribute_tensor(ins["y_w"], mesh, rep),
+                           distribute_tensor(ins["st_w"], mesh, rep)]
+                 ).full_tensor().backward()
+            plains = [plain(ins[n]) for n in ("xh", "dt", "B", "C", "a")]
+            with sh.mesh_scope(None):
+                yp, stp = zamba.mamba_scan(*plains, torch.zeros(8, 4, 8, 16),
+                                           chunk=2)
+                loss([yp, stp], [ins["y_w"], ins["st_w"]]).backward()
+            out[f"scan_{form}"] = pairs(
+                [y, st] + [t.grad for t in args[:5]],
+                [yp, stp] + [t.grad for t in plains])
+    return out

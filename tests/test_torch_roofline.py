@@ -13,6 +13,7 @@ import torch.distributed as dist
 from repro.launch import roofline as jroof
 from repro.models import registry as jreg
 from repro_torch.launch import dryrun, roofline
+from repro_torch.launch import mesh as ml
 from repro_torch.models import registry as reg
 from tests.test_roofline import HLO
 
@@ -136,6 +137,48 @@ def test_a_collective_is_priced_as_xla_prices_it():
     assert g.bytes == 1310720 and r.bytes == 524288
     assert g.coll.bytes_by_kind["all-gather"] == 1024 * 256 * 4
     assert r.coll.elements_by_kind["all-reduce"] == 256 * 256
+
+
+def test_a_permute_counts_as_a_collective_permute():
+    """``all_to_all_single`` with one non-zero split a side (torch's
+    ``permute_tensor``, ``sharding.permute``) is XLA's collective-permute,
+    priced as XLA prices it: the block sent read and the block received
+    written; an ordinary all-to-all stays one, and a rank that only sends
+    counts the block it sends."""
+    from torch.distributed import _functional_collectives as funcol
+
+    from repro_torch.models import sharding as sh
+
+    logging.disable(logging.WARNING)
+    try:
+        with dryrun.fake_world(8):
+            mesh = ml.make_debug_mesh()
+            block = _meta(8, 64, dtype=torch.bfloat16)
+            with roofline.CostCounter("meta") as c:
+                # rank 0 of the "model" axis swaps a block with rank 1
+                sh.permute(block, 0, 1, 1, 8, mesh, 1)
+            with roofline.CostCounter("meta") as t:
+                funcol.permute_tensor(block.flatten(), [1, 0],
+                                      mesh.get_group(1))
+            with roofline.CostCounter("meta") as s:
+                sh.permute(block, 0, 1, None, 0, mesh, 1)
+            with roofline.CostCounter("meta") as a:
+                funcol.all_to_all_single(block, None, None, mesh.get_group(1))
+    finally:
+        logging.disable(logging.NOTSET)
+    n = 8 * 64 * 2
+    for cnt in (c, t):
+        assert cnt.coll.bytes_by_kind == dict(
+            {k: 0 for k in cnt.coll.bytes_by_kind}, **{"collective-permute": n})
+        assert cnt.coll.count_by_kind["collective-permute"] == 1
+        assert cnt.bytes == 2 * n           # the block read and written
+    assert s.coll.bytes_by_kind["collective-permute"] == n
+    assert a.coll.bytes_by_kind["all-to-all"] == n
+    assert a.coll.bytes_by_kind["collective-permute"] == 0
+    assert roofline.kind_of("_c10d_functional.all_to_all_single",
+                            (None, [0, 8], [8, 0], "g")) == "collective-permute"
+    assert roofline.kind_of("_c10d_functional.all_to_all_single",
+                            (None, [4, 4], [4, 4], "g")) == "all-to-all"
 
 
 def test_views_move_nothing_and_temp_is_the_peak():

@@ -292,3 +292,120 @@ def test_constraints_hold_the_cotangent():
     assert sh.gather_fsdp(x) is x and sh.reduce_pending(x) is x
     assert sh.regroup(x, 3, dim=1, alt=0) is x
 
+
+
+def test_the_moves_land_where_gspmd_puts_them(tmp_path):
+    """On 8 ``gloo`` ranks (a 4 × 2 mesh): ``split``'s pieces, rope through
+    ``halves`` / ``cat``, the attention of one KV head split along
+    head_dim, ``block``s of a position-split cache and ``mamba_scan`` with
+    B and C split along n (its forward and its recompute form) give each
+    rank its block of the plain result, and their gradients each rank's
+    block of the plain gradients: the backward is the transpose."""
+    from tests.test_torch_ranks import spawn
+
+    ranks = spawn("moves_program", 8, tmp_path)
+    for rank, out in enumerate(ranks):
+        assert set(out) == {"split", "rope", "attention", "block",
+                            "scan_forward", "scan_recompute"}
+        for case, pairs in out.items():
+            for i, (got, want) in enumerate(pairs):
+                assert got.shape == want.shape, (rank, case, i)
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                           msg=f"rank {rank} {case} {i}")
+
+
+def _kinds(c):
+    return {k for k, v in c.coll.bytes_by_kind.items() if v}
+
+
+def test_each_move_is_the_kind_gspmd_moves():
+    """On a fake 8-rank world, counted on rank 0: ``split`` permutes and
+    its backward regroups through the batch by all-to-alls; ``halves``
+    permutes both ways; ``cat`` regroups by all-to-alls and its backward
+    permutes; ``block`` permutes and all-reduces; ``gather_last`` gathers
+    and each product's cotangent is reduce-scattered; a row-parallel result
+    reduced onto a split stream is reduce-scattered. On plain tensors each
+    is the plain op."""
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.launch import roofline
+
+    x = torch.randn(8, 4, 548)
+    assert all(torch.equal(a, b) for a, b in zip(
+        sh.split(x, [256, 256, 16, 16, 4], -1),
+        torch.split(x, [256, 256, 16, 16, 4], -1)))
+    h1, h2 = sh.halves(x[..., :32], 16)
+    assert torch.equal(h1, x[..., :16]) and torch.equal(h2, x[..., 16:32])
+    assert torch.equal(sh.cat([h1, h2], -1), x[..., :32])
+    assert torch.equal(sh.block(x, 1, 1, 2), x[:, 1:3])
+    assert sh.gather_last(x) is x and sh.reduce_grad(x) is x
+    with sh.reduce_onto(x):
+        assert sh.reduce_pending(x) is x
+    assert sh.state_split_ops("heads", x) == {}
+    assert sh.gather_local("heads", 3)(x) is x
+
+    def meta(shape, pl, dtype=torch.float32):
+        """A meta DTensor of ``shape`` on placements ``pl``."""
+        local = list(shape)
+        for i, q in enumerate(pl):
+            if q.is_shard():
+                local[q.dim] //= mesh.size(i)
+        return DTensor.from_local(
+            torch.empty(local, device="meta", dtype=dtype), mesh, pl,
+            run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+
+    with dryrun.fake_world(8):
+        mesh = ml.make_debug_mesh()
+        s0, s2, s3 = Shard(0), Shard(2), Shard(3)
+        with sh.mesh_scope(mesh):
+            p = meta((8, 64, 548), (s0, s2)).requires_grad_()
+            with roofline.CostCounter("meta") as f:
+                pieces = sh.split(p, [256, 256, 16, 16, 4], -1)
+            assert _kinds(f) == {"collective-permute"}
+            assert all(t.placements == (s0, s2) for t in pieces)
+            with roofline.CostCounter("meta") as b:
+                torch.autograd.backward(pieces, [meta(t.shape, (s0, s2))
+                                                 for t in pieces])
+            assert _kinds(b) == {"all-to-all"}
+            assert p.grad.placements == (s0, s2)
+
+            k = meta((8, 80, 1, 32), (s0, s3)).requires_grad_()
+            with roofline.CostCounter("meta") as f:
+                k1, k2 = sh.halves(k, 16)
+                r = sh.cat([k1 * 2, k2 * 3], -1)
+            assert _kinds(f) == {"collective-permute", "all-to-all"}
+            assert f.coll.count_by_kind["all-to-all"] == 3
+            assert r.placements == (s0, s3) and r.shape == k.shape
+            with roofline.CostCounter("meta") as b:
+                r.backward(meta(r.shape, (s0, s3)))
+            assert _kinds(b) == {"collective-permute"}
+            assert b.coll.count_by_kind["collective-permute"] == 4
+
+            cache = meta((1, 256, 2, 32), (Shard(1), s2), torch.bfloat16)
+            with torch.no_grad(), roofline.CostCounter("meta") as c:
+                blk = sh.block(cache, 1, 64, 64)
+            assert c.coll.count_by_kind == dict(
+                {k_: 0 for k_ in c.coll.count_by_kind},
+                **{"collective-permute": 1, "all-reduce": 1})
+            assert blk.shape == (1, 64, 2, 32) and blk.placements == (
+                Replicate(), s2)
+
+            stream = meta((8, 80, 128), (s0, s2)).requires_grad_()
+            with roofline.CostCounter("meta") as f:
+                whole = sh.gather_last(stream)
+                y = sh.reduce_pending(whole) * 2 + sh.reduce_pending(whole)
+            assert _kinds(f) == {"all-gather"}
+            assert whole.placements == (s0, Replicate())
+            with roofline.CostCounter("meta") as b:
+                y.backward(meta(y.shape, (s0, Partial())))
+            assert _kinds(b) == {"reduce-scatter"}
+            assert b.coll.count_by_kind["reduce-scatter"] == 2
+            assert stream.grad.placements == (s0, s2)
+            part = meta((8, 80, 128), (s0, Partial())).requires_grad_()
+            with roofline.CostCounter("meta") as f, sh.reduce_onto(stream):
+                onto = sh.reduce_pending(part)
+            assert _kinds(f) == {"reduce-scatter"}
+            assert onto.placements == (s0, s2)
+            onto.backward(meta(onto.shape, (s0, s2)))
+            assert part.grad.shape == part.shape
