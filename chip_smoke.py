@@ -17,7 +17,8 @@ the plain twins; one planned window is traced the same way
 launch only the narrow design of the two contraction kernels; a wide
 contraction through ``dot_general`` (a dense layer's shape) drives their
 rows design, and the same contraction at width 12 and under a table beyond
-the rows design's planes their tile design. The 512×512 set is served once
+the rows design's planes their wide and gather designs (the tile designs,
+which took them before, must launch 0 times). The 512×512 set is served once
 more under uniform ``approx_cuda:exact``. The fused conv's stencil design
 must be the only one the uniform paths launch (both product kinds); its
 generic design runs on
@@ -38,10 +39,18 @@ tile designs' plain versions and ``torch._int_mm``, and timed beside the
 tile designs and ``torch._int_mm``; at M = 256 (a prefill of 4 × 64
 tokens, a training step's 8 × 32) the rows design of both kernels (the
 product as an exact int8 GEMM plus bit-monomial int8 GEMMs on the INT8
-tensor cores) is, the same way, and the few-row designs must refuse the
-shape; the rows design must be 20× faster than the tile design and reach
+tensor cores) is, the same way (the closed form's plain reference there
+its product table gathered, which the CPU tests hold bit-equal to the
+plain closed form), and the few-row designs must refuse the shape; the rows design must be 20× faster than the tile design and reach
 10% of its tensor-core bound (``approx_matmul``), and be no slower than
-``torch._int_mm`` (``exact``). The ``kernel="lut"`` substrate runs one
+``torch._int_mm`` (``exact``). Phase ``tile_fallbacks_path`` holds the two designs
+that replaced the tile designs, ``approx_matmul``'s wide design at
+proposed@12 and proposed@16 and ``lut_matmul``'s gather design on a ±2^20
+noise table and on an int16 table beyond the rows planes, to their plain
+twins at (32 × 512) @ (512 × 512), then at the four dense shapes at M = 8
+and 256 through the public entry points, bit for bit the tile design; the
+wide design must be 10× the tile design at every M = 256 shape, the gather
+design no slower than it anywhere. The ``kernel="lut"`` substrate runs one
 decode layer-step's dense calls (``lut_matmul``'s decode design), bit for
 bit those of the closed form. The model, cut to 4 layers, serves 16 requests through
 ``ServingEngine`` under ``approx_cuda:proposed@8`` at 2 workers (only
@@ -427,6 +436,23 @@ PART_TRAIN_STEPS = 3
 #: the unsharded loss of step 1 against the sharded one (float32 sums in
 #: another order: the per-rank mean of shard means, the data all-reduce)
 PART_LOSS_RTOL = 1e-3
+#: tile_fallbacks_path: the two designs that replace the contraction
+#: kernels' tile designs, at minitron-8b's four dense (K, N) and M = 8
+#: (decode) and 256 (prefill, training) on uniform random codes: the wide
+#: design of approx_matmul at these widths, the gather design of lut_matmul
+#: on the noise table (entries beyond int16) and on a random int16 table
+#: beyond the rows design's planes
+FALLBACK_KEYS = ("proposed@12", "proposed@16")
+FALLBACK_M = (LM_BATCH, LM_PREFILL[0] * LM_PREFILL[1])
+#: (M, K, N) at which each new design is held to its plain twins (the plain
+#: closed form at width 16 takes seconds a call at the LM shapes)
+FALLBACK_TWIN_SHAPE = (32, 512, 512)
+#: the wide design over the tile design at every M = 256 shape
+FALLBACK_WIDE_SPEEDUP = 10
+#: the edge contraction, (B, M, K, N): under a table beyond int16 (no narrow
+#: columns) the dispatch keeps lut_matmul's tile design at this narrow N
+#: (blocking.gather_design), which must be no slower than the gather design
+FALLBACK_EDGE_SHAPE = (1, 4_194_304, 9, 1)
 #: the child that runs one driver as ``__main__`` with the kernels' launch
 #: counters set to 0 first, and prints them by shape on its last line
 DRIVER_CHILD = r"""
@@ -439,9 +465,11 @@ counters = {"fused_conv_closed_form": fc.launches, "fused_conv_lut": fc.lut_laun
             "fused_conv_stencil": fc.stencil_launches,
             "closed_form_tile": cf.launches, "closed_form_narrow": cf.narrow_launches,
             "closed_form_decode": cf.decode_launches, "closed_form_rows": cf.rows_launches,
+            "closed_form_wide": cf.wide_launches,
             "lut_tile": lm.launches, "lut_narrow": lm.narrow_launches,
             "lut_decode": lm.decode_launches, "lut_tensor": lm.tensor_launches,
-            "lut_rows": lm.rows_launches, "approx_mul": approx_mul.launches}
+            "lut_rows": lm.rows_launches, "lut_gather": lm.gather_launches,
+            "approx_mul": approx_mul.launches}
 for c in counters.values():
     c.reset()
 target = sys.argv[1]
@@ -655,8 +683,16 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
             qb, _ = sub._quantize_operand(w, q.w_mode, None, 1, 8, q.eps)
             a32, b32 = qa.to(torch.int32), qb.to(torch.int32)
             iters = 10 if decode else 3
+            # the closed form's plain reference; at M = 256 its product
+            # table gathered (lut_matmul_plain on the proposed@8 table),
+            # which the CPU tests hold bit-equal to closed_form_matmul_plain
+            # (tests/test_torch_rows_contract.py::test_rows_twin_matches_pallas),
+            # in place of the plain closed form's 18.6 s there
+            cf_oracle = ("closed_form_matmul_plain" if decode
+                         else "lut_matmul_plain on the proposed@8 table")
             cf_plain, cf_plain_ms = timed_once(
-                lambda: closed_form_matmul_plain(a32, b32, "proposed@8"))
+                (lambda: closed_form_matmul_plain(a32, b32, "proposed@8")) if decode
+                else (lambda: lut_matmul_plain(a32, b32, t_prop)))
             lut_plain, lut_plain_ms = timed_once(
                 lambda: lut_matmul_plain(a32, b32, t_exact))
             err = {"closed_form_tile": max_abs_err(am._launch(
@@ -764,9 +800,10 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
                         f"bounds {bounds}")
             shape_rows[(m, site)] = {"k": k, "n": n, "per_layer_step": per_step,
                                      "ms": ms, "work": work, "rate": rate,
-                                     "err": err}
+                                     "err": err, "cf_oracle": cf_oracle}
             emit("lm_kernel_shapes", m=m, site=site, shape=[1, m, k, n],
                  operands="int8 codes", max_abs_err=err, tolerance=0, ms=ms,
+                 closed_form_tile_plain=cf_oracle,
                  int_mm_rows=a2.shape[0], bound_ms=bounds,
                  rows_planes=None if decode else cf_planes.planes)
             del x, w, qa, qb, a32, b32, cf_plain, lut_plain, a2, b2
@@ -1078,6 +1115,8 @@ def lm_phases(dev, card: str, out_dir: Path, emit_trace) -> tuple:
                          "launches_per_layer_step_at_shape": r["per_layer_step"]})
             if m == m_pf:  # the same shape on bundle.prefill
                 rows[-1]["launches_bundle_prefill"] = cpf[key_]
+            if key_ == "closed_form_tile":
+                rows[-1]["plain"] = r["cf_oracle"]
             work[row_name] = r["work"][work_kind]
     return rows, work
 
@@ -1092,11 +1131,13 @@ def contraction_counters() -> dict:
             "closed_form_narrow": closed_form_matmul.narrow_launches,
             "closed_form_decode": closed_form_matmul.decode_launches,
             "closed_form_rows": closed_form_matmul.rows_launches,
+            "closed_form_wide": closed_form_matmul.wide_launches,
             "lut_tile": lut_matmul.launches,
             "lut_narrow": lut_matmul.narrow_launches,
             "lut_decode": lut_matmul.decode_launches,
             "lut_tensor": lut_matmul.tensor_launches,
-            "lut_rows": lut_matmul.rows_launches}
+            "lut_rows": lut_matmul.rows_launches,
+            "lut_gather": lut_matmul.gather_launches}
 
 
 def count_launches(counters: dict, fn):
@@ -3229,9 +3270,10 @@ def drivers_shape_checks(by_shape: dict, dev,
                 kind, design = counter.rsplit("_", 1)
                 bsz, m, k, nn = shape
                 a, b = codes((bsz, m, k)), codes((bsz, k, nn))
-                if kind == "closed_form":
-                    pairs.append((design, am._launch(a, b, "proposed@8", design=design),
-                                  am.closed_form_matmul_plain(a, b, "proposed@8")))
+                if kind == "closed_form":  # the wide design takes widths 9..16
+                    key = "proposed@12" if design == "wide" else "proposed@8"
+                    pairs.append((design, am._launch(a, b, key, design=design),
+                                  am.closed_form_matmul_plain(a, b, key)))
                 else:
                     table = lm.device_table("exact" if design == "tensor"
                                             else "proposed@8", dev)
@@ -3424,6 +3466,197 @@ def roofline_phase(dev, card: str) -> dict:
     require(share <= ROOF_CONSTANT_SLACK,
             f"prefill {ms} ms under its roofline bound {rf.t_bound * 1e3} ms")
     return rec
+
+
+def tile_fallbacks_phase(dev, card: str, noise: torch.Tensor) -> tuple:
+    """Phase tile_fallbacks_path: the wide design (``approx_matmul`` at
+    ``FALLBACK_KEYS``) and the gather design (``lut_matmul`` on the noise
+    table and on a random int16 table beyond the rows planes), first each
+    against its plain twins at ``FALLBACK_TWIN_SHAPE``, then at the four LM
+    shapes at M = 8 and 256 through the public entry points (the int16
+    table at M = 8, which the decode design takes, through the private
+    ``design="gather"``), each bit for bit the tile design at full shape,
+    both timed. The wide design must be ``FALLBACK_WIDE_SPEEDUP`` times the
+    tile design at every M = 256 shape, the gather design no slower than it
+    at every LM shape; at ``FALLBACK_EDGE_SHAPE`` under the noise table the
+    dispatch keeps the tile design, which must be no slower than the gather
+    design there. Returns (rows of the kernels line, least work by row
+    name)."""
+    from repro_torch.core import multiplier as mult
+    from repro_torch.kernels import blocking
+    from repro_torch.kernels.approx_matmul import ops as am
+    from repro_torch.kernels.approx_matmul.ops import (closed_form_matmul,
+                                                       closed_form_matmul_plain)
+    from repro_torch.kernels.lut_matmul import ops as lm
+    from repro_torch.kernels.lut_matmul.ops import lut_matmul, lut_matmul_plain
+
+    t_start = time.perf_counter()
+    counters = contraction_counters()
+    gen = torch.Generator(dev).manual_seed(28)
+
+    def codes(shape, n_bits: int, dtype=torch.int32):
+        hi = 1 << (n_bits - 1)
+        return torch.randint(-hi, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(dtype)
+
+    r16 = codes((1 << 16,), 16)
+    require(lm.rows_decomposition(r16) is None and lm._fits_int16(r16),
+            "the int16 table takes the rows or misses int16")
+    require(lm.rows_decomposition(noise) is None and not lm._fits_int16(noise),
+            "the noise table takes the rows or fits int16")
+    tables = {"noise": noise, "int16": r16}
+
+    # -- the plain twins at a reduced shape: the wide design against
+    # blocking.wide_matmul_plain and the plain closed form, on operands
+    # anywhere in int32; the gather design against lut_matmul_plain, the
+    # table contraction its windows split by activation code
+    m, k, n = FALLBACK_TWIN_SHAPE
+    twin = {}
+    for key in FALLBACK_KEYS:
+        nb = mult.split_width(key)[1]
+        a, b = codes((1, m, k), 32), codes((1, k, n), 32)
+        got = closed_form_matmul(a, b, key)
+        planes = am.wide_decomposition(key)
+        want = blocking.wide_matmul_plain(a, b, planes, nb)  # warm, then timed
+        want_cf = closed_form_matmul_plain(a, b, key)
+        _, twin_ms = timed_once(lambda: blocking.wide_matmul_plain(a, b, planes, nb))
+        _, cf_ms = timed_once(lambda: closed_form_matmul_plain(a, b, key))
+        twin[key] = {"max_abs_err": max(max_abs_err(got, want), max_abs_err(got, want_cf)),
+                     "plain_ms": twin_ms, "closed_form_plain_ms": cf_ms,
+                     "planes": len(planes.planes), "groups": len(planes.groups)}
+    for name, t in tables.items():
+        a, b = codes((1, m, k), 8, torch.int8), codes((1, k, n), 8, torch.int8)
+        got = lut_matmul(a, b, t)
+        want = lut_matmul_plain(a, b, t)  # warm, then timed
+        _, twin_ms = timed_once(lambda: lut_matmul_plain(a, b, t))
+        twin[name] = {"max_abs_err": max_abs_err(got, want), "plain_ms": twin_ms,
+                      "entry_bytes": lm.gather_table(t).element_size()}
+    require(all(v["max_abs_err"] == 0 for v in twin.values()),
+            f"tile fallbacks vs their plain twins: {twin}")
+    emit("tile_fallbacks_twins", shape=[1, m, k, n], twins=twin, tolerance=0)
+
+    # -- the LM shapes, through the public entry points (counted), each
+    # against the tile design at full shape
+    rows, work, checks = [], {}, []
+    for m in FALLBACK_M:
+        for site, (k, n, _) in LM_SHAPES.items():
+            cases = [("closed_form", key) for key in FALLBACK_KEYS] + [
+                ("lut", name) for name in tables]
+            for kind, what in cases:
+                if kind == "closed_form":
+                    nb = mult.split_width(what)[1]
+                    a, b = codes((1, m, k), nb), codes((1, k, n), nb)
+                    design = "wide"
+                    served = blocking.resolve_design(None, blocking.eligible_designs(
+                        m, k, n, nb), "approx_matmul", "")
+                    run = lambda: closed_form_matmul(a, b, what)
+                    tile = lambda: am._launch(a, b, what, design="tile")
+                else:
+                    t = tables[what]
+                    a, b = codes((1, m, k), 8, torch.int8), codes((1, k, n), 8, torch.int8)
+                    design = "gather"
+                    served = blocking.resolve_design(None, blocking.eligible_designs(
+                        m, k, n, 8, lm.table_checks(t)), "lut_matmul", "")
+                    run = (lambda: lut_matmul(a, b, t)) if served == "gather" else (
+                        lambda: lm._launch(a, b, t, 8, design="gather"))
+                    tile = lambda: lm._launch(a, b, t, 8, design="tile")
+                # every wide call and the gather design's tables but the
+                # int16 one at M = 8 (the decode design's) are on the path
+                on_path = served == design
+                require(on_path or (what == "int16" and served == "decode"),
+                        f"{what} at ({m} x {k}) @ ({k} x {n}) takes {served}")
+                _, launched, _ = count_launches(counters, run)
+                require(launched == {c: int(c == f"{kind}_{design}") for c in counters},
+                        f"{what} at ({m} x {k}) @ ({k} x {n}): launches {launched}")
+                got = run()
+                err = max_abs_err(got, tile())
+                del got
+                big = m > blocking.DECODE_MAX_M
+                ms = {design: time_ms(run), "tile": time_ms(
+                    tile, iters=1 if big else 3, warmup=0 if big else 1)}
+                if kind == "closed_form":
+                    planes = len(am.wide_decomposition(what).planes)
+                    least = (4 * (m * k + k * n + m * n), planes * 2 * m * k * n)
+                    rate = INT8_TC_OPS_PER_S
+                else:
+                    planes = None
+                    least = contraction_work(m, k, n, lm.gather_table(t).numel()
+                                             * lm.gather_table(t).element_size())
+                    rate = INT32_OPS_PER_S
+                b_ms, by = bound_ms(*least, rate)
+                ok = err == 0 and (ms[design] <= ms["tile"] if kind == "lut"
+                                   else not big or ms["tile"] >= FALLBACK_WIDE_SPEEDUP
+                                   * ms[design])
+                checks.append({"m": m, "site": site, "what": what, "design": design,
+                               "max_abs_err": err, "ms": ms, "bound_ms": b_ms,
+                               "launches": launched[f"{kind}_{design}"]})
+                require(ok, f"{design} at ({m} x {k}) @ ({k} x {n}), {what}: "
+                            f"error {err}, ms {ms}")
+                name = "closed_form_matmul" if kind == "closed_form" else "lut_matmul"
+                row_name = f"{name}[{design},{what},{site},M={m}]"
+                rows.append({
+                    "name": row_name, "route": "cuda",
+                    "source": f"src/repro_torch/csrc/{'approx' if kind == 'closed_form' else 'lut'}_matmul.cu",
+                    "replaces": ("src/repro/kernels/approx_matmul/kernel.py:59"
+                                 if kind == "closed_form"
+                                 else "src/repro/kernels/lut_matmul/kernel.py:74"),
+                    "launches": launched[f"{kind}_{design}"] if on_path else 0,
+                    "max_abs_err": max(err, twin[what]["max_abs_err"]),
+                    "ms": ms[design], "plain_ms": twin[what]["plain_ms"],
+                    "plain_shape": [1, *FALLBACK_TWIN_SHAPE], "bound_ms": b_ms,
+                    "bound_by": by, "library_ms": None, "tile_ms": ms["tile"],
+                    "shape": [1, m, k, n], "mult": what, "design": design,
+                    "planes": planes,
+                    "launches_on": "tile_fallbacks_path" if on_path else
+                    "tile_fallbacks_path (must be 0: the decode design takes it)",
+                    "entry_point": ("closed_form_matmul" if kind == "closed_form"
+                                    else "lut_matmul"),
+                    "off_path": not on_path})
+                work[row_name] = least
+                del a, b
+        torch.cuda.empty_cache()
+
+    # -- the edge contraction under the noise table: the dispatch keeps the
+    # tile design (narrow N at many rows), bit for bit the gather design and
+    # the plain version, and no slower than the gather design
+    bsz, m, k, n = FALLBACK_EDGE_SHAPE
+    a, b = codes((bsz, m, k), 8, torch.int8), codes((bsz, k, n), 8, torch.int8)
+    served = blocking.resolve_design(None, blocking.eligible_designs(
+        m, k, n, 8, lm.table_checks(noise)), "lut_matmul", "")
+    require(served == "tile", f"the edge contraction under the noise table takes {served}")
+    run = lambda: lut_matmul(a, b, noise)  # noqa: E731
+    gather = lambda: lm._launch(a, b, noise, 8, design="gather")  # noqa: E731
+    got, launched, _ = count_launches(counters, run)
+    require(launched == {c: int(c == "lut_tile") for c in counters},
+            f"the edge contraction: launches {launched}")
+    want, plain_ms = timed_once(lambda: lut_matmul_plain(a, b, noise))
+    err = max(max_abs_err(got, gather()), max_abs_err(got, want))
+    del got, want
+    ms = {"tile": time_ms(run), "gather": time_ms(gather)}
+    least = contraction_work(m, k, n, noise.numel() * noise.element_size())
+    b_ms, by = bound_ms(*least, INT32_OPS_PER_S)
+    edge = {"shape": list(FALLBACK_EDGE_SHAPE), "served": served, "max_abs_err": err,
+            "ms": ms, "bound_ms": b_ms, "launches": launched["lut_tile"]}
+    require(err == 0 and ms["tile"] <= ms["gather"],
+            f"the edge contraction under the noise table: {edge}")
+    row_name = "lut_matmul[tile,noise,edge]"
+    rows.append({
+        "name": row_name, "route": "cuda",
+        "source": "src/repro_torch/csrc/lut_matmul.cu",
+        "replaces": "src/repro/kernels/lut_matmul/kernel.py:74",
+        "launches": launched["lut_tile"], "max_abs_err": err, "ms": ms["tile"],
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+        "gather_ms": ms["gather"], "shape": list(FALLBACK_EDGE_SHAPE),
+        "mult": "noise", "design": "tile", "launches_on": "tile_fallbacks_path",
+        "entry_point": "lut_matmul", "off_path": False})
+    work[row_name] = least
+    del a, b
+    torch.cuda.empty_cache()
+    emit("tile_fallbacks_path", card=card, keys=list(FALLBACK_KEYS),
+         tables=list(tables), m=list(FALLBACK_M), checks=checks, edge=edge,
+         tolerance=0, wide_speedup_required=FALLBACK_WIDE_SPEEDUP,
+         seconds=time.perf_counter() - t_start)
+    return rows, work
 
 
 def main() -> int:
@@ -3930,9 +4163,10 @@ def main() -> int:
     # the rows design of both contraction kernels, on the path that takes
     # it: dot_general at a dense layer's shape, (8 x 128 tokens x 64) @
     # (64 x 256), K = 64 and N = 256 beyond the narrow design's limits; the
-    # same contraction through the kernels' entry points takes the tile
+    # same contraction through the kernels' entry points takes the wide
     # design at width 12 (beyond int8 codes; no approx_cuda spec takes it)
-    # and under a product table beyond the rows design's planes
+    # and the gather design under a product table beyond the rows design's
+    # planes (the tile design, which took both before them, launches 0)
     tokens = torch.from_numpy(rng.integers(-128, 128, (8, 128, 64))
                               .astype(np.int32)).to(dev)
     weight = torch.from_numpy(rng.integers(-128, 128, (64, 256))
@@ -3951,7 +4185,10 @@ def main() -> int:
                      "closed_form_matmul_rows": closed_form_matmul.rows_launches,
                      "lut_matmul_rows": lut_matmul.rows_launches,
                      "closed_form_matmul_narrow": closed_form_matmul.narrow_launches,
-                     "lut_matmul_narrow": lut_matmul.narrow_launches}
+                     "lut_matmul_narrow": lut_matmul.narrow_launches,
+                     "closed_form_matmul_wide": closed_form_matmul.wide_launches,
+                     "lut_matmul_gather": lut_matmul.gather_launches}
+    t_wide = time.perf_counter()
     for counter in wide_counters.values():
         counter.reset()
     w_err = 0
@@ -3965,15 +4202,17 @@ def main() -> int:
                             closed_form_matmul_plain(a_w, b_w, "proposed@12")))
     torch.cuda.synchronize()
     w_launches = {name: c.value for name, c in wide_counters.items()}
-    require(w_launches == {"closed_form_matmul": 1, "lut_matmul": 1,
+    require(w_launches == {"closed_form_matmul": 0, "lut_matmul": 0,
                            "closed_form_matmul_rows": 1, "lut_matmul_rows": 1,
-                           "closed_form_matmul_narrow": 0, "lut_matmul_narrow": 0},
+                           "closed_form_matmul_narrow": 0, "lut_matmul_narrow": 0,
+                           "closed_form_matmul_wide": 1, "lut_matmul_gather": 1},
             f"wide contraction launches {w_launches}")
     require(w_err == 0, "wide contraction vs plain")
     emit("wide_contraction_path", shape=[8, 128, 64, 256],
          specs=list(wide_plain) + ["lut_matmul, a table beyond the rows planes",
                                    "closed_form_matmul, proposed@12"],
-         launches=w_launches, max_abs_err=w_err, tolerance=0)
+         launches=w_launches, max_abs_err=w_err, tolerance=0,
+         seconds=time.perf_counter() - t_wide)
 
     # the elementwise entry point, called as its users call it: one array of
     # multipliers over a (4096, 4096) operand pair
@@ -4156,9 +4395,11 @@ def main() -> int:
         fused_row("fused_conv2d", "closed_form", "generic",
                   g_launches["fused_conv2d"], "generic_conv_path",
                   errs["fused_conv[generic]"], fc_ms, None, "proposed"),
-        contraction_row("closed_form_matmul", "tile",
-                        w_launches["closed_form_matmul"], "wide_contraction_path",
-                        mm_err, mm_ms, mm_bound, mm_by, None, mm_shape, "proposed"),
+        dict(contraction_row("closed_form_matmul", "tile",
+                             w_launches["closed_form_matmul"],
+                             "wide_contraction_path (must be 0)", mm_err, mm_ms,
+                             mm_bound, mm_by, None, mm_shape, "proposed"),
+             off_path=True),
         contraction_row("closed_form_matmul[narrow]", "narrow",
                         launches["approx_matmul_narrow"], "main_path",
                         mm_err, mm_ms, mm_bound, mm_by, None, mm_shape, "proposed"),
@@ -4168,16 +4409,19 @@ def main() -> int:
         fused_row("fused_conv2d[lut]", "lut", "generic",
                   g_launches["fused_conv2d_lut"], "generic_conv_path",
                   lut_errs["fused_conv_lut[generic]"], fl_ms, fl_lib_ms, "exact"),
-        contraction_row("closed_form_matmul[ring]", "tile",
-                        w_launches["closed_form_matmul"], "wide_contraction_path",
-                        mr_err, mr_ms, mr_bound, mr_by, None, mr_shape, rk),
+        dict(contraction_row("closed_form_matmul[ring]", "tile",
+                             w_launches["closed_form_matmul"],
+                             "wide_contraction_path (must be 0)", mr_err, mr_ms,
+                             mr_bound, mr_by, None, mr_shape, rk),
+             off_path=True),
         dict(contraction_row("closed_form_matmul[ring,narrow]", "narrow",
                              p_launches["closed_form_matmul_narrow"], "planned_path",
                              mr_err, mr_ms, mr_bound, mr_by, None, mr_shape, rk),
              launches_edge_qat_path=qat_launches["closed_form_matmul_narrow"]),
-        contraction_row("lut_matmul", "tile", w_launches["lut_matmul"],
-                        "wide_contraction_path", lm_err, lm_ms, lm_bound, lm_by,
-                        lm_lib_ms, lm_shape, "exact"),
+        dict(contraction_row("lut_matmul", "tile", w_launches["lut_matmul"],
+                             "wide_contraction_path (must be 0)", lm_err, lm_ms,
+                             lm_bound, lm_by, lm_lib_ms, lm_shape, "exact"),
+             off_path=True),
         dict(contraction_row("lut_matmul[narrow]", "narrow",
                              p_launches["lut_matmul_narrow"], "planned_path",
                              lm_err, lm_ms, lm_bound, lm_by, lm_lib_ms, lm_shape,
@@ -4193,6 +4437,8 @@ def main() -> int:
     ]
     lm_rows, lm_work = lm_phases(dev, card, out_dir, emit_trace)
     kernels += lm_rows
+    fb_rows, fb_work = tile_fallbacks_phase(dev, card, noise)
+    kernels += fb_rows
     tool_shapes = tools_phases(dev, card, tiles, out_dir)
     family_rows, family_work = family_phases(dev, card)
     rec_rows, rec_work = recurrent_phases(dev, card)
@@ -4265,7 +4511,7 @@ def main() -> int:
             "closed_form_matmul[ring]": (mr_bytes, mr_ops),
             "closed_form_matmul[ring,narrow]": (mr_bytes, mr_ops),
             "lut_matmul": (lm_bytes, lm_ops), "lut_matmul[narrow]": (lm_bytes, lm_ops),
-            "approx_mul": (am_bytes, am_ops), **lm_work, **family_work,
+            "approx_mul": (am_bytes, am_ops), **lm_work, **fb_work, **family_work,
             **rec_work, **train_work}
     emit("kernel_times", card=card, int32_peak_ops_per_s=INT32_OPS_PER_S,
          int8_tensor_core_peak_ops_per_s=INT8_TC_OPS_PER_S,

@@ -1,4 +1,4 @@
-// Batched contraction under the CSP approximate multiplier, four designs.
+// Batched contraction under the CSP approximate multiplier, five designs.
 //
 // Replaces the TPU kernel src/repro/kernels/approx_matmul/kernel.py,
 // approx_matmul_pallas (body _matmul_kernel): (B,M,K) @ (B,K,N) int32 where
@@ -6,13 +6,13 @@
 // sum is exact in the int32 ring.
 //
 // Bound on the H100. The product is not a multiply-add, so no library GEMM
-// (cuBLAS, torch.matmul, _int_mm) evaluates it; the rows design rewrites it
-// as a short sum of int8 GEMMs for the tensor cores. Where b has few distinct
-// values per launch, as the conv path's (K x 1) tap column, the least work is
-// a table read per product, and the bytes of A and C bound it. The wrapper
-// (kernels/approx_matmul/ops.py) picks the design from the shape and width
-// alone (kernels/blocking.py, narrow_design, decode_design, rows_design), in
-// this order:
+// (cuBLAS, torch.matmul, _int_mm) evaluates it; the rows and wide designs
+// rewrite it as a short sum of int8 GEMMs for the tensor cores. Where b has
+// few distinct values per launch, as the conv path's (K x 1) tap column, the
+// least work is a table read per product, and the bytes of A and C bound it.
+// The wrapper (kernels/approx_matmul/ops.py) picks the design from the shape
+// and width alone (kernels/blocking.py, narrow_design, decode_design,
+// rows_design, wide_design), in this order:
 //
 // * narrow (N <= 8, K <= 16, width <= 8; every shape the edge paths give
 //   it): cf_columns_kernel evaluates the closed form once per (coefficient,
@@ -31,7 +31,16 @@
 //   bit-monomial int8 GEMMs (kernels/monomials.py; R = 19 at proposed@8),
 //   which rows_contract.cuh runs on the INT8 tensor cores. The tensor cores
 //   bound it.
-// * tile (widths 9..16, or forced): 16x16 output
+// * wide (widths 9..16, any shape; the public entry points at those widths,
+//   no served path): the closed form taken apart on the host from its
+//   parameter block (kernels/monomials.wide_planes) into P byte GEMMs (the
+//   exact product in four, the truncation one a bit, those of one b side
+//   and scale merged, a few bit-monomial pairs; P = 26 at proposed@12, 29
+//   at proposed@16), each side of a plane
+//   built in registers from the operands' byte planes, which
+//   wide_contract.cuh runs on the INT8 tensor cores. The tensor cores bound
+//   it (P * 2 * M * K * N operations).
+// * tile (forced only; on no path since the wide design): 16x16 output
 //   tiles, one thread per output, A/B k-slabs of 16 staged in shared
 //   memory, grid (M-tiles, N-tiles, B) -- M on grid x, beyond the 65535
 //   limit of grid y. It evaluates the generic closed form for each of the
@@ -43,8 +52,8 @@
 // slab entries must never be multiplied into the sum; the JAX wrapper
 // instead pads and subtracts f00 * pad_k (blocking.pad_crop_correct). Both
 // give the same integers. The narrow and decode designs have no K slab and
-// no K tail; the rows design adds K * f(0,0) once and zero-fills a K tail
-// whose bit tests and factors are all 0.
+// no K tail; the rows and wide designs add K * f(0,0) once and zero-fill a
+// K tail whose planes are all 0 there.
 
 #include <cuda_runtime.h>
 
@@ -54,6 +63,7 @@
 #include "decode_contract.cuh"
 #include "narrow_contract.cuh"
 #include "rows_contract.cuh"
+#include "wide_contract.cuh"
 
 #define MM_TILE 16
 
@@ -87,7 +97,7 @@ __global__ void approx_matmul_kernel(const int32_t* __restrict__ A,
   }
 }
 
-// The tile design. a: contiguous (B, M, K), b: (B, K, N), c: (B, M, N), all
+// The tile design (forced only). a: contiguous (B, M, K), b: (B, K, N), c: (B, M, N), all
 // int32 on the card. params: CF_PARAM_LEN host int32. Returns
 // cudaGetLastError().
 extern "C" int approx_matmul_launch(const void* a, const void* b, void* c,
@@ -176,4 +186,22 @@ extern "C" int approx_matmul_rows_launch(const void* a, const void* w,
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
       static_cast<const int32_t*>(planes), static_cast<int32_t*>(c), B, M, K,
       N, n_bits, R, f00, static_cast<cudaStream_t>(stream)));
+}
+
+// The wide design. a: contiguous (B, M, K) int32, w: (B, K, N) int32 (any
+// values: wrapped to n bits here), c: (B, M, N) int32, scratch:
+// scratch_bytes on the card (wide_contract.cuh's wide_scratch_bytes),
+// params: the host block of kernels/monomials.wide_device_params, f00 the
+// closed form at (0, 0). Contract in wide_contract.cuh. Returns
+// cudaGetLastError() or the contract's error.
+extern "C" int approx_matmul_wide_launch(const void* a, const void* w, void* c,
+                                         void* scratch, long long scratch_bytes,
+                                         int B, int M, int K, int N,
+                                         int n_bits, const void* params,
+                                         int f00, void* stream) {
+  return static_cast<int>(wide_contract(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(w),
+      static_cast<const int32_t*>(params), static_cast<int32_t*>(c),
+      static_cast<int8_t*>(scratch), scratch_bytes, B, M, K, N, n_bits, f00,
+      static_cast<cudaStream_t>(stream)));
 }

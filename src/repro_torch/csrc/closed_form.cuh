@@ -17,9 +17,12 @@
 // (approx_matmul.cu's narrow design through narrow_contract.cuh,
 // fused_conv.cu's stencil design), and cf_table_kernel writes the whole
 // 2^(2n)-entry product table once per wiring for approx_matmul.cu's decode
-// design (decode_contract.cuh). Only the generic designs (approx_matmul's
-// tile design, fused_conv's generic kernel: widths 9..16, wide shapes, large
-// conv kernels) still evaluate it once per product. All
+// design (decode_contract.cuh). At widths 9..16 approx_matmul.cu's wide
+// design (wide_contract.cuh) runs the closed form's byte planes, taken apart
+// on the host from this block, on the INT8 tensor cores instead. Only
+// fused_conv's generic kernel (widths 9..16, conv kernels beyond 5x5) and
+// approx_matmul's tile design, which no path launches since the wide
+// design, still evaluate it once per product. All
 // arithmetic is on uint32 so that the int32 ring's wraparound is defined in
 // C++; signed values come back through the shift-based width wrap.
 //

@@ -1,5 +1,5 @@
 // Batched contraction with every scalar product read from a product table,
-// five designs.
+// six designs.
 //
 // Replaces the TPU kernel src/repro/kernels/lut_matmul/kernel.py,
 // lut_matmul_pallas (body _lut_matmul_kernel): (B,M,K) @ (B,K,N) int32 where
@@ -15,7 +15,7 @@
 // (1 x 1)) the bytes of A and C bound it. The wrapper
 // (kernels/lut_matmul/ops.py) picks the design from the shape, the width
 // and the table (kernels/blocking.py, narrow_design, tensor_design,
-// decode_design, rows_design), in this order:
+// decode_design, rows_design, gather_design), in this order:
 //
 // * narrow (N <= 8, K <= 16, every entry of the table within int16, which
 //   holds for every product table: products wrap to 2n <= 16 bits):
@@ -35,7 +35,17 @@
 //   product table of a CSP wiring, and the exact product with none):
 //   rows_contract.cuh on the INT8 tensor cores, as approx_matmul.cu's rows
 //   design; the table itself is not read.
-// * tile (any other table, or forced): the table
+// * gather (every other table: entries beyond int16, or an int16 table
+//   beyond the rows planes at M > 16; at the shapes where it beats the
+//   tile design, blocking.gather_design; no served path):
+//   gather_contract.cuh keeps the table in shared memory (the int16 twin,
+//   or the int32 table in row windows of 128 KiB: two at n = 8) and
+//   gathers each product once from it, 16-row tiles of persistent blocks,
+//   each weight code read once per tile. INT32 operations (shared-memory
+//   gathers in practice) bound it.
+// * tile (narrow N at many rows under a table beyond int16, such as the
+//   edge contraction, where each gather segment's fixed cost loses;
+//   otherwise forced only): the table
 //   is 256 KiB of int32 at n = 8, more than the 227 KiB of shared memory a
 //   block may use, so it is gathered from device memory through the
 //   read-only data path (__ldg): it stays in L2 (50 MB) and its hot lines
@@ -47,15 +57,16 @@
 // K tail of the tile design: the *product* is masked, not the operand. A
 // zero operand reads f(0,0), which is nonzero for approximate wirings (192
 // for proposed@8), so zero-filled slab entries must never be looked up into
-// the sum. The narrow and decode designs have no K slab and no K tail; the
-// tensor design zero-fills its K tail, which is exact for the exact product
-// alone (0 * b = 0), the only table it takes.
+// the sum. The narrow, decode and gather designs have no K slab and no K
+// tail; the tensor design zero-fills its K tail, which is exact for the
+// exact product alone (0 * b = 0), the only table it takes.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "decode_contract.cuh"
+#include "gather_contract.cuh"
 #include "narrow_contract.cuh"
 #include "rows_contract.cuh"
 
@@ -437,4 +448,18 @@ extern "C" int lut_matmul_rows_launch(const void* a, const void* w,
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
       static_cast<const int32_t*>(planes), static_cast<int32_t*>(c), B, M, K,
       N, n_bits, R, f00, static_cast<cudaStream_t>(stream)));
+}
+
+// The gather design. a: contiguous (B, M, K) int8 codes, b: (B, K, N) int8
+// codes, c: (B, M, N) int32, table: the 2^(2n) entries of entry_bytes (2:
+// the int16 twin, 4: the int32 table), all on the card. Contract in
+// gather_contract.cuh. Returns cudaGetLastError() or the contract's error.
+extern "C" int lut_matmul_gather_launch(const void* a, const void* b,
+                                        const void* table, int entry_bytes,
+                                        void* c, int B, int M, int K, int N,
+                                        int n_bits, void* stream) {
+  return static_cast<int>(gather_contract(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), table,
+      entry_bytes, static_cast<int32_t*>(c), B, M, K, N, n_bits,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -20,8 +20,17 @@ and an exact int32-ring sum:
   layer of a training step or a prefill) runs the closed form's table,
   taken apart into an exact int8 GEMM plus a few bit-monomial int8 GEMMs
   (:func:`rows_decomposition`, ``kernels.monomials``), on the INT8 tensor
-  cores, on the int8 codes as they are; the *tile* design (16×16 output
-  tiles, the batch as grid z) takes every other shape (widths 9–16). The
+  cores, on the int8 codes as they are; the *wide* design (widths 9–16,
+  any shape: the public entry point at those widths, no served path) runs
+  the closed form taken apart from its parameter block into byte GEMMs
+  (:func:`wide_decomposition`, ``monomials.wide_planes``: the exact
+  product in four, the truncation one a bit, those of one b side and
+  scale merged, a few bit-monomial pairs; 26 at proposed@12, 29 at
+  proposed@16) on the INT8 tensor cores, each side of
+  a plane built in registers from the operands' byte planes. The *tile*
+  design (16×16 output tiles, the generic closed form per product) remains
+  as a forced design (``_launch(..., design="tile")``); no path reaches it
+  since the wide design replaced it at widths 9–16. The
   narrow design needs 16-byte
   aligned batches: an A whose base is not 16-byte aligned (a view with a
   storage offset), or a batched A with M % 4 ≠ 0, is first copied into a
@@ -32,15 +41,18 @@ and an exact int32-ring sum:
 
 ``closed_form_matmul.launches`` counts tile launches,
 ``closed_form_matmul.narrow_launches`` narrow ones,
-``closed_form_matmul.decode_launches`` decode ones and
-``closed_form_matmul.rows_launches`` rows ones, each also by its
+``closed_form_matmul.decode_launches`` decode ones,
+``closed_form_matmul.rows_launches`` rows ones and
+``closed_form_matmul.wide_launches`` wide ones, each also by its
 ``(B, M, K, N)`` (``.by_shape()``). The narrow design's
 plain twin is :func:`closed_form_columns` with
 :func:`~repro_torch.kernels.blocking.narrow_matmul_plain`; the decode
 design's is :func:`closed_form_table16` with
 :func:`~repro_torch.kernels.blocking.decode_matmul_plain`; the rows
 design's is :func:`rows_decomposition` with
-:func:`~repro_torch.kernels.blocking.rows_matmul_plain`.
+:func:`~repro_torch.kernels.blocking.rows_matmul_plain`; the wide design's
+is :func:`wide_decomposition` with
+:func:`~repro_torch.kernels.blocking.wide_matmul_plain`.
 
 :func:`approx_matmul` is the historical proposed@8 entry point.
 """
@@ -54,7 +66,8 @@ from repro_torch.core import multiplier as mult
 from repro_torch.kernels import blocking, build, monomials
 from repro_torch.kernels.blocking import (decode_matmul_plain,  # noqa: F401
                                           narrow_matmul_plain,
-                                          rows_matmul_plain)
+                                          rows_matmul_plain,
+                                          wide_matmul_plain)
 from repro_torch.kernels.closed_form import (closed_form_f00, closed_form_params,
                                              make_closed_form)
 from repro_torch.obs.trace import trace_span
@@ -73,6 +86,10 @@ _ROWS_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p)
+_WIDE_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_void_p)
 
 
 def closed_form_matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -149,17 +166,35 @@ def rows_decomposition(key: str) -> monomials.Decomposition:
         closed_form_table16(key, "cpu").numpy()))
 
 
+def wide_decomposition(key: str) -> monomials.WidePlanes:
+    """The wide design's planes of ``key`` (widths 9..16): the closed form
+    taken apart from its parameter block (``monomials.wide_planes``), once
+    per key."""
+    key = mult.canonical_key(key)
+    return monomials.cached(("wide", key), lambda: monomials.wide_planes(
+        closed_form_params(key)))
+
+
+def _wide_params(key: str):
+    """:func:`wide_decomposition` as the kernel's parameter block (host
+    int32), once per key."""
+    planes = wide_decomposition(key)  # outside the cache's lock
+    return monomials.cached(("wide_params", key),
+                            lambda: monomials.wide_device_params(planes))
+
+
 def _rows_planes(key: str, device) -> torch.Tensor:
     """:func:`rows_decomposition` as the kernel reads it, on ``device``."""
-    return build.device_constant(
-        ("cf_rows", key), device,
-        lambda: monomials.device_planes(rows_decomposition(key)))
+    d = rows_decomposition(key)  # outside device_constant's lock
+    return build.device_constant(("cf_rows", key), device,
+                                 lambda: monomials.device_planes(d))
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, key: str,
             design: "str | None" = None) -> torch.Tensor:
     """Launch the kernel of ``design`` (``"narrow"``, ``"decode"``,
-    ``"rows"`` or ``"tile"``; None: the first of them that takes the shape,
+    ``"rows"``, ``"wide"`` or ``"tile"``; None: the first of them that takes
+    the shape,
     by :func:`~repro_torch.kernels.blocking.eligible_designs`) on CUDA
     (B,M,K)@(B,K,N) integer operands."""
     bsz, m, k = a.shape
@@ -205,6 +240,22 @@ def _launch(a: torch.Tensor, b: torch.Tensor, key: str,
         return out
     params = closed_form_params(key)
     a, b = a.to(torch.int32), b.to(torch.int32)
+    if design == "wide":
+        a, b = a.contiguous(), b.contiguous()
+        out = torch.empty((bsz, m, n), dtype=torch.int32, device=a.device)
+        n_scratch = blocking.wide_scratch_bytes(bsz, m, k, n)
+        scratch = torch.empty(n_scratch, dtype=torch.uint8, device=a.device)
+        wide = _wide_params(key)
+        fn = build.load_function("approx_matmul", "approx_matmul_wide_launch",
+                                 _WIDE_ARGTYPES)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), n_scratch, bsz, m, k, n, n_bits,
+                    wide.ctypes.data, wide_decomposition(key).f00, stream)
+        build.check(rc, "approx_matmul_wide_launch")
+        closed_form_matmul.wide_launches.add((bsz, m, k, n))
+        return out
     if design == "narrow":
         a, b, out, cols, crop = blocking.narrow_operands(a, b, n_bits)
         fn = build.load_function("approx_matmul", "approx_matmul_narrow_launch",
@@ -262,6 +313,7 @@ closed_form_matmul.launches = build.LaunchCounter()         # tile design
 closed_form_matmul.narrow_launches = build.LaunchCounter()  # narrow design
 closed_form_matmul.decode_launches = build.LaunchCounter()  # decode design
 closed_form_matmul.rows_launches = build.LaunchCounter()    # rows design
+closed_form_matmul.wide_launches = build.LaunchCounter()    # wide design
 
 
 def approx_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -21,14 +21,28 @@ a *tensor* design for the exact product (:func:`tensor_design`, INT8 tensor
 cores) before it; the *rows* design (:func:`rows_design`,
 ``csrc/rows_contract.cuh``) contracts many rows as an exact int8 GEMM plus a
 few bit-monomial int8 GEMMs on the INT8 tensor cores (``kernels.monomials``);
-and the *tile* design (16×16 output tiles) takes every other shape.
+``lut_matmul``'s *gather* design (:func:`gather_design`,
+``csrc/gather_contract.cuh``) takes the tables the others refuse (entries
+beyond int16, or beyond the rows planes at M > 16) at the shapes where it
+beats the tile design (K and N wide, or few rows), the table in shared
+memory and each product one gather from it, bound by INT32 operations; ``approx_matmul``'s *wide* design (:func:`wide_design`,
+``csrc/wide_contract.cuh``) takes widths 9..16 at any shape, the closed form
+as a few dozen byte GEMMs on the INT8 tensor cores
+(``monomials.wide_planes``), bound by them. The *tile* design (16×16 output
+tiles, the generic closed form or an L2 gather per product) takes every
+shape; the wide design took all of its closed-form calls, and of its table
+calls it keeps the narrow-N ones under a table beyond int16 (the edge
+shapes), where the gather design is slower.
 :func:`narrow_matmul_plain`, :func:`decode_matmul_plain`,
-:func:`tensor_matmul_plain` and :func:`rows_matmul_plain` are the plain
-twins of the first four.
+:func:`tensor_matmul_plain`, :func:`rows_matmul_plain` and
+:func:`wide_matmul_plain` are the plain twins of the others; the gather
+design's is the table contraction itself (``lut_matmul_plain``): its
+windows split the sum by activation code, which an int32-ring sum does not
+see.
 
-The decode, tensor and rows designs take the int8 codes that ``dense``
-hands over as they are (:func:`codes8`); the narrow and tile designs take
-int32.
+The decode, tensor, rows and gather designs take the int8 codes that
+``dense`` hands over as they are (:func:`codes8`); the narrow, wide and tile
+designs take int32.
 """
 from __future__ import annotations
 
@@ -37,6 +51,9 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# the wide design's widths (WD_MIN_BITS / WD_MAX_BITS in wide_contract.cuh)
+from repro_torch.kernels.monomials import WIDE_MAX_BITS, WIDE_MIN_BITS
 
 #: elements of one (B, M, k_chunk, N) product slab in a plain contraction
 _SLAB_ELEMS = 1 << 22
@@ -66,6 +83,24 @@ TENSOR_MAX_K = 131071
 #: that fit int8 codes.
 ROWS_MIN_BITS = 3
 ROWS_MAX_BITS = 8
+#: The wide design's block tile (``WD_BM``, ``WD_BN``, ``WD_BK``): its
+#: scratch byte planes pad M and N to 128 and K to 32.
+WIDE_TILE = (128, 128, 32)
+#: Widths of the gather design (``GC_MAX_BITS`` in gather_contract.cuh),
+#: and the shared memory of one window of its table (``GC_WINDOW_BYTES``).
+GATHER_MAX_BITS = 8
+GATHER_WINDOW_BYTES = 128 << 10
+#: Where the gather design beats the tile design (``tools/gather_sweep.py``
+#: on the card): its lanes hold 4 weight columns each and every (16-row,
+#: 128-column) segment pays a fixed cost, so it needs K ≥ GATHER_MIN_K and
+#: N ≥ GATHER_MIN_N (GATHER_MIN_N_LONG_K from K ≥ GATHER_LONG_K), unless the
+#: tile design's grid has at most GATHER_TILE_STARVED 16×16 output tiles
+#: (too few to fill the card: M = 256 at N ≤ 256, decode rows).
+GATHER_MIN_K = 64
+GATHER_MIN_N = 64
+GATHER_LONG_K = 512
+GATHER_MIN_N_LONG_K = 32
+GATHER_TILE_STARVED = 256
 
 
 def _is_int(t: torch.Tensor) -> bool:
@@ -136,6 +171,58 @@ def rows_design(m: int, k: int, n: int, n_bits: int) -> bool:
             and k >= 1 and n >= 1 and not narrow_design(k, n, n_bits))
 
 
+def wide_design(m: int, k: int, n: int, n_bits: int) -> bool:
+    """Whether a (B,m,k)@(B,k,n) contraction at operand width ``n_bits``
+    runs ``approx_matmul``'s wide design on the card: widths 9..16, any
+    non-empty shape. A pure function of shape and width."""
+    return (WIDE_MIN_BITS <= n_bits <= WIDE_MAX_BITS and m >= 1 and k >= 1
+            and n >= 1)
+
+
+def gather_takes(m: int, k: int, n: int, n_bits: int) -> bool:
+    """Whether ``lut_matmul``'s gather kernel can run a (B,m,k)@(B,k,n)
+    contraction at width ``n_bits``: any non-empty shape at a table width of
+    at most 8 (a forced ``design="gather"``; :func:`gather_design` is where
+    the dispatch picks it)."""
+    return 1 <= n_bits <= GATHER_MAX_BITS and m >= 1 and k >= 1 and n >= 1
+
+
+def gather_design(m: int, k: int, n: int, n_bits: int) -> bool:
+    """Whether a (B,m,k)@(B,k,n) contraction at width ``n_bits`` can run
+    ``lut_matmul``'s gather design: a table width of at most 8 (every flat
+    table; it is the last design before the tile one, so it takes what the
+    others refuse) at a shape where it beats the tile design: K and N wide
+    enough for its segments and lanes (:data:`GATHER_MIN_K`,
+    :data:`GATHER_MIN_N`), or a tile grid too small to fill the card
+    (:data:`GATHER_TILE_STARVED`). The tile design takes the rest: narrow-N
+    contractions (the edge shapes) under a table beyond int16. A pure
+    function of shape and width."""
+    if not gather_takes(m, k, n, n_bits):
+        return False
+    min_n = GATHER_MIN_N_LONG_K if k >= GATHER_LONG_K else GATHER_MIN_N
+    tiles = -(-m // 16) * -(-n // 16)
+    return (k >= GATHER_MIN_K and n >= min_n) or tiles <= GATHER_TILE_STARVED
+
+
+def gather_window_rows(n_bits: int, entry_bytes: int) -> int:
+    """Table rows (activation codes) of one shared-memory window of the
+    gather design (``gc_window_rows``): every row where the table fits
+    ``GATHER_WINDOW_BYTES``, else as many as do (128 of an int32 table at
+    width 8, so two windows)."""
+    row = (1 << n_bits) * entry_bytes
+    return 1 << n_bits if row << n_bits <= GATHER_WINDOW_BYTES \
+        else GATHER_WINDOW_BYTES // row
+
+
+def wide_scratch_bytes(bsz: int, m: int, k: int, n: int) -> int:
+    """Bytes of the wide design's scratch (``wide_scratch_bytes``): the low
+    and high byte planes of A (B, Mp, Kp) and of the transposed weight (B,
+    Np, Kp), M and N rounded up to 128, K to 32."""
+    bm, bn, bk = WIDE_TILE
+    up = lambda x, to: -(-x // to) * to  # noqa: E731
+    return 2 * bsz * (up(m, bm) + up(n, bn)) * up(k, bk)
+
+
 def decode_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                         table16: torch.Tensor, n_bits: int) -> torch.Tensor:
     """Plain twin of the decode design on any device: (B,M,K) rows against
@@ -204,6 +291,29 @@ def rows_matmul_plain(a: torch.Tensor, b: torch.Tensor, decomp,
     return acc.to(torch.int32)
 
 
+def wide_matmul_plain(a: torch.Tensor, b: torch.Tensor, planes,
+                      n_bits: int) -> torch.Tensor:
+    """Plain twin of the wide design on any device: (B,M,K)@(B,K,N) as
+    ``Σ_p sign_p·2^shift_p·(A_p @ B_p) + K·f00`` with the planes of
+    ``planes`` (a ``kernels.monomials.WidePlanes`` of width ``n_bits``),
+    each side a byte function of the wrapped n-bit operands; summed in
+    int64, then wrapped to the int32 ring. The card has no int64 matmul:
+    there each GEMM is a float64 one, exact while its sums stay below 2^53
+    (|a plane's product| < 2^16, so for K < 2^37)."""
+    if planes.n_bits != n_bits:
+        raise ValueError(f"width-{planes.n_bits} wide planes at width {n_bits}")
+    dt = torch.int64 if a.device.type == "cpu" else torch.float64
+    xa, xb = _wrapped(a, n_bits), _wrapped(b, n_bits)
+    acc = torch.zeros((a.shape[0], a.shape[1], b.shape[2]), dtype=torch.int64,
+                      device=a.device)
+    for p in planes.planes:
+        prod = torch.matmul(p.a.value(xa, n_bits).to(dt),
+                            p.b.value(xb, n_bits).to(dt)).to(torch.int64)
+        acc += (p.sign << p.shift) * prod
+    acc += a.shape[2] * planes.f00
+    return acc.to(torch.int32)
+
+
 def narrow_matmul_plain(a: torch.Tensor, cols: torch.Tensor,
                         n_bits: int) -> torch.Tensor:
     """Plain twin of the narrow design on any device: (B,M,K) int32 rows
@@ -222,28 +332,41 @@ def narrow_matmul_plain(a: torch.Tensor, cols: torch.Tensor,
 
 #: The dispatch order of both contraction kernels; ``lut_matmul`` alone has
 #: the tensor design (the exact product at few rows), ahead of the decode
-#: design that would also take its shapes.
-DESIGN_ORDER = ("narrow", "tensor", "decode", "rows", "tile")
+#: design that would also take its shapes, and the gather design (any other
+#: table, at the shapes where it wins); ``approx_matmul`` alone has the wide
+#: design (widths 9..16). The tile design takes everything: for
+#: ``approx_matmul`` the wide design already does, so it runs only where
+#: forced; for ``lut_matmul`` it keeps the narrow-N tables beyond int16.
+DESIGN_ORDER = ("narrow", "tensor", "decode", "rows", "gather", "wide", "tile")
+_TABLE_DESIGNS = ("tensor", "gather")  # lut_matmul's alone
+_CLOSED_FORM_DESIGNS = ("wide",)  # approx_matmul's alone
 
 
 def eligible_designs(m: int, k: int, n: int, n_bits: int,
-                     table_checks: "dict | None" = None) -> dict:
+                     table_checks: "dict | None" = None,
+                     forced: "str | None" = None) -> dict:
     """Design name → whether it takes a (B,m,k)@(B,k,n) contraction at
     width ``n_bits``, in :data:`DESIGN_ORDER`, the tile design taking
     everything. ``table_checks`` (``lut_matmul``): design name → a callable
     that checks the product table for that design, called only where the
-    shape fits (a check may synchronise once per table version); without it
-    the tensor design is left out (``approx_matmul``). A pure function of
-    shape and width, and of the table's checks."""
+    shape fits (a check may synchronise once per table version); with it the
+    wide design is left out, without it (``approx_matmul``) the tensor and
+    gather designs. ``forced``: the design a caller names, eligible wherever
+    its kernel can run (the gather design at any shape, though the dispatch
+    picks it only where it beats the tile design). A pure function of shape
+    and width, and of the table's checks."""
     shape = {"narrow": narrow_design(k, n, n_bits),
              "tensor": tensor_design(m, k, n, n_bits),
              "decode": decode_design(m, k, n, n_bits),
              "rows": rows_design(m, k, n, n_bits),
+             "gather": (gather_takes if forced == "gather" else gather_design)(
+                 m, k, n, n_bits),
+             "wide": wide_design(m, k, n, n_bits),
              "tile": True}
     checks = table_checks or {}
+    left_out = _CLOSED_FORM_DESIGNS if table_checks is not None else _TABLE_DESIGNS
     return {name: shape[name] and (name not in checks or bool(checks[name]()))
-            for name in DESIGN_ORDER
-            if name != "tensor" or table_checks is not None}
+            for name in DESIGN_ORDER if name not in left_out}
 
 
 def resolve_design(design: "str | None", eligible: dict, kernel: str,

@@ -40,7 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOAD_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_CONST_LOCK = threading.Lock()
+# reentrant: a maker may itself build a constant (the rows planes of a key
+# take apart its product table, which is one)
+_CONST_LOCK = threading.RLock()
 _CONSTS: Dict[tuple, torch.Tensor] = {}
 
 

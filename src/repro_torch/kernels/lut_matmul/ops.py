@@ -25,24 +25,34 @@ out-of-range ints to their low N bits; the sum is exact in the int32 ring.
   3..8, a table that :func:`rows_decomposition` takes apart into at most
   ``monomials.MAX_PLANES`` bit-monomial planes: every product table of a
   CSP wiring, and ``exact`` with none) runs an exact int8 GEMM plus those
-  planes on the INT8 tensor cores; the *tile* design (16×16 output tiles,
-  the batch as grid z) takes every other shape and table. A table not from
+  planes on the INT8 tensor cores; the *gather* design takes every other
+  table (entries beyond int16, or an int16 table beyond the rows planes at
+  M > 16; no served path) at the shapes where it beats the tile design
+  (``blocking.gather_design``): the table in shared memory (its int16
+  twin, else the int32 table in row windows of 128 KiB, two at width 8),
+  one gather per product, each weight code read once per 16-row tile. The
+  *tile* design (16×16 output tiles, an L2 gather per product) keeps the
+  rest, narrow N at many rows under a table beyond int16 (the edge
+  contraction), and is the forced ``_launch(..., design="tile")``. A
+  table not from
   :func:`device_table` is checked once per tensor version (int16 range,
-  exact product, planes), which synchronises. The tensor, decode and rows
-  designs take the int8 codes ``dense`` hands over without a copy. A narrow
-  batch that is not 16-byte aligned is copied first, as in
+  exact product, planes), which synchronises. The tensor, decode, rows and
+  gather designs take the int8 codes ``dense`` hands over without a copy.
+  A narrow batch that is not 16-byte aligned is copied first, as in
   ``kernels.approx_matmul``;
 * a CPU tensor runs :func:`lut_matmul_plain`, k walked in slabs.
 
 ``lut_matmul.launches`` counts tile launches, ``.narrow_launches``,
-``.tensor_launches``, ``.decode_launches`` and ``.rows_launches`` those of
-the other designs, each also by its ``(B, M, K, N)`` (``.by_shape()``).
-Plain twins: :func:`table_columns` with
+``.tensor_launches``, ``.decode_launches``, ``.rows_launches`` and
+``.gather_launches`` those of the other designs, each also by its ``(B, M,
+K, N)`` (``.by_shape()``). Plain twins: :func:`table_columns` with
 :func:`~repro_torch.kernels.blocking.narrow_matmul_plain` (narrow),
 :func:`~repro_torch.kernels.blocking.tensor_matmul_plain` (tensor),
 :func:`table16` with :func:`~repro_torch.kernels.blocking.decode_matmul_plain`
 (decode), :func:`rows_decomposition` with
-:func:`~repro_torch.kernels.blocking.rows_matmul_plain` (rows).
+:func:`~repro_torch.kernels.blocking.rows_matmul_plain` (rows),
+:func:`lut_matmul_plain` itself (gather: its windows split the sum by
+activation code, which the int32 ring does not see).
 
 The table must lie on the operands' device: :func:`device_table` keeps one
 per (wiring, device), uploaded once, so no call copies a table.
@@ -80,6 +90,9 @@ _ROWS_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p)
+_GATHER_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 _INT16 = (-(1 << 15), (1 << 15) - 1)
 
 
@@ -180,6 +193,13 @@ def table16(table: torch.Tensor) -> torch.Tensor:
     return t16
 
 
+def gather_table(table: torch.Tensor) -> torch.Tensor:
+    """The table the gather design keeps in shared memory: its int16 twin
+    (:func:`table16`) where every entry fits int16, else the int32 table
+    itself (read in row windows)."""
+    return table16(table) if _fits_int16(table) else table
+
+
 def table_columns(b: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """The narrow design's product columns, plain, on any device: (B,K,N)
     coefficients → (B,K,N,2^n) int32 with ``[z,k,j,x] = table[x << n |
@@ -220,23 +240,26 @@ def table_checks(table: torch.Tensor) -> dict:
     """What each design needs of the table, for
     :func:`~repro_torch.kernels.blocking.eligible_designs`: entries within
     int16 (narrow, decode), the exact product of 8-bit codes (tensor), at
-    most ``monomials.MAX_PLANES`` int8 planes (rows)."""
+    most ``monomials.MAX_PLANES`` int8 planes (rows), a width the gather
+    design's windows take (gather: every flat table of width ≤ 8)."""
     return {"narrow": lambda: _fits_int16(table),
             "tensor": lambda: _is_exact(table),
             "decode": lambda: _fits_int16(table),
-            "rows": lambda: rows_decomposition(table) is not None}
+            "rows": lambda: rows_decomposition(table) is not None,
+            "gather": lambda: table_width(table.numel()) <= blocking.GATHER_MAX_BITS}
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
             n_bits: int, design: "str | None" = None) -> torch.Tensor:
     """Launch the kernel of ``design`` (``"narrow"``, ``"tensor"``,
-    ``"decode"``, ``"rows"`` or ``"tile"``; None: the first of them that
-    takes the shape, width and table) on CUDA (B,M,K)@(B,K,N) integer
-    operands."""
+    ``"decode"``, ``"rows"``, ``"gather"`` or ``"tile"``; None: the first of
+    them that takes the shape, width and table) on CUDA (B,M,K)@(B,K,N)
+    integer operands."""
     bsz, m, k = a.shape
     n = b.shape[2]
     design = blocking.resolve_design(
-        design, blocking.eligible_designs(m, k, n, n_bits, table_checks(table)),
+        design, blocking.eligible_designs(m, k, n, n_bits, table_checks(table),
+                                          forced=design),
         "lut_matmul", f"M={m}, K={k}, N={n} at width {n_bits}, or a table "
         "beyond int16 (the tensor design: a table that is not the exact "
         "product; the rows design: one beyond its int8 planes)")
@@ -265,6 +288,20 @@ def _launch(a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
         counter = (lut_matmul.tensor_launches if design == "tensor"
                    else lut_matmul.decode_launches)
         counter.add((bsz, m, k, n))
+        return out
+    if design == "gather":
+        a8 = blocking.codes8(a).contiguous()
+        b8 = blocking.codes8(b).contiguous()
+        t = gather_table(table)
+        out = torch.empty((bsz, m, n), dtype=torch.int32, device=a.device)
+        fn = build.load_function("lut_matmul", "lut_matmul_gather_launch",
+                                 _GATHER_ARGTYPES)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            rc = fn(a8.data_ptr(), b8.data_ptr(), t.data_ptr(), t.element_size(),
+                    out.data_ptr(), bsz, m, k, n, n_bits, stream)
+        build.check(rc, "lut_matmul_gather_launch")
+        lut_matmul.gather_launches.add((bsz, m, k, n))
         return out
     if design == "rows":
         a8 = blocking.codes8(a).contiguous()
@@ -340,3 +377,4 @@ lut_matmul.narrow_launches = build.LaunchCounter()  # narrow design
 lut_matmul.tensor_launches = build.LaunchCounter()  # tensor design
 lut_matmul.decode_launches = build.LaunchCounter()  # decode design
 lut_matmul.rows_launches = build.LaunchCounter()    # rows design
+lut_matmul.gather_launches = build.LaunchCounter()  # gather design

@@ -137,7 +137,8 @@ def test_kernelbench_sweeps_the_registry_once_and_every_design(tmp_path_factory)
     eligible = [d for d, ok in blocking.eligible_designs(32, 32, 32, 8).items()
                 if ok]
     assert designs == [("closed_form_matmul", "tile"), ("closed_form_matmul", "rows"),
-                       ("lut_matmul", "tile"), ("lut_matmul", "rows")]
+                       ("lut_matmul", "tile"), ("lut_matmul", "rows"),
+                       ("lut_matmul", "gather")]
     assert eligible == ["rows", "tile"]
     assert all(r["equal_to_tile"] for r in payload["records"]
                if r["section"] == "designs")

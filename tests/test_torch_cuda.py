@@ -881,11 +881,11 @@ def test_rows_forced_where_it_cannot_take_raises(dev):
     assert lm.rows_decomposition(noise) is None
     with pytest.raises(ValueError, match="rows design does not take"):
         lm._launch(a17, w, noise, 8, design="rows")
-    before = lut_matmul.launches.value
+    before = lut_matmul.gather_launches.value
     torch.testing.assert_close(lut_matmul(a17, w, noise),
                                lut_matmul_plain(a17.cpu(), w.cpu(), noise.cpu()).to(dev),
                                rtol=0, atol=0)
-    assert lut_matmul.launches.value == before + 1  # the tile design
+    assert lut_matmul.gather_launches.value == before + 1  # the gather design
     planes = am._rows_planes("proposed@8", dev)
     out = torch.empty((1, 17, 64), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
@@ -1281,3 +1281,122 @@ def test_recurrent_training_on_the_card_kernels_equal_the_table(dev, tmp_path, a
     assert losses_k == losses_t and all(np.isfinite(losses_k))
     for k in pk:
         assert torch.equal(pk[k], pt[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the wide and gather designs: what the tile designs took before them
+# ---------------------------------------------------------------------------
+
+#: (B, M, K, N): a single product, ragged M, K and N, a decode step's few
+#: rows, several 128-row tiles, a K tail inside a 32-row chunk
+FALLBACK_SHAPES = [(1, 1, 1, 1), (2, 33, 70, 17), (1, 8, 300, 200),
+                   (1, 130, 64, 129), (3, 17, 33, 9), (1, 256, 512, 384)]
+WIDE_KEYS = ("proposed@9", "proposed@12", "proposed@16", "design_akbari2017@16",
+             "design_strollo2020@13", "trunc_exact_csp@11")
+
+
+def _fallback_tables(dev) -> dict:
+    """Tables only the gather design takes: beyond int16 (width 8: two
+    windows; widths 7 and 4: whole), and an int16 one beyond the rows
+    planes."""
+    rng = np.random.default_rng(28)
+    tables = {"noise": rng.integers(-2**20, 2**20, 1 << 16),
+              "int16": rng.integers(-2**15, 2**15, 1 << 16),
+              "int32@7": rng.integers(-2**31, 2**31, 1 << 14, dtype=np.int64),
+              "int32@4": rng.integers(-2**31, 2**31, 1 << 8, dtype=np.int64)}
+    return {k: torch.from_numpy(v.astype(np.int32)).to(dev) for k, v in tables.items()}
+
+
+@pytest.mark.parametrize("shape", FALLBACK_SHAPES)
+def test_wide_design_vs_plain_and_tile(dev, shape):
+    """Operands anywhere in int32 (they wrap to the width): the public call
+    takes the wide design, equal to its plain twin, the plain closed form
+    and the tile design, every integer."""
+    bsz, m, k, n = shape
+    a = torch.from_numpy(RNG.integers(-2**31, 2**31, (bsz, m, k), dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    w = torch.from_numpy(RNG.integers(-2**31, 2**31, (bsz, k, n), dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    for key in WIDE_KEYS:
+        n_bits = mult.split_width(key)[1]
+        got = _launched(closed_form_matmul.wide_launches,
+                        lambda: closed_form_matmul(a, w, key))
+        torch.testing.assert_close(got, blocking.wide_matmul_plain(
+            a, w, am.wide_decomposition(key), n_bits), rtol=0, atol=0)
+        torch.testing.assert_close(got, closed_form_matmul_plain(a, w, key),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(got, am._launch(a, w, key, design="tile"),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", FALLBACK_SHAPES)
+def test_gather_design_vs_plain_and_tile(dev, shape):
+    """int8 codes against every fallback table: the gather design (public
+    where it is the design the call takes, forced where the decode design
+    takes the int16 table) equal to its plain version and the tile
+    design."""
+    bsz, m, k, n = shape
+    a, w = _codes((bsz, m, k)).to(dev), _codes((bsz, k, n)).to(dev)
+    for name, t in _fallback_tables(dev).items():
+        n_bits = lm.table_width(t.numel())
+        served = blocking.resolve_design(None, blocking.eligible_designs(
+            m, k, n, n_bits, lm.table_checks(t)), "lut_matmul", "")
+        assert served == "gather" or (name == "int16" and served in ("decode", "narrow"))
+        run = (lambda: lut_matmul(a, w, t)) if served == "gather" else (
+            lambda: lm._launch(a, w, t, n_bits, design="gather"))
+        got = _launched(lut_matmul.gather_launches, run)
+        torch.testing.assert_close(got, lut_matmul_plain(a.int(), w.int(), t),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(got, lm._launch(a, w, t, n_bits, design="tile"),
+                                   rtol=0, atol=0)
+
+
+def test_narrow_n_under_a_wide_table_keeps_the_tile_design(dev):
+    """Narrow N at many rows under a table beyond int16 (the edge shapes):
+    the dispatch keeps the tile design, where the gather design is slower;
+    both equal the plain version."""
+    t = _fallback_tables(dev)["noise"]
+    a, w = _codes((1, 4097, 9)).to(dev), _codes((1, 9, 1)).to(dev)
+    assert not blocking.gather_design(4097, 9, 1, 8)
+    got = _launched(lut_matmul.launches, lambda: lut_matmul(a, w, t))
+    torch.testing.assert_close(got, lut_matmul_plain(a.int(), w.int(), t),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got, lm._launch(a, w, t, 8, design="gather"),
+                               rtol=0, atol=0)
+
+
+def test_wide_and_gather_entry_points_refuse_a_bad_contract(dev):
+    """No fallback: the wide design refuses widths up to 8, and both C entry
+    points refuse a contract they cannot keep."""
+    from repro_torch.kernels import build
+
+    a, w = _codes((1, 17, 64)).to(dev).int(), _codes((1, 64, 64)).to(dev).int()
+    with pytest.raises(ValueError, match="wide design does not take"):
+        am._launch(a, w, "proposed@8", design="wide")
+    out = torch.empty((1, 17, 64), dtype=torch.int32, device=dev)
+    need = blocking.wide_scratch_bytes(1, 17, 64, 64)
+    scratch = torch.empty(need + 16, dtype=torch.uint8, device=dev)
+    params = am._wide_params("proposed@12")
+    stream = torch.cuda.current_stream().cuda_stream
+    wide = build.load_function("approx_matmul", "approx_matmul_wide_launch",
+                               am._WIDE_ARGTYPES)
+    args = (a.data_ptr(), w.data_ptr(), out.data_ptr())
+    assert wide(*args, scratch.data_ptr(), need - 1, 1, 17, 64, 64, 12,
+                params.ctypes.data, 0, stream) == 1  # scratch too small
+    assert wide(*args, scratch.data_ptr() + 8, need, 1, 17, 64, 64, 12,
+                params.ctypes.data, 0, stream) != 0  # misaligned scratch
+    assert wide(*args, scratch.data_ptr(), need, 1, 17, 64, 64, 8,
+                params.ctypes.data, 0, stream) == 1  # width 8
+    bad = params.copy()
+    bad[0] = 65  # planes beyond the kernel's 64
+    assert wide(*args, scratch.data_ptr(), need, 1, 17, 64, 64, 12,
+                bad.ctypes.data, 0, stream) == 1
+    gather = build.load_function("lut_matmul", "lut_matmul_gather_launch",
+                                 lm._GATHER_ARGTYPES)
+    t = device_table("proposed", dev)
+    a8, w8 = _codes((1, 17, 64)).to(dev), _codes((1, 64, 64)).to(dev)
+    assert gather(a8.data_ptr(), w8.data_ptr(), t.data_ptr(), 3, out.data_ptr(),
+                  1, 17, 64, 64, 8, stream) == 1  # 3-byte entries
+    assert gather(a8.data_ptr(), w8.data_ptr(), t.data_ptr() + 4, 4, out.data_ptr(),
+                  1, 17, 64, 64, 8, stream) != 0  # misaligned table
+    torch.cuda.synchronize()

@@ -169,7 +169,7 @@ def test_design_argument_is_checked_before_any_launch():
         am._launch(a, b, "proposed@8", design="narrow")
     with pytest.raises(ValueError, match="narrow design does not take"):
         lm._launch(a, b, lm.device_table("exact", "cpu"), 8, design="narrow")
-    with pytest.raises(ValueError, match="unknown approx_matmul design"):
+    with pytest.raises(ValueError, match="wide design does not take"):
         am._launch(a[:, :, :9], b[:, :9], "proposed@8", design="wide")
     with pytest.raises(ValueError, match="unknown lut_matmul design"):
         lm._launch(a[:, :, :9], b[:, :9], lm.device_table("exact", "cpu"), 8,
@@ -178,8 +178,8 @@ def test_design_argument_is_checked_before_any_launch():
 
 def test_table_beyond_int16_is_not_narrow():
     """A table from device_table is known to fit int16; any other table is
-    checked once per tensor version, and one that does not fit keeps the
-    tile design."""
+    checked once per tensor version, and one that does not fit goes to the
+    gather design."""
     t = lm.device_table("exact", "cpu")
     assert lm._fits_int16(t)
     big = t * 4  # 16384 * 4 is no int16

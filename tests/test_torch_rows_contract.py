@@ -228,7 +228,7 @@ def test_rows_twin_refuses_another_width():
 
 def test_decompose_refuses_what_it_cannot_take():
     """A table whose factors reach beyond the int8 planes, and one of the
-    wrong length; the tile design takes such tables."""
+    wrong length; the gather design takes such tables."""
     noise = RNG.integers(-2**20, 2**20, 1 << 16).astype(np.int32)
     with pytest.raises(ValueError, match="beyond int8 planes"):
         monomials.decompose(noise)
@@ -260,16 +260,17 @@ def test_rows_design_thresholds(m, k, n, n_bits, rows):
 
 @pytest.mark.parametrize("m,k,n,key,design", [
     (256, 4096, 4096, "proposed@8", "rows"), (8, 4096, 4096, "proposed@8", "decode"),
-    (256, 9, 1, "proposed@8", "narrow"), (256, 4096, 4096, "proposed@12", "tile"),
+    (256, 9, 1, "proposed@8", "narrow"), (256, 4096, 4096, "proposed@12", "wide"),
     (16, 64, 64, "csp_axc1@6", "decode"), (17, 64, 64, "csp_axc1@6", "rows"),
     (256, 4096, 4096, "exact", "rows"), (8, 4096, 4096, "exact", "tensor"),
     (8, 4096, 4096, "exact@6", "decode"), (256, 9, 1, "exact", "narrow"),
-    (256, 64, 64, "exact@6", "rows"), (256, 64, 64, "noise", "tile"),
-    (8, 64, 64, "noise", "tile"),
+    (256, 64, 64, "exact@6", "rows"), (256, 64, 64, "noise", "gather"),
+    (8, 64, 64, "noise", "gather"),
 ])
 def test_dispatch_order(m, k, n, key, design):
-    """narrow → (lut_matmul: tensor) → decode → rows → tile, a pure function
-    of shape and width (and of the table's checks for lut_matmul)."""
+    """narrow → (lut_matmul: tensor) → decode → rows → (lut_matmul: gather;
+    approx_matmul: wide) → tile, a pure function of shape and width (and of
+    the table's checks for lut_matmul)."""
     noise = _t(RNG.integers(-2**20, 2**20, 1 << 16).astype(np.int32))
     if key == "noise" or key.startswith("exact"):
         table = noise if key == "noise" else lm.device_table(key, "cpu")
@@ -288,6 +289,34 @@ def test_dispatch_order(m, k, n, key, design):
     if design != "rows":
         with pytest.raises(ValueError, match="rows design does not take"):
             blocking.resolve_design("rows", eligible, "kernel", "the shape")
+
+
+def test_rows_planes_build_on_a_cold_cache():
+    """The rows planes of a key whose product table was never built: the
+    planes take the table apart, which builds the table, a constant of its
+    own. With non-reentrant locks held across the makers this deadlocked
+    (a card's first rows launch of a key); here it must finish, on a
+    thread so that a deadlock fails the test instead of hanging it."""
+    import threading
+
+    from repro_torch.kernels import build
+
+    key = "design_strollo2020@5"
+    for k in [k for k in build._CONSTS if k[0] in (("cf_rows", key), ("cf_table16", key))]:
+        del build._CONSTS[k]
+    monomials._CACHE.pop(("closed_form", key), None)
+    got = {}
+    t = threading.Thread(target=lambda: got.update(
+        planes=am._rows_planes(key, "cpu")), daemon=True)
+    t.start()
+    t.join(120)
+    assert not t.is_alive(), "the rows planes deadlocked"
+    np.testing.assert_array_equal(got["planes"].numpy(), monomials.device_planes(
+        monomials.decompose(am.closed_form_table16(key, "cpu").numpy())))
+    # a constant whose maker builds another
+    outer = build.device_constant(("nested", key), "cpu", lambda: build.device_constant(
+        ("nested_inner", key), "cpu", lambda: np.arange(3)).numpy() + 1)
+    np.testing.assert_array_equal(outer.numpy(), [1, 2, 3])
 
 
 def test_device_table_marks_the_planes_without_a_sync():
