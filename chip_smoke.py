@@ -21,14 +21,16 @@ the rows design's planes their wide and gather designs (the tile designs,
 which took them before, must launch 0 times). The 512×512 set is served once
 more under uniform ``approx_cuda:exact``. The fused conv's stencil design
 must be the only one the uniform paths launch (both product kinds); its
-generic design runs on
-the paths that take it (the closed form at width 12, a 7×7 kernel). Both
-designs of the fused conv and of the contraction kernels are checked and
-timed at the shapes the served paths give them. The edge model of QAT
-(``train.qat.finetune_edge``) fine-tunes 120 steps on the 512×512 set under
-the same plan: its maps at init equal the served planned maps byte for
-byte, its forward launches only the narrow designs, and its PSNR after is
-no worse than before (phase ``edge_qat_path``).
+tiled design runs on the paths that take it (the closed form at widths 12
+and 16, a 7×7 kernel in both kinds), where the generic design, which took
+them before, must launch 0 times. Every design of the fused conv and of the
+contraction kernels is checked and timed at the shapes the served paths
+give them; the tiled design beside the generic one at (8, 1088, 1920) at
+widths 12 and 16 and under 7×7 kernels (phase ``fused_conv_tiled``). The
+edge model of QAT (``train.qat.finetune_edge``) fine-tunes 120 steps on the
+512×512 set under the same plan: its maps at init equal the served planned
+maps byte for byte, its forward launches only the narrow designs, and its
+PSNR after is no worse than before (phase ``edge_qat_path``).
 
 Then the LM path: minitron-8b at its published widths. At the dense
 layers' four (K, N) shapes and M = 8 (a decode step at batch 8) the decode
@@ -463,6 +465,8 @@ from repro_torch.kernels.fused_conv.ops import fused_conv2d as fc
 from repro_torch.kernels.lut_matmul.ops import lut_matmul as lm
 counters = {"fused_conv_closed_form": fc.launches, "fused_conv_lut": fc.lut_launches,
             "fused_conv_stencil": fc.stencil_launches,
+            "fused_conv_tiled": fc.tiled_launches,
+            "fused_conv_generic": fc.generic_launches,
             "closed_form_tile": cf.launches, "closed_form_narrow": cf.narrow_launches,
             "closed_form_decode": cf.decode_launches, "closed_form_rows": cf.rows_launches,
             "closed_form_wide": cf.wide_launches,
@@ -2681,6 +2685,8 @@ def launch_counters() -> dict:
             "fused_conv_closed_form": fc.launches,
             "fused_conv_lut": fc.lut_launches,
             "fused_conv_stencil": fc.stencil_launches,
+            "fused_conv_tiled": fc.tiled_launches,
+            "fused_conv_generic": fc.generic_launches,
             "approx_mul": approx_mul.launches}
 
 
@@ -3220,7 +3226,7 @@ def bench_headline(drv_out: Path) -> dict:
 
 def row_launches(row: dict, by_shape: dict):
     """The launches in ``by_shape`` (counter → "BxMxKxN" → n) at a kernels
-    row's own kernel, kind, design and shape. The stencil counter spans both
+    row's own kernel, kind, design and shape. A design's counter spans both
     product kinds, so a fused conv row gets its kind's launches at its shape
     where every launch there took one design, and None where they were
     mixed."""
@@ -3229,11 +3235,11 @@ def row_launches(row: dict, by_shape: dict):
         return by_shape.get("approx_mul", {}).get(at, 0)
     if row["name"].startswith("fused_conv2d"):
         n_kind = by_shape.get(f"fused_conv_{row['kind']}", {}).get(at, 0)
-        n_stencil = by_shape.get("fused_conv_stencil", {}).get(at, 0)
+        n_design = by_shape.get(f"fused_conv_{row['design']}", {}).get(at, 0)
         n_both = sum(by_shape.get(f"fused_conv_{k}", {}).get(at, 0)
                      for k in ("closed_form", "lut"))
-        if n_stencil in (0, n_both):
-            return n_kind if (n_stencil > 0) == (row["design"] == "stencil") else 0
+        if n_design in (0, n_both):
+            return n_kind if n_design > 0 else 0
         return None
     kind = "lut" if row["name"].startswith("lut") else "closed_form"
     return by_shape.get(f"{kind}_{row['design']}", {}).get(at, 0)
@@ -3248,7 +3254,7 @@ def drivers_shape_checks(by_shape: dict, dev,
     through the private ``_launch(..., design=)`` under proposed@8 (the
     tensor design: the exact table, the only one it takes); the fused conv
     in each product kind the drivers launched at that shape, in each design
-    they launched there (the stencil counter spans both kinds), on random
+    they launched there (the design counters span both kinds), on random
     (kh, kw) taps; ``approx_mul`` on random int8-range operands."""
     from repro_torch.kernels.approx_matmul import ops as am
     from repro_torch.kernels.approx_mul.ops import approx_mul, approx_mul_plain
@@ -3284,14 +3290,11 @@ def drivers_shape_checks(by_shape: dict, dev,
                 bsz, h, w, kh, kw = shape
                 x = codes((bsz, h, w), np.int32)
                 taps = tuple(map(tuple, rng.integers(-128, 128, (kh, kw)).tolist()))
-                n_stencil = by_shape.get("fused_conv_stencil", {}).get(s, 0)
-                n_both = sum(by_shape.get(f"fused_conv_{k_}", {}).get(s, 0)
-                             for k_ in ("closed_form", "lut"))
                 want = fc.fused_conv2d_plain(x, taps, "proposed@8", kind)
-                for design in (["stencil"] if n_stencil else []) + (
-                        ["generic"] if n_both > n_stencil else []):
-                    pairs.append((design, fc._launch(x, taps, "proposed@8", kind,
-                                                     design=design), want))
+                for design in ("stencil", "tiled", "generic"):
+                    if by_shape.get(f"fused_conv_{design}", {}).get(s, 0):
+                        pairs.append((design, fc._launch(x, taps, "proposed@8", kind,
+                                                         design=design), want))
             elif counter == "approx_mul":
                 x, y = codes(shape, np.int32), codes(shape, np.int32)
                 pairs.append(("elementwise", approx_mul(x, y), approx_mul_plain(x, y)))
@@ -3678,7 +3681,9 @@ def main() -> int:
     from repro_torch.kernels.fused_conv.ops import (fused_conv2d,
                                                     fused_conv2d_plain,
                                                     fused_conv_columns,
-                                                    stencil_conv_plain)
+                                                    stencil_conv_plain,
+                                                    tiled_conv_plain,
+                                                    tiled_products)
     from repro_torch.kernels.lut_matmul import ops as lm
     from repro_torch.kernels.lut_matmul.ops import (device_table, lut_matmul,
                                                     lut_matmul_plain)
@@ -3729,38 +3734,50 @@ def main() -> int:
     lap = conv.LAPLACIAN
     taps_lap = tuple(tuple(int(c) for c in row) for row in lap)
     k5 = rng.integers(-8, 9, (5, 5)).astype(np.int32)
+    k7 = rng.integers(-100, 100, (7, 7)).astype(np.int32)
     # W % 4 != 0 at 47, 129 and 70 (the stencil design's scalar path), a
-    # 5x5 kernel, and proposed@12, which only the generic design takes
+    # 5x5 kernel, proposed@12 and @16 and 7x7 kernels, which the tiled
+    # design takes
     conv_cases = [((8, 1088, 1920), lap, "proposed"),
                   ((3, 33, 47), lap, "proposed"),
                   ((5, 17, 129), lap, "proposed"),
                   ((2, 40, 70), k5, "proposed"),
                   ((3, 33, 47), lap, "design_strollo2020@4"),
                   ((3, 33, 47), lap, "csp_axc5@4"),
-                  ((2, 37, 70), lap, "proposed@12")]
-    errs = {"fused_conv[stencil]": 0, "fused_conv[generic]": 0,
-            "approx_matmul": 0}
+                  ((2, 37, 70), lap, "proposed@12"),
+                  ((3, 33, 47), lap, "proposed@16"),
+                  ((2, 40, 70), k7, "proposed"),
+                  ((3, 33, 47), k7, "proposed@12")]
+    errs = {"fused_conv[stencil]": 0, "fused_conv[tiled]": 0,
+            "fused_conv[generic]": 0, "approx_matmul": 0}
 
     def conv_designs(x, kern, key: str, kind: str) -> dict:
-        """Both designs of one product kind at one shape: the public entry
-        point (the stencil design wherever it takes the shape) and the
-        stencil design against its plain twin, the generic design (private
-        ``design=``) against fused_conv2d_plain; each error in the int32
-        ring."""
+        """Every design of one product kind at one shape: the public entry
+        point (the stencil design wherever it takes the shape, else the
+        tiled design) against its plain twin; the tiled design (private
+        ``design=`` where the stencil takes the shape) against its twin and
+        fused_conv2d_plain, the generic design against fused_conv2d_plain;
+        each error in the int32 ring."""
         key = mult.canonical_key(key)
         n = mult.split_width(key)[1]
         taps = tuple(tuple(int(c) for c in row) for row in kern)
+        kh, kw = np.shape(kern)
         plain = fused_conv2d_plain(x, taps, key, kind)
+        slots, prod, src = tiled_products(taps, key, kind, dev)
+        tiled_twin = tiled_conv_plain(x, slots, prod, n, kh, kw, src)
+        tiled = fc._launch(x, taps, key, kind, design="tiled")
         err = {"generic": max_abs_err(
-            fc._launch(x, taps, key, kind, design="generic"), plain)}
+                   fc._launch(x, taps, key, kind, design="generic"), plain),
+               "tiled": max(max_abs_err(tiled, tiled_twin), max_abs_err(tiled, plain))}
         public = fused_conv2d(x, kern, key, kernel_kind=kind)
-        if fc.conv_design(taps, key) == "stencil":
+        design = fc.conv_design(taps, key)
+        if design == "stencil":
             slots, cols = fused_conv_columns(taps, key, kind, dev)
-            twin = stencil_conv_plain(x, slots, cols, n, *np.shape(kern))
+            twin = stencil_conv_plain(x, slots, cols, n, kh, kw)
             err["stencil"] = max(max_abs_err(public, twin),
                                  max_abs_err(public, plain))
         else:
-            err["generic"] = max(err["generic"], max_abs_err(public, plain))
+            err[design] = max(err[design], max_abs_err(public, plain))
         torch.cuda.synchronize()
         return err
 
@@ -3790,7 +3807,8 @@ def main() -> int:
 
     # -- 4b. the LUT kernels and approx_mul vs plain (every check exact) ----
     lut_errs = {"lut_matmul": 0, "fused_conv_lut[stencil]": 0,
-                "fused_conv_lut[generic]": 0, "approx_mul": 0}
+                "fused_conv_lut[tiled]": 0, "fused_conv_lut[generic]": 0,
+                "approx_mul": 0}
     pairs = 0
     for name in sorted(mult.WIRINGS) + ["exact"]:
         key = f"{name}@4"
@@ -3898,6 +3916,8 @@ def main() -> int:
         torch.cuda.synchronize()
         for counter in (fused_conv2d.launches, fused_conv2d.lut_launches,
                         fused_conv2d.stencil_launches,
+                        fused_conv2d.tiled_launches,
+                        fused_conv2d.generic_launches,
                         closed_form_matmul.launches,
                         closed_form_matmul.narrow_launches,
                         closed_form_matmul.rows_launches):
@@ -3914,11 +3934,12 @@ def main() -> int:
         im2col_raw = conv.conv2d_batched(conv.to_signed_pixels(tile_dev, 8),
                                          lap, s, fused=False)
         torch.cuda.synchronize()
-        # every fused launch here is the closed-form kind; those that are
-        # not stencil launches are the generic design's
+        # every fused launch here is the closed-form kind, each the stencil
+        # design's
         launches = {"fused_conv_stencil": fused_conv2d.stencil_launches.value,
-                    "fused_conv_generic": fused_conv2d.launches.value
-                        - fused_conv2d.stencil_launches.value,
+                    "fused_conv_tiled": fused_conv2d.tiled_launches.value,
+                    "fused_conv_generic": fused_conv2d.generic_launches.value,
+                    "fused_conv_closed_form": fused_conv2d.launches.value,
                     "fused_conv_lut": fused_conv2d.lut_launches.value,
                     "approx_matmul": closed_form_matmul.launches.value,
                     "approx_matmul_narrow":
@@ -3938,7 +3959,8 @@ def main() -> int:
     # the fused conv runs only its stencil design; the im2col batch is
     # (B*H*W x 9) @ (9 x 1): the narrow design
     require(launches["fused_conv_stencil"] > 0
-            and launches["fused_conv_generic"] == 0
+            and launches["fused_conv_stencil"] == launches["fused_conv_closed_form"]
+            and launches["fused_conv_tiled"] == launches["fused_conv_generic"] == 0
             and launches["fused_conv_lut"] == 0
             and launches["approx_matmul_narrow"] > 0
             and launches["approx_matmul"] == launches["approx_matmul_rows"] == 0,
@@ -4109,18 +4131,21 @@ def main() -> int:
         svc.detect(tiles[:8])  # warm-up
         torch.cuda.synchronize()
         for counter in (fused_conv2d.launches, fused_conv2d.lut_launches,
-                        fused_conv2d.stencil_launches):
+                        fused_conv2d.stencil_launches, fused_conv2d.tiled_launches,
+                        fused_conv2d.generic_launches):
             counter.reset()
         e_served = svc.detect(tiles, timeout=300.0)
         torch.cuda.synchronize()
         e_launches = {"fused_conv2d_lut_stencil": fused_conv2d.stencil_launches.value,
-                      "fused_conv2d_lut_generic": fused_conv2d.lut_launches.value
-                          - fused_conv2d.stencil_launches.value,
+                      "fused_conv2d_lut": fused_conv2d.lut_launches.value,
+                      "fused_conv2d_tiled": fused_conv2d.tiled_launches.value,
+                      "fused_conv2d_generic": fused_conv2d.generic_launches.value,
                       "fused_conv2d": fused_conv2d.launches.value}
     finally:
         svc.close()
     require(e_launches["fused_conv2d_lut_stencil"] > 0
-            and e_launches["fused_conv2d_lut_generic"] == 0
+            and e_launches["fused_conv2d_lut_stencil"] == e_launches["fused_conv2d_lut"]
+            and e_launches["fused_conv2d_tiled"] == e_launches["fused_conv2d_generic"] == 0
             and e_launches["fused_conv2d"] == 0,
             f"uniform exact: fused launches {e_launches}")
     require(np.array_equal(np.stack(e_served), exact),
@@ -4128,37 +4153,51 @@ def main() -> int:
     emit("uniform_exact_path", images=len(tiles), launches=e_launches,
          byte_identical=True)
 
-    # the fused conv's generic design, on the paths that take it: the closed
-    # form at width 12 (fused_conv2d serves widths to 16) and a 7x7 kernel,
-    # beyond the stencil design's 5x5, through conv2d_batched in both kinds
-    k7 = rng.integers(-100, 100, (7, 7)).astype(np.int32)
-    taps_k7 = tuple(tuple(int(c) for c in row) for row in k7)
-    for counter in (fused_conv2d.launches, fused_conv2d.lut_launches,
-                    fused_conv2d.stencil_launches):
+    # the fused conv's tiled design, on the paths that take it: the closed
+    # form at widths 12 and 16 (fused_conv2d serves widths to 16) and a 7x7
+    # kernel, beyond the stencil design's 5x5, through conv2d_batched in both
+    # kinds; each map held to fused_conv2d_plain and to the tiled twin on the
+    # product data the kernel read; the generic design, which took these
+    # before, launches 0 times
+    t_generic = time.perf_counter()
+    g_counters = {"fused_conv2d": fused_conv2d.launches,
+                  "fused_conv2d_lut": fused_conv2d.lut_launches,
+                  "fused_conv2d_stencil": fused_conv2d.stencil_launches,
+                  "fused_conv2d_tiled": fused_conv2d.tiled_launches,
+                  "fused_conv2d_generic": fused_conv2d.generic_launches}
+    g_cases = {"proposed@12 3x3": ("proposed@12", lap, "closed_form", None),
+               "proposed@16 3x3": ("proposed@16", lap, "closed_form", None),
+               "proposed 7x7": ("proposed", k7, "closed_form", s),
+               "exact 7x7": ("exact", k7, "lut",
+                             sub.get_substrate("approx_cuda:exact"))}
+    for counter in g_counters.values():
         counter.reset()
-    g_err = max(
-        max_abs_err(fused_conv2d(conv.to_signed_pixels(tile_dev, 12), lap,
-                                 "proposed@12"),
-                    fused_conv2d_plain(conv.to_signed_pixels(tile_dev, 12),
-                                       taps_lap, "proposed@12")),
-        max_abs_err(conv.conv2d_batched(conv.to_signed_pixels(tile_dev, 8), k7, s),
-                    fused_conv2d_plain(conv.to_signed_pixels(tile_dev, 8),
-                                       taps_k7, "proposed")),
-        max_abs_err(conv.conv2d_batched(conv.to_signed_pixels(tile_dev, 8), k7,
-                                        sub.get_substrate("approx_cuda:exact")),
-                    fused_conv2d_plain(conv.to_signed_pixels(tile_dev, 8),
-                                       taps_k7, "exact", "lut")))
+    g_err, g_by_case = 0, {}
+    for case, (key, kern, kind, spec) in g_cases.items():
+        key = mult.canonical_key(key)
+        n = mult.split_width(key)[1]
+        px = conv.to_signed_pixels(tile_dev, n)
+        taps = tuple(tuple(int(c) for c in row) for row in kern)
+        before = fused_conv2d.tiled_launches.value
+        got = (fused_conv2d(px, kern, key) if spec is None
+               else conv.conv2d_batched(px, kern, spec))
+        torch.cuda.synchronize()
+        g_by_case[case] = fused_conv2d.tiled_launches.value - before
+        slots, prod, src = tiled_products(taps, key, kind, dev)
+        g_err = max(g_err, max_abs_err(got, fused_conv2d_plain(px, taps, key, kind)),
+                    max_abs_err(got, tiled_conv_plain(px, slots, prod, n,
+                                                      *np.shape(kern), src)))
     torch.cuda.synchronize()
-    g_launches = {"fused_conv2d": fused_conv2d.launches.value,
-                  "fused_conv2d_lut": fused_conv2d.lut_launches.value,
-                  "fused_conv2d_stencil": fused_conv2d.stencil_launches.value}
-    require(g_launches["fused_conv2d"] > 0 and g_launches["fused_conv2d_lut"] > 0
-            and g_launches["fused_conv2d_stencil"] == 0,
-            f"generic conv path launches {g_launches}")
-    require(g_err == 0, "generic conv path vs plain")
-    emit("generic_conv_path", shape=list(tile_dev.shape),
-         cases=["proposed@12 3x3", "proposed 7x7", "exact 7x7"],
-         launches=g_launches, max_abs_err=g_err, tolerance=0)
+    g_launches = {name: c.value for name, c in g_counters.items()}
+    require(g_launches == {"fused_conv2d": 3, "fused_conv2d_lut": 1,
+                           "fused_conv2d_stencil": 0, "fused_conv2d_tiled": 4,
+                           "fused_conv2d_generic": 0}
+            and set(g_by_case.values()) == {1},
+            f"tiled conv path launches {g_launches} {g_by_case}")
+    require(g_err == 0, "tiled conv path vs plain")
+    emit("generic_conv_path", shape=list(tile_dev.shape), cases=list(g_cases),
+         launches=g_launches, launches_by_case=g_by_case, max_abs_err=g_err,
+         tolerance=0, seconds=time.perf_counter() - t_generic)
 
     # the rows design of both contraction kernels, on the path that takes
     # it: dot_general at a dense layer's shape, (8 x 128 tokens x 64) @
@@ -4234,12 +4273,14 @@ def main() -> int:
     x = conv.to_signed_pixels(hd_u8, 8)
 
     def fused_times(key: str, kind: str) -> dict:
-        """Both designs of one product kind at the main path's shape, and
+        """Every design of one product kind at the main path's shape, and
         their plain versions: the stencil design through the public entry
-        point, the generic one through the private ``design=``."""
+        point, the tiled and generic ones through the private ``design=``."""
         slots, cols = fused_conv_columns(taps_lap, key, kind, dev)
         return {"stencil": time_ms(lambda: fused_conv2d(x, lap, key,
                                                         kernel_kind=kind)),
+                "tiled": time_ms(lambda: fc._launch(x, taps_lap, key, kind,
+                                                    design="tiled")),
                 "generic": time_ms(lambda: fc._launch(x, taps_lap, key, kind,
                                                       design="generic")),
                 "stencil_plain": time_ms(lambda: stencil_conv_plain(
@@ -4309,13 +4350,75 @@ def main() -> int:
     fl_lib_ms = time_ms(lambda: F.conv2d(xf, lap_f, padding=1))
     emit("fused_conv_designs", shape=list(x.shape), mult="exact", kind="lut",
          ms=fl_ms, library_ms=fl_lib_ms)
-    # the stencil design is what the served paths launch: it must beat the
-    # generic design by 10x in the closed-form kind, and be no slower than
-    # the generic design or F.conv2d in the LUT kind
-    require(fc_ms["generic"] >= 10 * fc_ms["stencil"]
-            and fl_ms["stencil"] <= min(fl_ms["generic"], fl_lib_ms),
+
+    # the tiled design at the main path's batch under the convs its paths
+    # run (widths 12 and 16, 7x7 kernels in both kinds): on the served
+    # frames and on uniform random codes, beside the generic design it
+    # replaces (forced) and the plain versions (one call each); the LUT
+    # kind's yardstick is one float32 cuDNN convolution (TF32 off: exact,
+    # since every |sum| < 2^24)
+    t_tiled = time.perf_counter()
+    tl_cases = {"@12": ("proposed@12", lap, "closed_form"),
+                "@16": ("proposed@16", lap, "closed_form"),
+                "7x7": ("proposed", k7, "closed_form"),
+                "lut,7x7": ("exact", k7, "lut")}
+    tl_ms, tl_err, tl_work = {}, {}, {}
+    for case, (key, kern, kind) in tl_cases.items():
+        key = mult.canonical_key(key)
+        n = mult.split_width(key)[1]
+        kh, kw = np.shape(kern)
+        taps = tuple(tuple(int(c) for c in row) for row in kern)
+        xs = conv.to_signed_pixels(hd_u8, n)
+        xr = torch.from_numpy(rng.integers(-(1 << (n - 1)), 1 << (n - 1), (b, h, w))
+                              .astype(np.int32)).to(dev)
+        slots, prod, src = tiled_products(taps, key, kind, dev)
+        tiled = fused_conv2d(xs, kern, key, kernel_kind=kind)
+        tl_err[case] = max(
+            max_abs_err(tiled, fc._launch(xs, taps, key, kind, design="generic")),
+            max_abs_err(tiled, tiled_conv_plain(xs, slots, prod, n, kh, kw, src)),
+            max_abs_err(fused_conv2d(xr, kern, key, kernel_kind=kind),
+                        tiled_conv_plain(xr, slots, prod, n, kh, kw, src)))
+        tl_ms[case] = {
+            "tiled": time_ms(lambda: fused_conv2d(xs, kern, key, kernel_kind=kind)),
+            "tiled_uniform_codes": time_ms(
+                lambda: fused_conv2d(xr, kern, key, kernel_kind=kind)),
+            "generic": time_ms(lambda: fc._launch(xs, taps, key, kind,
+                                                  design="generic")),
+            "tiled_plain": timed_once(lambda: tiled_conv_plain(
+                xs, slots, prod, n, kh, kw, src))[1],
+            "generic_plain": timed_once(lambda: fused_conv2d_plain(
+                xs, taps, key, kind))[1],
+            "source": src}
+        if kind == "lut":
+            xf7 = xs.to(torch.float32)[:, None]
+            k7_f = torch.from_numpy(kern.astype(np.float32))[None, None].to(dev)
+            tl_ms[case]["library"] = time_ms(lambda: F.conv2d(xf7, k7_f, padding=3))
+            require(torch.equal(F.conv2d(xf7, k7_f, padding=3)[:, 0].to(torch.int32),
+                                tiled),
+                    "F.conv2d differs from the fused LUT kind under exact 7x7")
+        distinct_c, tab_c = table_ops(kern, n)
+        # per input pixel one product per distinct tap, per output kh·kw-1 adds
+        tl_work[case] = (4 * (2 * b * h * w + kern.size),
+                         tab_c + b * h * w * (distinct_c + kern.size - 1))
+    emit("fused_conv_tiled", shape=[b, h, w], cases={
+        c: {"mult": tl_cases[c][0], "kernel": list(np.shape(tl_cases[c][1])),
+            "kind": tl_cases[c][2]} for c in tl_cases}, ms=tl_ms,
+         max_abs_err=tl_err, tolerance=0, seconds=time.perf_counter() - t_tiled)
+    # the stencil design is what the served paths launch: no slower than the
+    # tiled design at the served 8-bit Laplacian (both kinds), and in the LUT
+    # kind no slower than the generic design or F.conv2d; the tiled design,
+    # which took over the generic design's convs, at least 5x the generic
+    # design in the closed-form kind and, at exact 7x7, no slower than the
+    # generic LUT kind or F.conv2d
+    require(fc_ms["stencil"] <= fc_ms["tiled"] and fl_ms["stencil"] <= fl_ms["tiled"]
+            and fl_ms["stencil"] <= min(fl_ms["generic"], fl_lib_ms)
+            and all(tl_ms[c]["generic"] >= 5 * tl_ms[c]["tiled"]
+                    for c in ("@12", "@16", "7x7"))
+            and tl_ms["lut,7x7"]["tiled"] <= min(tl_ms["lut,7x7"]["generic"],
+                                                 tl_ms["lut,7x7"]["library"])
+            and set(tl_err.values()) == {0},
             f"fused conv designs: closed form {fc_ms}, lut {fl_ms}, "
-            f"F.conv2d {fl_lib_ms}")
+            f"F.conv2d {fl_lib_ms}, tiled {tl_ms} {tl_err}")
     require(torch.equal(F.conv2d(xf, lap_f, padding=1)[:, 0].to(torch.int32),
                         fused_conv2d(x, lap, "exact")),
             "F.conv2d differs from the fused LUT kind under exact")
@@ -4376,25 +4479,53 @@ def main() -> int:
     mm_shape, mr_shape, lm_shape = [1, pm, pk, 1], [1, hd_m, len(ring), 1], [1, hd_m, 1, 1]
 
     def fused_row(name, kind, design, launches_, launched_on, err, ms, library,
-                  key):
+                  key, kern=lap, bound=None):
         """A row of the kernels line for one design of one product kind of
-        the fused conv; both share the TPU kernel and the bound."""
+        the fused conv under ``kern`` (the Laplacian's bound unless given);
+        every design shares the TPU kernel."""
+        bound_, by = bound or (fc_bound, fc_by)
         return {"name": name, "route": "cuda",
-                "source": "src/repro_torch/csrc/fused_conv.cu",
+                "source": ("src/repro_torch/csrc/conv_tiles.cuh" if design == "tiled"
+                           else "src/repro_torch/csrc/fused_conv.cu"),
                 "replaces": "src/repro/kernels/fused_conv/kernel.py:55",
                 "launches": launches_, "max_abs_err": err, "ms": ms[design],
-                "plain_ms": ms[f"{design}_plain"], "bound_ms": fc_bound,
-                "bound_by": fc_by, "library_ms": library,
-                "shape": [b, h, w, 3, 3], "mult": key, "kind": kind,
+                "plain_ms": ms[f"{design}_plain"], "bound_ms": bound_,
+                "bound_by": by, "library_ms": library,
+                "shape": [b, h, w, *np.shape(kern)], "mult": key, "kind": kind,
                 "design": design, "launches_on": launched_on}
+
+    tl_names: dict = {}
+
+    def tiled_row(case: str) -> dict:
+        """The kernels row of the tiled design at one of its cases, with the
+        generic design's time beside it (forced) and its time on uniform
+        random codes."""
+        key, kern, kind = tl_cases[case]
+        err = max(tl_err[case], errs["fused_conv[tiled]"] if kind == "closed_form"
+                  else lut_errs["fused_conv_lut[tiled]"])
+        g_case = {"@12": "proposed@12 3x3", "@16": "proposed@16 3x3",
+                  "7x7": "proposed 7x7", "lut,7x7": "exact 7x7"}[case]
+        tl_names[case] = (f"fused_conv2d[{'lut,' if kind == 'lut' else ''}tiled,"
+                          f"{case.split(',')[-1]}]")
+        return dict(fused_row(tl_names[case], kind, "tiled",
+                              g_by_case[g_case], "generic_conv_path", err,
+                              tl_ms[case], tl_ms[case].get("library"),
+                              mult.canonical_key(key), kern,
+                              bound_ms(*tl_work[case])),
+                    generic_ms=tl_ms[case]["generic"],
+                    ms_uniform_codes=tl_ms[case]["tiled_uniform_codes"],
+                    product_source=tl_ms[case]["source"])
 
     kernels = [
         fused_row("fused_conv2d[stencil]", "closed_form", "stencil",
                   launches["fused_conv_stencil"], "main_path",
                   errs["fused_conv[stencil]"], fc_ms, None, "proposed"),
-        fused_row("fused_conv2d", "closed_form", "generic",
-                  g_launches["fused_conv2d"], "generic_conv_path",
-                  errs["fused_conv[generic]"], fc_ms, None, "proposed"),
+        dict(fused_row("fused_conv2d[generic]", "closed_form", "generic",
+                       g_launches["fused_conv2d_generic"],
+                       "generic_conv_path (must be 0)",
+                       errs["fused_conv[generic]"], fc_ms, None, "proposed"),
+             off_path=True),
+        tiled_row("@12"), tiled_row("@16"), tiled_row("7x7"),
         dict(contraction_row("closed_form_matmul", "tile",
                              w_launches["closed_form_matmul"],
                              "wide_contraction_path (must be 0)", mm_err, mm_ms,
@@ -4406,9 +4537,13 @@ def main() -> int:
         fused_row("fused_conv2d[lut,stencil]", "lut", "stencil",
                   e_launches["fused_conv2d_lut_stencil"], "uniform_exact_path",
                   lut_errs["fused_conv_lut[stencil]"], fl_ms, fl_lib_ms, "exact"),
-        fused_row("fused_conv2d[lut]", "lut", "generic",
-                  g_launches["fused_conv2d_lut"], "generic_conv_path",
-                  lut_errs["fused_conv_lut[generic]"], fl_ms, fl_lib_ms, "exact"),
+        dict(fused_row("fused_conv2d[lut,generic]", "lut", "generic",
+                       g_launches["fused_conv2d_generic"],
+                       "generic_conv_path (must be 0)",
+                       lut_errs["fused_conv_lut[generic]"], fl_ms, fl_lib_ms,
+                       "exact"),
+             off_path=True),
+        tiled_row("lut,7x7"),
         dict(contraction_row("closed_form_matmul[ring]", "tile",
                              w_launches["closed_form_matmul"],
                              "wide_contraction_path (must be 0)", mr_err, mr_ms,
@@ -4503,11 +4638,12 @@ def main() -> int:
                                            else k["launches"] > 0) for k in kernels),
             "every kernel exact and launched on its path")
     work = {"fused_conv2d[stencil]": (fc_bytes, fc_ops),
-            "fused_conv2d": (fc_bytes, fc_ops),
+            "fused_conv2d[generic]": (fc_bytes, fc_ops),
             "fused_conv2d[lut,stencil]": (fc_bytes, fc_ops),
             "closed_form_matmul": (mm_bytes, mm_ops),
             "closed_form_matmul[narrow]": (mm_bytes, mm_ops),
-            "fused_conv2d[lut]": (fc_bytes, fc_ops),
+            "fused_conv2d[lut,generic]": (fc_bytes, fc_ops),
+            **{tl_names[case]: tl_work[case] for case in tl_cases},
             "closed_form_matmul[ring]": (mr_bytes, mr_ops),
             "closed_form_matmul[ring,narrow]": (mr_bytes, mr_ops),
             "lut_matmul": (lm_bytes, lm_ops), "lut_matmul[narrow]": (lm_bytes, lm_ops),

@@ -12,17 +12,18 @@
 // (truncation loop, conversion term, compare-select error sums) read from
 // the block, and tensor cores cannot evaluate it. Where the coefficient is
 // fixed for a launch, the kernels tabulate it instead: cf_columns_kernel
-// below writes 2^n products per coefficient into an int16 column, and the
+// below writes 2^n products per coefficient into a column, and the
 // served designs read one column entry per product from shared memory
 // (approx_matmul.cu's narrow design through narrow_contract.cuh,
 // fused_conv.cu's stencil design), and cf_table_kernel writes the whole
 // 2^(2n)-entry product table once per wiring for approx_matmul.cu's decode
 // design (decode_contract.cuh). At widths 9..16 approx_matmul.cu's wide
 // design (wide_contract.cuh) runs the closed form's byte planes, taken apart
-// on the host from this block, on the INT8 tensor cores instead. Only
-// fused_conv's generic kernel (widths 9..16, conv kernels beyond 5x5) and
-// approx_matmul's tile design, which no path launches since the wide
-// design, still evaluate it once per product. All
+// on the host from this block, on the INT8 tensor cores instead, and
+// fused_conv.cu's tiled design (conv_tiles.cuh) reads int32 columns of it
+// (widths 9..16) or byte tables split from them. Only fused_conv's generic
+// kernel and approx_matmul's tile design, which no path launches since the
+// tiled and wide designs, still evaluate it once per product. All
 // arithmetic is on uint32 so that the int32 ring's wraparound is defined in
 // C++; signed values come back through the shift-based width wrap.
 //
@@ -90,20 +91,22 @@ __device__ __forceinline__ int32_t cf_product(int32_t a_in, int32_t b_in,
 
 namespace {
 
-// col[e] = f(x - 2^(n-1), b[e >> n]) with x = e & (2^n - 1): one int16
-// column of 2^n products per coefficient b[k] (n <= 8, so the products wrap
-// to 2n <= 16 bits and int16 is lossless). A column indexed by
-// (a + 2^(n-1)) & (2^n - 1) equals f(a, b[k]) for every int32 a, since
-// cf_product wraps its first operand to n bits before anything else.
+// col[e] = f(x - 2^(n-1), b[e >> n]) with x = e & (2^n - 1): one column of
+// 2^n products per coefficient b[k], int16 to width 8 (the products wrap to
+// 2n <= 16 bits, so int16 is lossless) and int32 at widths 9..16. A column
+// indexed by (a + 2^(n-1)) & (2^n - 1) equals f(a, b[k]) for every int32
+// a, since cf_product wraps its first operand to n bits before anything
+// else.
+template <typename T>
 __global__ void cf_columns_kernel(const int32_t* __restrict__ b,
-                                  int16_t* __restrict__ cols,
-                                  long long n_entries, const CFParams cf) {
+                                  T* __restrict__ cols, long long n_entries,
+                                  const CFParams cf) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (e >= n_entries) return;
   const int n = cf.p[0];
   const int32_t x = static_cast<int32_t>(e & ((1 << n) - 1)) - (1 << (n - 1));
-  cols[e] = static_cast<int16_t>(cf_product(x, b[e >> n], cf));
+  cols[e] = static_cast<T>(cf_product(x, b[e >> n], cf));
 }
 
 // table[e] = f(xa - 2^(n-1), xb - 2^(n-1)) with xa = e >> n, xb = e & (2^n - 1):

@@ -1,4 +1,4 @@
-// Fused 'same' convolution under an approximate multiplier: two designs,
+// Fused 'same' convolution under an approximate multiplier: three designs,
 // each in two product kinds.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_conv/kernel.py,
@@ -17,7 +17,7 @@
 // indexed by (x + 2^(n-1)) & (2^n - 1) for every int32 x; a pixel then
 // costs a few column reads and adds. The wrapper (kernels/fused_conv/ops.py)
 // picks the design from the width, the kernel size and the distinct taps
-// (stencil_design):
+// (stencil_design, then the tiled design for everything else):
 //
 // * stencil (width <= 8, kh and kw <= 5; every served conv, both kinds):
 //   fused_conv_stencil_kernel<KH, KW> reads D int16 columns, one per
@@ -49,7 +49,15 @@
 //   zero operands (the JAX kernel, which zero-pads, counts that term too).
 //   Ragged W (W % 4 != 0) or an unaligned base takes scalar loads and
 //   stores in the same kernel.
-// * generic (the closed form at widths 9..16, kernels beyond 5 x 5):
+// * tiled (the closed form at widths 9..16, kernels beyond 5 x 5 to
+//   16 x 16, both kinds): fused_conv_tiled_kernel<KH, SRC> in
+//   conv_tiles.cuh (design and bound in its header): persistent blocks,
+//   output tiles whose input and halo arrive by cp.async, products read per
+//   staged pixel from int16 columns (width <= 8), int32 columns
+//   (cf_columns_kernel) or int32 byte tables (widths 9..16), each formed
+//   once per run of equal taps down a kernel column and added into a
+//   thread's column of row sums.
+// * generic (forced only; no path launches it since the tiled design):
 //   fused_conv_kernel evaluates the closed form for every pixel x tap, one
 //   thread per output pixel (on the order of a hundred integer operations
 //   per product, so INT32 ALU throughput bounds it), and
@@ -64,8 +72,9 @@
 #include <cstring>
 
 #include "closed_form.cuh"
+#include "conv_tiles.cuh"
 
-// -- the generic design -------------------------------------------------------
+// -- the generic design (forced only) -----------------------------------------
 
 #define FC_MAX_TAPS 256
 
@@ -444,22 +453,71 @@ extern "C" int fused_conv2d_stencil_launch(const void* x, void* out, int B,
 }
 
 // The closed-form kind's columns: cols[d][x] = f(x - 2^(n-1), coeffs[d]),
-// n_cols x 2^n int16 on the card, written here. coeffs: n_cols int32 on the
-// card; params: CF_PARAM_LEN host int32 (its width n <= 8). Returns
-// cudaGetLastError().
+// n_cols x 2^n on the card, written here: int16 at widths to 8, int32 at
+// 9..16 (the tiled design's). coeffs: n_cols int32 on the card; params:
+// CF_PARAM_LEN host int32. Returns cudaGetLastError().
 extern "C" int fused_conv2d_columns_launch(const void* coeffs, void* cols,
                                            int n_cols, const void* params,
                                            void* stream) {
   CFParams cf;
   std::memcpy(cf.p, params, sizeof(cf.p));
   const int n = cf.p[0];
-  if (n < 1 || n > ST_MAX_BITS || n_cols < 1 || n_cols > (1 << n)) {
+  if (n < 1 || n > 16 || n_cols < 1 || n_cols > (1 << std::min(n, 8))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long n_entries = static_cast<long long>(n_cols) << n;
-  cf_columns_kernel<<<static_cast<unsigned>((n_entries + 255) / 256), 256, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(coeffs), static_cast<int16_t*>(cols),
-      n_entries, cf);
+  const unsigned grid = static_cast<unsigned>((n_entries + 255) / 256);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* c = static_cast<const int32_t*>(coeffs);
+  if (n <= ST_MAX_BITS) {
+    cf_columns_kernel<<<grid, 256, 0, st>>>(c, static_cast<int16_t*>(cols),
+                                            n_entries, cf);
+  } else {
+    cf_columns_kernel<<<grid, 256, 0, st>>>(c, static_cast<int32_t*>(cols),
+                                            n_entries, cf);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tiled design, both kinds. x, out: contiguous (B, H, W) int32 on the
+// card. slots: kh*kw host uint8, the column of each tap (row-major); prod:
+// the product data of source `source` (TL_COL16 .. TL_BYTES_G in
+// conv_tiles.cuh) on the card, n_cols taps of 2^n_bits entries (columns)
+// or 256 + 2^(n_bits - 8) entries (byte tables, n_bits 9..16). Takes
+// 16-byte copies where W % 4 == 0 and x is 16-byte aligned, else 4-byte
+// copies. Returns cudaGetLastError().
+extern "C" int fused_conv2d_tiled_launch(const void* x, void* out, int B,
+                                         int H, int W, const void* slots,
+                                         int kh, int kw, const void* prod,
+                                         int n_cols, int n_bits, int source,
+                                         void* stream) {
+  const bool bytes = source == TL_BYTES || source == TL_BYTES_G;
+  if (kh < 1 || kw < 1 || kh > TL_MAX_K || kw > TL_MAX_K || B < 1 || H < 1 ||
+      W < 1 || n_bits < 1 || n_bits > 16 || n_cols < 1 || n_cols > kh * kw ||
+      source < TL_COL16 || source > TL_BYTES_G ||
+      (source == TL_COL16) != (n_bits <= 8) || (bytes && n_bits < 9) ||
+      static_cast<long long>(B) * H * W >= (1LL << 40)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  TiledTaps t;
+  std::memset(&t, 0, sizeof(t));
+  t.kh = kh;
+  t.kw = kw;
+  t.n_bits = n_bits;
+  t.n_cols = n_cols;
+  t.stride = bytes ? 256 + (1 << (n_bits - 8)) : 1 << n_bits;
+  const uint8_t* s = static_cast<const uint8_t*>(slots);
+  for (int i = 0; i < kh * kw; ++i) {
+    if (s[i] >= n_cols) return static_cast<int>(cudaErrorInvalidValue);
+    t.slot[i] = s[i];
+  }
+  for (int dj = 0; dj < kw; ++dj) {
+    for (int di = 1; di < kh; ++di) {
+      if (s[di * kw + dj] == s[(di - 1) * kw + dj]) t.run[dj] |= 1u << di;
+    }
+  }
+  const int vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  return static_cast<int>(tiled_contract(
+      source, static_cast<const int32_t*>(x), static_cast<int32_t*>(out), B, H,
+      W, prod, t, vec, static_cast<cudaStream_t>(stream)));
 }

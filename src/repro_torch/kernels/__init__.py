@@ -4,8 +4,9 @@
   block that ``csrc/closed_form.cuh`` evaluates on the card;
 * ``fused_conv`` — batched 'same' conv with every product through the
   closed form or a product table (``csrc/fused_conv.cu``), in a stencil
-  design (per-tap product columns, row strips) and a generic design,
-  picked by ``fused_conv.ops.stencil_design``;
+  design (per-tap product columns, row strips), a tiled design (output
+  tiles staged by ``cp.async``, ``csrc/conv_tiles.cuh``) and a generic
+  design, picked by ``fused_conv.ops.conv_design``;
 * ``approx_matmul`` — batched contraction with every product through the
   closed form (``csrc/approx_matmul.cu``);
 * ``lut_matmul`` — the same with every product read from a product table
@@ -29,5 +30,6 @@ tensor; ``<wrapper>.launches`` counts kernel launches (per design or kind:
 ``.narrow_launches``, ``.decode_launches``, ``.rows_launches``,
 ``lut_matmul.tensor_launches``,
 ``fused_conv2d.lut_launches``,
-``fused_conv2d.stencil_launches``).
+``fused_conv2d.stencil_launches``, ``.tiled_launches``,
+``.generic_launches``).
 """

@@ -429,32 +429,145 @@ def test_stencil_columns_on_the_card_equal_the_cpu(dev):
 
 
 def test_generic_design_at_width_12_and_beyond_the_limit(dev):
-    """The generic design keeps the closed form at width 12 and kernels
-    beyond 5 x 5, in both kinds; the private design= runs either design at
-    one shape, and both agree."""
+    """Width 12 and kernels beyond 5 x 5 take the tiled design in both
+    kinds (the generic design, which took them before, launches 0 times);
+    the private design= runs every design at one shape, and all agree."""
     x = torch.from_numpy(RNG.integers(-2048, 2048, (2, 37, 70)).astype(np.int32)).to(dev)
     big = RNG.integers(-100, 100, (7, 7)).astype(np.int32)
     cases = (("proposed@12", conv.LAPLACIAN, "closed_form"),
              ("proposed", big, "closed_form"), ("exact", big, "lut"))
     for key, kern, kind in cases:
         key = mult.canonical_key(key)
-        counter = fused_conv2d.lut_launches if kind == "lut" else fused_conv2d.launches
-        before = (fused_conv2d.stencil_launches.value, counter.value)
+        counters = (fused_conv2d.stencil_launches, fused_conv2d.tiled_launches,
+                    fused_conv2d.generic_launches,
+                    fused_conv2d.lut_launches if kind == "lut" else fused_conv2d.launches)
+        before = [c.value for c in counters]
         got = fused_conv2d(x, kern, key, kernel_kind=kind)
         torch.cuda.synchronize()
-        assert (fused_conv2d.stencil_launches.value, counter.value) == (
-            before[0], before[1] + 1), key
+        assert [c.value - b for c, b in zip(counters, before)] == [0, 1, 0, 1], key
         torch.testing.assert_close(
             got, fused_conv2d_plain(x, _conv_taps(kern), key, kind), rtol=0, atol=0)
+        generic = fc._launch(x, _conv_taps(kern), key, kind, design="generic")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, generic, rtol=0, atol=0)
     for key, kind in (("proposed", "closed_form"), ("exact", "lut")):
         taps = _conv_taps(conv.LAPLACIAN)
         stencil = fc._launch(x, taps, key, kind, design="stencil")
+        tiled = fc._launch(x, taps, key, kind, design="tiled")
         generic = fc._launch(x, taps, key, kind, design="generic")
         torch.cuda.synchronize()
         torch.testing.assert_close(stencil, generic, rtol=0, atol=0)
+        torch.testing.assert_close(tiled, generic, rtol=0, atol=0)
     with pytest.raises(ValueError, match="stencil design does not take"):
         fc._launch(x, _conv_taps(conv.LAPLACIAN), "proposed@12", "closed_form",
                    design="stencil")
+
+
+# -- the tiled design of the fused conv ----------------------------------------
+
+TILED_SHAPES = [(1, 1, 1), (1, 13, 17), (2, 33, 64), (3, 70, 129), (2, 65, 1924)]
+
+
+def _tiled_and_twin(x, kern, key, kind, source=None):
+    """(tiled launch, its plain twin on the same product data, the plain
+    version) of one conv; the launch is checked on its counters (forced
+    sources through the private launch) and synchronised."""
+    key = mult.canonical_key(key)
+    taps = _conv_taps(kern)
+    counters = (fused_conv2d.tiled_launches, fused_conv2d.stencil_launches,
+                fused_conv2d.generic_launches)
+    before = [c.value for c in counters]
+    got = (fused_conv2d(x, kern, key, kernel_kind=kind) if source is None
+           else fc._launch(x, taps, key, kind, design="tiled", source=source))
+    torch.cuda.synchronize()
+    assert [c.value - b for c, b in zip(counters, before)] == [1, 0, 0], (key, kind)
+    slots, prod, src = fc.tiled_products(taps, key, kind, x.device, source)
+    twin = fc.tiled_conv_plain(x, slots, prod, mult.split_width(key)[1],
+                               len(taps), len(taps[0]), src)
+    return got, twin, fused_conv2d_plain(x, taps, key, kind)
+
+
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+@pytest.mark.parametrize("width", [9, 12, 14, 16])
+def test_tiled_widths_every_source(dev, shape, width):
+    """The closed form at widths 9..16 under the Laplacian and a random 5 x 5
+    kernel, pixels anywhere in int32: the public call and every product
+    source forced, each against the twin on its data and the plain
+    version."""
+    key = f"proposed@{width}"
+    x = torch.from_numpy(RNG.integers(-2**31, 2**31, shape, dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    k5 = RNG.integers(-3 << width, 3 << width, (5, 5)).astype(np.int32)
+    for kern in (conv.LAPLACIAN, k5):
+        got, twin, plain = _tiled_and_twin(x, kern, key, "closed_form")
+        torch.testing.assert_close(got, twin, rtol=0, atol=0)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+        distinct = len(fc._wrapped_taps(_conv_taps(kern), width)[0])
+        for source in ("columns32", "columns32_global", "bytes", "bytes_global"):
+            if source == "columns32" and distinct * (4 << width) > 160 << 10:
+                continue  # beyond shared memory: the launch is refused
+            got_s, twin_s, _ = _tiled_and_twin(x, kern, key, "closed_form", source)
+            torch.testing.assert_close(got_s, twin_s, rtol=0, atol=0)
+            torch.testing.assert_close(got_s, plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+@pytest.mark.parametrize("k", [(6, 6), (7, 7), (9, 9), (16, 16), (1, 7), (11, 2)])
+def test_tiled_large_kernels_both_kinds(dev, shape, k):
+    """Kernels beyond 5 x 5 at width 8 with as many distinct taps as they
+    have, both kinds, against the twin, the plain version and the forced
+    generic design."""
+    x = torch.from_numpy(RNG.integers(-2**31, 2**31, shape, dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    kern = RNG.permutation(np.arange(-128, 128))[:k[0] * k[1]].reshape(k).astype(np.int32)
+    for key in ("proposed", "csp_axc1@6", "exact"):
+        for kind in (("lut",) if key == "exact" else ("closed_form", "lut")):
+            got, twin, plain = _tiled_and_twin(x, kern, key, kind)
+            torch.testing.assert_close(got, twin, rtol=0, atol=0)
+            torch.testing.assert_close(got, plain, rtol=0, atol=0)
+            generic = fc._launch(x, _conv_taps(kern), mult.canonical_key(key), kind,
+                                 design="generic")
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, generic, rtol=0, atol=0)
+
+
+def test_tiled_takes_an_unaligned_view_and_the_zero_border(dev):
+    """A view with a storage offset of 4 bytes takes 4-byte copies; a zero
+    batch answers the sum over the taps of f(0, c) everywhere."""
+    b, h, w = 2, 41, 64
+    base = torch.from_numpy(RNG.integers(-2048, 2048, 1 + b * h * w)
+                            .astype(np.int32)).to(dev)
+    x = base[1:].view(b, h, w)
+    assert x.data_ptr() % 16
+    k7 = RNG.integers(-100, 100, (7, 7)).astype(np.int32)
+    for key, kern, kind in (("proposed@12", conv.LAPLACIAN, "closed_form"),
+                            ("proposed@16", k7, "closed_form"), ("exact", k7, "lut")):
+        got, twin, plain = _tiled_and_twin(x, kern, key, kind)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+        torch.testing.assert_close(
+            got, fused_conv2d(x.contiguous().clone(), kern, key, kernel_kind=kind),
+            rtol=0, atol=0)
+        z = torch.zeros((2, 9, 20), dtype=torch.int32, device=dev)
+        got, twin, plain = _tiled_and_twin(z, kern, key, kind)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+        if key != "exact":  # the exact product has f(0, c) = 0
+            assert (got != 0).all()
+
+
+def test_tiled_product_data_on_the_card_equals_the_cpu(dev):
+    """The int32 columns (the column kernel) and the byte tables split from
+    them equal those built on the CPU, for every wiring at widths 9, 12 and
+    16."""
+    taps = _conv_taps(RNG.integers(-2**15, 2**15, (3, 3)))
+    for name in sorted(mult.WIRINGS):
+        for n in (9, 12, 16):
+            key = mult.canonical_key(f"{name}@{n}")
+            for build_ in (fc.fused_conv_columns32, fc.fused_conv_byte_tables):
+                s_card, p_card = build_(taps, key, dev)
+                torch.cuda.synchronize()
+                s_cpu, p_cpu = build_(taps, key, "cpu")
+                np.testing.assert_array_equal(s_card, s_cpu)
+                assert torch.equal(p_card.cpu(), p_cpu), (key, build_.__name__)
 
 
 @pytest.mark.parametrize("spec", ["approx_cuda", "approx_cuda:exact"])

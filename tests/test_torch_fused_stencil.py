@@ -226,7 +226,8 @@ def test_columns_built_once_closed_form_equals_table():
 def test_stencil_design_chooser():
     """Every served conv (the 3×3 Laplacian: 2 distinct taps at widths 6
     and 8, both kinds) takes the stencil design; width 12 (the closed form
-    serves widths to 16) and kernels beyond 5×5 keep the generic design."""
+    serves widths to 16) and kernels beyond 5×5 take the tiled design, the
+    generic design only kernels beyond 16 rows or columns."""
     lap = _taps(conv.LAPLACIAN)
     for key in ("proposed", "exact", "csp_axc1@6", "proposed@3"):
         n = mult.split_width(key)[1]
@@ -238,6 +239,12 @@ def test_stencil_design_chooser():
     assert not stencil_design(9, 3, 3, 2)
     for kh, kw in ((7, 7), (6, 1), (3, 6), (16, 16)):
         assert not stencil_design(8, kh, kw, 2)
+        assert fc.conv_design(_taps(np.ones((kh, kw), np.int32)), "proposed") == "tiled"
+    for key in ("proposed@9", "proposed@12", "proposed@16"):
+        assert fc.conv_design(lap, key) == "tiled"
+    for key in ("proposed", "exact", "csp_axc1@6"):
+        assert fc.conv_design(lap, key) == "stencil"
+    assert fc.conv_design(_taps(np.ones((1, 17), np.int32)), "proposed") == "generic"
     assert fc.STENCIL_MAX_K == 5 and fc.STENCIL_MAX_BITS == 8
     x = torch.zeros((1, 4, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="stencil design does not take"):
@@ -254,7 +261,8 @@ def test_cpu_tensors_run_the_generic_plain_version():
     either design's shape."""
     imgs = torch.from_numpy(RNG.integers(-128, 128, (2, 9, 12)).astype(np.int32))
     counters = (fused_conv2d.launches, fused_conv2d.lut_launches,
-                fused_conv2d.stencil_launches)
+                fused_conv2d.stencil_launches, fused_conv2d.tiled_launches,
+                fused_conv2d.generic_launches)
     before = [c.value for c in counters]
     for key in ("proposed", "exact", "proposed@12"):
         got = fused_conv2d(imgs, conv.LAPLACIAN, key)
